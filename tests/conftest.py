@@ -27,3 +27,9 @@ else:
         "ci", deadline=None, max_examples=25,
         suppress_health_check=[HealthCheck.too_slow, HealthCheck.data_too_large])
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card of compute capability 9.0 "
+        "(H100); skips where there is none")
