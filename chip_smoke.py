@@ -7,26 +7,42 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a);
-2. the main path, through the entry points a user calls, with every kernel
-   launch counter set to 0 just before and read just after:
-   * the clustered workload at n=18 (2^21 triples per array, ~164k x 165k
-     keys): ``from_triples``, a row ``Range`` selection, ``A + B``,
-     ``A @ B`` (planned ``bsr``), ``A.sqout(reduce=1)`` and
-     ``(A.lazy()[sel, :] @ B.lazy()).sum(axis=1).collect()``;
-   * the paper's uniform workload at n=12: ``A.matmul(B)`` under
-     ``PLUS_TIMES`` and ``MIN_PLUS`` (planned ``dense``);
-   every kernel must have launched at least once;
+2. three paths, through the entry points a user calls, each with every
+   kernel launch counter set to 0 just before it and read just after:
+   * the main path: the clustered workload at n=18 (2^21 triples per
+     array, ~164k x 165k keys): ``from_triples``, a row ``Range``
+     selection, ``A + B``, ``A @ B`` (planned ``bsr``),
+     ``A.sqout(reduce=1)`` and
+     ``(A.lazy()[sel, :] @ B.lazy()).sum(axis=1).collect()``; then the
+     paper's uniform workload at n=12: ``A.matmul(B)`` under
+     ``PLUS_TIMES`` and ``MIN_PLUS``, ``A.sqout(reduce=1)``,
+     ``A.matmul_reduce(B, axis=0)`` and the same lazy pipeline (all
+     planned ``dense``); every kernel of the path must have launched;
+   * the ingest path: the uniform workload at n=15 (262,144 triples per
+     array, ~32.8k x 32.8k keys) as an ``IngestTable`` over A that takes
+     B in 16 batches, with snapshots (merge-on-read) after batch 8 and
+     16, a row ``Range`` selection on the snapshot, ``compact()``, one
+     more batch and a snapshot, for ``aggregate="sum"`` and ``"max"``;
+     ``rank_count`` must launch twice per merge;
+   * the ingest fallback: the clustered n=18 A as a base takes B's first
+     65,536 triples; its keyspace is too large to linearize into int32,
+     so the merge is concat + dedup and ``rank_count`` must not launch;
 3. the results held against the host ``Assoc`` (numpy/scipy): counts,
-   checksums and reduced vectors at n=18, every entry at n=12 and on a
-   clustered n=14 run;
-4. each kernel against its plain torch version on the card, on inputs of the
-   main path's shapes, under all six semirings.  The inputs are multiples
-   of 1/4 in [1/4, 2], so every fp32 product and sum is exact in any order:
-   the tolerance is 0 for every semiring;
+   checksums and reduced vectors at n=18, every entry at n=12, on a
+   clustered n=14 run and of every ingest snapshot;
+4. each kernel against its plain torch version on the card, on inputs of
+   the main path's shapes, under all six semirings where a semiring
+   applies.  The matmul inputs are multiples of 1/4 in [1/4, 2], so every
+   fp32 product and sum is exact in any order: the tolerance is 0 for
+   every semiring.  ``bsr_spgemm`` and ``bsr_spgemm_reduce`` are held at
+   4096^3 both with a seeded mask that keeps about 1/4 of A's tiles and
+   with the all-present mask of uniform n=12;
 5. CUDA-event times (plus_times) of each kernel, its plain version and one
    PyTorch library yardstick, beside the least time the card could take;
-   then ``A @ B``, ``A.sqout(reduce=1)`` and the uniform ``A.matmul(B)``
-   once more under ``spgemm.stage_timing()``, for where their time goes.
+   then ``A @ B``, ``A.sqout(reduce=1)``, the uniform ``A.matmul(B)``,
+   the uniform ``A.sqout(reduce=1)`` and two ingest snapshots (n=15 and
+   the n=18 fallback) once more under ``spgemm.stage_timing()``, for
+   where their time goes.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -52,6 +68,11 @@ FP32_FLOP_PER_S = 67e12
 DEVICE = "cuda:0"
 N_UNIFORM = 12      # the paper's uniform workload, planned dense
 N_FULL = 14         # the clustered size compared entry by entry
+N_INGEST = 15       # the largest uniform size whose keys linearize to int32
+N_FALLBACK = 65536  # triples of B inserted over the clustered A
+MAIN_PATH_KERNELS = ("range_mask", "bsr_pairlist", "bsr_pairlist_reduce",
+                     "semiring_matmul", "bsr_spgemm_reduce")
+INGEST_PATH_KERNELS = ("rank_count", "range_mask")
 SEMIRINGS = ("plus_times", "max_plus", "min_plus", "max_min", "max_times",
              "and_or")
 
@@ -134,21 +155,70 @@ def pairlist_inputs(a, b, axis, gen):
 
 def dense_inputs(a, b, gen):
     """The dense strategy's operands (densified adjacencies) with random
-    quarter values on the stored entries, per semiring zero."""
+    quarter values on the stored entries, per semiring zero, and A's
+    block mask as ``matmul_reduce`` builds it."""
     import torch
 
     from repro_torch.core import spgemm
     from repro_torch.core.semiring import PLUS_TIMES
+    from repro_torch.kernels.bsr_spgemm.ops import make_block_mask
 
     a, b, _ = spgemm._contraction_aligned(a, b, PLUS_TIMES)
     da, db = spgemm._densify_aligned(a.logical(), b.logical(), PLUS_TIMES)
+    mask = make_block_mask(a.rows, a.cols, a.valid_mask(),
+                           da.shape[0] // 128, da.shape[1] // 128)
     qa = quarter_values(da.numel(), gen, da.device).view_as(da)
     qb = quarter_values(db.numel(), gen, db.device).view_as(db)
 
     def operands(sr):
         z = torch.tensor(sr.zero, device=da.device)
         return torch.where(da != 0, qa, z), torch.where(db != 0, qb, z)
-    return operands, (da.shape[0], da.shape[1], db.shape[1])
+    return operands, mask, (da.shape[0], da.shape[1], db.shape[1])
+
+
+def masked_inputs(gen, device, size=4096):
+    """Block-masked operands at ``size``^3: a seeded mask keeping about 1/4
+    of A's tiles, and random quarter values on 1/16 of the entries of A
+    (absent tiles included, which the kernels must skip) and of B.  At
+    that density every fp32 sum of the reduce stays below 2^20, so it is
+    exact in any order."""
+    import torch
+    nb = size // 128
+    mask = (torch.rand((nb, nb), generator=gen) < 0.25).to(torch.int32)
+    qa = quarter_values(size * size, gen, device).view(size, size)
+    qb = quarter_values(size * size, gen, device).view(size, size)
+    pa = (torch.rand((size, size), generator=gen) < 1 / 16).to(device)
+    pb = (torch.rand((size, size), generator=gen) < 1 / 16).to(device)
+
+    def operands(sr):
+        z = torch.tensor(sr.zero, device=device)
+        return torch.where(pa, qa, z), torch.where(pb, qb, z)
+    return operands, mask.to(device)
+
+
+def rank_count_inputs(raw, base):
+    """The linearized (row, col) keys that the ingest path's full
+    snapshot hands ``rank_count``: the base's and the delta's unique keys
+    on the union keyspaces, sorted and sentinel-padded to the base's
+    capacity and to the delta buffer's (a power of two)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import KeySpace
+    from repro_torch.core.coo import SENT
+    from repro_torch.ingest.table import _next_pow2
+    rows, cols, rows2, cols2, _ = raw
+    rs = KeySpace(np.concatenate([rows, rows2]))
+    cs = KeySpace(np.concatenate([cols, cols2]))
+
+    def keys(r, c, cap):
+        k = np.unique(rs.rank(r)[0].astype(np.int64) * len(cs)
+                      + cs.rank(c)[0])
+        out = np.full(cap, SENT, np.int32)
+        out[:len(k)] = k
+        return torch.from_numpy(out).to(base.device)
+    return (keys(rows, cols, base.capacity),
+            keys(rows2, cols2, _next_pow2(len(rows2))))
 
 
 def max_err(got, want) -> float:
@@ -177,8 +247,12 @@ def main() -> int:
         return 2
     try:
         from repro_torch import main_path
+        import numpy as np
+
         from repro_torch.core import (DISPATCH_STATS, PLAN_STATS, REGISTRY,
-                                      reset_all_stats, spgemm)
+                                      clear_union_cache, reset_all_stats,
+                                      spgemm)
+        from repro_torch.ingest import IngestTable
         from repro_torch.core.select import compile_selector
         from repro_torch.kernels import LAUNCHES, cuda_lib, reset_launch_counts
         from repro_torch.kernels.bsr_spgemm import ops as bsr_ops
@@ -187,6 +261,8 @@ def main() -> int:
         from repro_torch.kernels.range_extract.ref import range_mask_ref
         from repro_torch.kernels.semiring_matmul import ops as sm_ops
         from repro_torch.kernels.semiring_matmul.ref import semiring_matmul_ref
+        from repro_torch.kernels.sorted_merge import ops as rc_ops
+        from repro_torch.kernels.sorted_merge.ref import rank_count_ref
     except ImportError as exc:
         print(f"chip_smoke: the port (src/repro_torch) is not importable "
               f"next to this script: {exc}", file=sys.stderr)
@@ -225,25 +301,68 @@ def main() -> int:
                         **{f"uniform_{k}": v
                            for k, v in res_u["seconds"].items()}}
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    report["launches"] = launches
+    report["launches"] = {"main": launches}
     report["dispatch_stats"] = dict(DISPATCH_STATS)
     report["plan_stats"] = dict(PLAN_STATS)
     log(f"[main path] clustered n={gen_n}, uniform n={uni_n}: "
         f"{report['main_path_s']:.1f} s, peak {report['peak_mem_gb']:.1f} GB")
     log("[main path] step seconds " + json.dumps(report["step_s"]))
     log(f"[main path] launches {launches}  dispatch {dict(DISPATCH_STATS)}")
-    for k, v in launches.items():
-        if v < 1:
+    for k in MAIN_PATH_KERNELS:
+        if launches[k] < 1:
             failures.append(f"kernel {k} was not launched on the main path")
     if DISPATCH_STATS["range"] < 1:
         failures.append("the row Range selection did not take the range path")
     nnz = {k: int(res[k].nnz) for k in ("select", "add", "matmul")}
     log(f"[main path] nnz {nnz}, sqout vector {tuple(res['sqout_reduce'].shape)}")
 
+    # the ingest path at n=15: merge-on-read through rank_count
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ing = main_path.build_ingest(N_INGEST, dev)
+    res_i = main_path.drive_ingest(ing)
+    torch.cuda.synchronize()
+    ing_launches = dict(LAUNCHES)
+    report["ingest_path_s"] = time.perf_counter() - t0
+    report["launches"]["ingest"] = ing_launches
+    merges = sum(r["stats"]["merges"]
+                 for r in res_i["per_aggregate"].values())
+    report["ingest_step_s"] = {agg: r["seconds"] for agg, r in
+                               res_i["per_aggregate"].items()}
+    space = ing["bases"]["sum"]
+    log(f"[ingest path] uniform n={N_INGEST}: base {int(space.nnz)} of "
+        f"{space.capacity} triples over {len(space.row_space)} x "
+        f"{len(space.col_space)} keys, {res_i['batches']} batches of "
+        f"{res_i['batch']}: {report['ingest_path_s']:.1f} s")
+    log("[ingest path] step seconds " + json.dumps(report["ingest_step_s"]))
+    log(f"[ingest path] launches {ing_launches}, merges {merges}")
+    if not (merges >= 1 and ing_launches["rank_count"] == 2 * merges):
+        failures.append(f"rank_count launched {ing_launches['rank_count']} "
+                        f"times for {merges} merges (want 2 per merge)")
+    for k in INGEST_PATH_KERNELS:
+        if ing_launches[k] < 1:
+            failures.append(f"kernel {k} was not launched on the ingest path")
+
+    # the ingest fallback at clustered n=18: concat + dedup, no rank_count
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_f = main_path.drive_ingest_fallback(clus["A"], clus["raw"],
+                                            N_FALLBACK)
+    torch.cuda.synchronize()
+    fb_launches = dict(LAUNCHES)
+    report["fallback_s"] = time.perf_counter() - t0
+    report["launches"]["fallback"] = fb_launches
+    log(f"[ingest fallback] clustered n={gen_n} + {N_FALLBACK} triples: "
+        f"{report['fallback_s']:.2f} s, launches {fb_launches}")
+    if fb_launches["rank_count"] != 0:
+        failures.append("rank_count launched on the concat fallback")
+
     # -- phase 3: host checks --------------------------------------------------
     t0 = time.perf_counter()
     checks = main_path.check_clustered(clus["raw"], res, full=False)
     checks += main_path.check_uniform(uni["raw"], res_u, full=True)
+    checks += main_path.check_ingest(ing["raw"], res_i)
+    checks += main_path.check_ingest_fallback(clus["raw"], res_f)
     small = main_path.build_clustered(N_FULL, dev)
     res_s = main_path.drive_clustered(small["A"], small["B"])
     checks += [(f"n={N_FULL} {name}", ok, det) for name, ok, det in
@@ -264,8 +383,16 @@ def main() -> int:
     mm_plan, mm_tiles, mm_pairs, n_c = pairlist_inputs(a, b, None, gen)
     at_ = a.transpose()
     rd_plan, rd_tiles, rd_pairs, n_o = pairlist_inputs(a, at_, 1, gen)
-    dn_ops, (dm, dk, dn) = dense_inputs(uni["A"], uni["B"], gen)
-    errs = {}
+    dn_ops, uni_mask, (dm, dk, dn) = dense_inputs(uni["A"], uni["B"], gen)
+    mk_ops, mk_mask = masked_inputs(gen, dev)
+    rk_i, rk_j = rank_count_inputs(ing["raw"], ing["bases"]["sum"])
+    errs = {"rank_count": {}}
+    for label, (p, q) in (("base keys in delta keys", (rk_i, rk_j)),
+                          ("delta keys in base keys", (rk_j, rk_i))):
+        got = rc_ops.rank_count_cuda(p, q)
+        want = rank_count_ref(p, q)
+        errs["rank_count"][label] = max(max_err(got[0], want[0]),
+                                        max_err(got[1], want[1]))
     got = rm_ops.range_mask_cuda(*rm_in)
     errs["range_mask"] = {"-": max_err(got, range_mask_ref(*rm_in))}
     for name in SEMIRINGS:
@@ -288,6 +415,21 @@ def main() -> int:
             bsr_ref.bsr_pairlist_reduce_ref(at, bt, *rd_pairs, n_o=n_o,
                                             axis=1, semiring=sr))
         del at, bt
+        for label, make, mask in (("1/4 mask", mk_ops, mk_mask),
+                                  ("n=12 mask", dn_ops, uni_mask)):
+            x, y = make(sr)
+            e = errs.setdefault("bsr_spgemm", {})
+            e[f"{name} {label}"] = max_err(
+                bsr_ops.bsr_spgemm_cuda(x, mask, y, sr=sr),
+                bsr_ref.bsr_spgemm_ref(x, mask, y, semiring=sr))
+            e = errs.setdefault("bsr_spgemm_reduce", {})
+            for axis in (0, 1):
+                e[f"{name} {label} axis={axis}"] = max_err(
+                    bsr_ops.bsr_spgemm_reduce(x, mask, y, axis=axis,
+                                              semiring=sr, impl="cuda"),
+                    bsr_ref.bsr_spgemm_reduce_ref(x, mask, y, axis=axis,
+                                                  semiring=sr))
+        del x, y
     torch.cuda.synchronize()
     for k, per in errs.items():
         worst = max(per.values())
@@ -301,7 +443,10 @@ def main() -> int:
         f"{dm}x{dk}x{dn}; bsr_pairlist {len(mm_plan.pair_a)} pairs, "
         f"{len(mm_plan.a_blocks)}+{len(mm_plan.b_blocks)} tiles -> {n_c}; "
         f"bsr_pairlist_reduce {len(rd_plan.pair_a)} pairs, "
-        f"{len(rd_plan.a_blocks)}+{len(rd_plan.b_blocks)} tiles -> {n_o}")
+        f"{len(rd_plan.a_blocks)}+{len(rd_plan.b_blocks)} tiles -> {n_o}; "
+        f"bsr_spgemm(_reduce) {dm}x{dk}x{dn}, {int(uni_mask.sum())} and "
+        f"{int(mk_mask.sum())} of {mk_mask.numel()} A tiles present; "
+        f"rank_count {rk_i.shape[0]} x {rk_j.shape[0]}")
 
     # -- phase 5: times (plus_times) beside the bound --------------------------
     pt = REGISTRY["plus_times"]
@@ -322,6 +467,13 @@ def main() -> int:
 
     n_rm = a.capacity
     p_mm, p_rd = len(mm_plan.pair_a), len(rd_plan.pair_a)
+    # the block-masked kernels: A with its absent tiles zeroed, for the
+    # library yardstick (at n=12 every tile is present)
+    n_present = int(uni_mask.sum())
+    x_masked = torch.where(uni_mask.repeat_interleave(128, 0)
+                           .repeat_interleave(128, 1) != 0, x, 0.0)
+    launches = {k: sum(p[k] for p in report["launches"].values())
+                for k in LAUNCHES}
     rows = [
         dict(name="range_mask", route="cuda",
              source="src/repro_torch/csrc/range_mask.cu",
@@ -360,6 +512,36 @@ def main() -> int:
              library=lambda: torch.matmul(x, y),
              bytes=4 * (dm * dk + dk * dn + dm * dn),
              ops=2 * dm * dk * dn, repeats=5),
+        dict(name="bsr_spgemm_reduce", route="cuda",
+             source="src/repro_torch/csrc/bsr_spgemm.cu",
+             replaces="src/repro/kernels/bsr_spgemm/bsr_spgemm.py:153",
+             kernel=lambda: bsr_ops.bsr_spgemm_reduce(
+                 x, uni_mask, y, axis=1, semiring=pt, impl="cuda"),
+             plain=lambda: bsr_ref.bsr_spgemm_reduce_ref(
+                 x, uni_mask, y, axis=1, semiring=pt),
+             library=lambda: torch.matmul(x_masked, y).sum(1),
+             bytes=4 * (n_present * 128 * 128 + dk * dn + uni_mask.numel()
+                        + dm),
+             ops=2 * 128 ** 3 * n_present * (dn // 128), repeats=5),
+        dict(name="bsr_spgemm", route="cuda",
+             source="src/repro_torch/csrc/bsr_spgemm.cu",
+             replaces="src/repro/kernels/bsr_spgemm/bsr_spgemm.py:74",
+             kernel=lambda: bsr_ops.bsr_spgemm_cuda(x, uni_mask, y, sr=pt),
+             plain=lambda: bsr_ref.bsr_spgemm_ref(x, uni_mask, y,
+                                                  semiring=pt),
+             library=lambda: torch.matmul(x_masked, y),
+             bytes=4 * (n_present * 128 * 128 + dk * dn + uni_mask.numel()
+                        + dm * dn),
+             ops=2 * 128 ** 3 * n_present * (dn // 128), repeats=5),
+        dict(name="rank_count", route="cuda",
+             source="src/repro_torch/csrc/rank_count.cu",
+             replaces="src/repro/kernels/sorted_merge/sorted_merge.py:48",
+             kernel=lambda: rc_ops.rank_count_cuda(rk_i, rk_j),
+             plain=lambda: rank_count_ref(rk_i, rk_j),
+             library=lambda: (torch.searchsorted(rk_j, rk_i),
+                              torch.searchsorted(rk_j, rk_i, right=True)),
+             bytes=4 * (rk_i.shape[0] + rk_j.shape[0]) + 8 * rk_i.shape[0],
+             ops=0, repeats=50),
     ]
     kernels = []
     for r in rows:
@@ -396,19 +578,62 @@ def main() -> int:
             "bsr_pairlist_reduce": cuda_ms(
                 lambda: bsr_ops.bsr_pairlist_reduce_cuda(
                     ars, brs, *rd_pairs, n_o=n_o, axis=1, sr=sr), 2)}
+        by_sr[name]["bsr_spgemm_reduce"] = cuda_ms(
+            lambda: bsr_ops.bsr_spgemm_reduce(xs, uni_mask, ys, axis=1,
+                                              semiring=sr, impl="cuda"), 3)
         del xs, ys, ats, bts, ars, brs
     log("[time] kernel ms by semiring " + json.dumps(by_sr))
     report["ms_by_semiring"] = by_sr
+    # the fused reduce where the mask skips work: the seeded 1/4 mask
+    xq, yq = mk_ops(pt)
+    xq_masked = torch.where(mk_mask.repeat_interleave(128, 0)
+                            .repeat_interleave(128, 1) != 0, xq, 0.0)
+    q_present = int(mk_mask.sum())
+    quarter = {
+        "present_tiles": q_present, "tiles": mk_mask.numel(),
+        "ms": cuda_ms(lambda: bsr_ops.bsr_spgemm_reduce(
+            xq, mk_mask, yq, axis=1, semiring=pt, impl="cuda"), 5),
+        "plain_ms": cuda_ms(lambda: bsr_ref.bsr_spgemm_reduce_ref(
+            xq, mk_mask, yq, axis=1, semiring=pt), 2),
+        "library_ms": cuda_ms(lambda: torch.matmul(xq_masked, yq).sum(1), 2),
+        "bound_ms": 2 * 128 ** 3 * q_present * (yq.shape[1] // 128)
+        / FP32_FLOP_PER_S * 1e3}
+    log("[time] bsr_spgemm_reduce at the seeded 1/4 mask "
+        + json.dumps(quarter))
+    report["bsr_spgemm_reduce_quarter_mask"] = quarter
+    del xq, yq, xq_masked
 
     # where the time of the products goes: spgemm's own stage spans, each
     # ended by a device sync
     stages = {}
     for name, fn in (("A @ B", lambda: a @ b),
                      ("A.sqout(reduce=1)", lambda: a.sqout(reduce=1)),
-                     ("uniform A.matmul(B)", lambda: uni["A"].matmul(uni["B"]))):
+                     ("uniform A.matmul(B)", lambda: uni["A"].matmul(uni["B"])),
+                     ("uniform A.sqout(reduce=1)",
+                      lambda: uni["A"].sqout(reduce=1))):
         with spgemm.stage_timing() as ms:
             t0 = time.perf_counter()
             fn()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+        stages[name] = {"total": total, **ms}
+        log(f"[stages] {name} ms " + json.dumps(stages[name]))
+    # and of an ingest snapshot: one delta of all of B over the n=15 base
+    # (kernel path), and the n=18 fallback; union memo cleared (cold), as
+    # each new delta of a stream brings new keys
+    ing_raw = ing["raw"]
+    for name, base, (r2, c2, v2) in (
+            (f"ingest snapshot n={N_INGEST}", ing["bases"]["sum"],
+             (ing_raw[2], ing_raw[3], ing_raw[4])),
+            (f"ingest fallback snapshot n={gen_n}", clus["A"],
+             (clus["raw"][2][:N_FALLBACK], clus["raw"][3][:N_FALLBACK],
+              np.ones(N_FALLBACK)))):
+        table = IngestTable(base, aggregate="sum")
+        table.insert(r2, c2, v2)
+        clear_union_cache()
+        with spgemm.stage_timing() as ms:
+            t0 = time.perf_counter()
+            table.snapshot()
             torch.cuda.synchronize()
             total = (time.perf_counter() - t0) * 1e3
         stages[name] = {"total": total, **ms}

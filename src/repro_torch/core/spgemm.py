@@ -39,11 +39,11 @@ occupancy is low enough that skipping empty tiles beats the dense sweep.
 The fused epilogues (:func:`matmul_reduce`) compute row/column
 ⊕-reductions of ``A ⊗.⊕ B`` — the ``sqin``/``sqout``/degree family —
 without materializing C: the bsr strategy folds tile products straight
-into a vector of length M (or N) inside the pair-list reduce kernel.  The
-dense strategy's fused kernel (``bsr_spgemm_reduce``) is not ported yet:
-on CUDA tensors it raises, on CPU tensors its plain version runs.
-Planning is host-side and eager by design: it reads the operands' valid
-rank codes back to the host once per product.
+into a vector of length M (or N) inside the pair-list reduce kernel, and
+the dense strategy runs the block-masked fused reduce kernel
+(``bsr_spgemm_reduce``), which skips A's absent tiles and folds each
+output tile to a vector.  Planning is host-side and eager by design: it
+reads the operands' valid rank codes back to the host once per product.
 """
 from __future__ import annotations
 
@@ -65,10 +65,11 @@ __all__ = ["MatmulPlan", "plan_matmul", "matmul", "matmul_reduce",
 
 TILE = 128  # block edge: bm = bk = bn = 128
 
-# Wall-clock milliseconds per stage of ``matmul`` / ``matmul_reduce``,
-# summed over the products run inside :func:`stage_timing`.  Off by
-# default: a timed stage ends with a device sync, so the stages add up to
-# the product's time, but host and device work no longer overlap.
+# Wall-clock milliseconds per stage of ``matmul`` / ``matmul_reduce`` (and
+# of the device ingest merge, ``repro_torch.ingest``), summed over the
+# calls run inside :func:`stage_timing`.  Off by default: a timed stage
+# ends with a device sync, so the stages add up to the call's time, but
+# host and device work no longer overlap.
 STAGE_MS: Dict[str, float] = {}
 _STAGE_TIMING = False
 
@@ -645,9 +646,8 @@ def matmul_reduce(a, b, axis: int, semiring=PLUS_TIMES, *,
     reduction monoid is the semiring's own ⊕ (the only choice for which
     the fusion ``⊕_j ⊕_k A[i,k] ⊗ B[k,j]`` is exact).  Strategy mirrors
     :func:`matmul`; the bsr strategy runs the fused pair-list reduce
-    kernel.  The dense strategy's fused kernel is not ported: on CUDA
-    tensors it raises ``NotImplementedError`` (see
-    :func:`repro_torch.kernels.bsr_spgemm.ops.bsr_spgemm_reduce`).
+    kernel, the dense strategy the block-masked fused reduce kernel
+    (:func:`repro_torch.kernels.bsr_spgemm.ops.bsr_spgemm_reduce`).
     """
     from repro_torch.kernels.bsr_spgemm.ops import (bsr_pairlist_reduce,
                                                     bsr_spgemm_reduce,
@@ -687,19 +687,23 @@ def matmul_reduce(a, b, axis: int, semiring=PLUS_TIMES, *,
         return scatter_combine(vec, keys, pv, sr)  # SENT keys drop
 
     def _dense() -> torch.Tensor:
-        if filtered:
-            da = _scatter_dense(ra, ca, a_vals, m, k, sr.zero)
-            db = _scatter_dense(rb, cb, b_vals, k, n, sr.zero)
-            mask = make_block_mask(
-                _upload(ra, dev, torch.int32), _upload(ca, dev, torch.int32),
-                torch.ones(len(ra), dtype=torch.bool, device=dev),
-                da.shape[0] // TILE, da.shape[1] // TILE)
-        else:
-            da, db = _densify_aligned(a, b, sr)
-            mask = make_block_mask(a.rows, a.cols, a.valid_mask(),
-                                   da.shape[0] // TILE, da.shape[1] // TILE)
-        vec = bsr_spgemm_reduce(da, mask, db, axis=axis, semiring=sr,
-                                impl=kernel_impl)
+        with _stage("densify", dev):
+            if filtered:
+                da = _scatter_dense(ra, ca, a_vals, m, k, sr.zero)
+                db = _scatter_dense(rb, cb, b_vals, k, n, sr.zero)
+                mask = make_block_mask(
+                    _upload(ra, dev, torch.int32),
+                    _upload(ca, dev, torch.int32),
+                    torch.ones(len(ra), dtype=torch.bool, device=dev),
+                    da.shape[0] // TILE, da.shape[1] // TILE)
+            else:
+                da, db = _densify_aligned(a, b, sr)
+                mask = make_block_mask(a.rows, a.cols, a.valid_mask(),
+                                       da.shape[0] // TILE,
+                                       da.shape[1] // TILE)
+        with _stage("kernel", dev):   # with the wrapper's fold
+            vec = bsr_spgemm_reduce(da, mask, db, axis=axis, semiring=sr,
+                                    impl=kernel_impl)
         return vec[:out_len]
 
     if impl == "dense":

@@ -1,9 +1,11 @@
-"""Pair-list BSR contractions (kernel or plain version) and the block mask.
+"""Block-sparse contractions (kernel or plain version) and the block mask.
 
-The pair lists come from the planner (:func:`repro_torch.core.spgemm.plan_matmul`)
-and MUST arrive grouped (sorted) by ``pair_c`` / ``pair_o``: the wrapper
-turns the sorted output ids into run offsets, and the CUDA kernel
-(``csrc/bsr_pairlist.cu``) gives each run to one block.  ``impl="auto"``
+The pair-list kernels (``csrc/bsr_pairlist.cu``) back the ``bsr``
+strategy; the block-masked dense kernels (``csrc/bsr_spgemm.cu``) back the
+``dense`` strategy's fused reduce.  The pair lists come from the planner
+(:func:`repro_torch.core.spgemm.plan_matmul`) and MUST arrive grouped
+(sorted) by ``pair_c`` / ``pair_o``: the wrapper turns the sorted output
+ids into run offsets, and the CUDA kernel gives each run to one block.  ``impl="auto"``
 launches the kernel on CUDA tensors and the plain version on CPU tensors.
 """
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 from repro_torch.core.semiring import Semiring, get_semiring
 from repro_torch.kernels import cuda_lib
 from .ref import (bsr_pairlist_ref, bsr_pairlist_reduce_ref,
-                  bsr_spgemm_reduce_ref)
+                  bsr_spgemm_ref, bsr_spgemm_reduce_ref)
 
 TILE = 128
 
@@ -131,20 +133,77 @@ def bsr_pairlist_reduce(a_tiles, b_tiles, pair_a, pair_b, pair_o, *,
                                     n_o=n_o, axis=axis, sr=sr)
 
 
+def _check_masked(a, block_mask, b):
+    """Validate the block-masked operands for the kernel: one card, fp32
+    A [M,K] and B [K,N] with M, K, N multiples of 128, int32 mask
+    [M/128, K/128]."""
+    cuda_lib.check_cuda(a, block_mask, b)
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError("bsr_spgemm takes float32 operands")
+    if block_mask.dtype != torch.int32:
+        raise TypeError("bsr_spgemm takes an int32 block mask")
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2 or m % TILE or k % TILE or n % TILE:
+        raise ValueError(f"bsr_spgemm: shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)} are not {TILE}-multiples of one K")
+    if tuple(block_mask.shape) != (m // TILE, k // TILE):
+        raise ValueError(f"block mask {tuple(block_mask.shape)} is not "
+                         f"{(m // TILE, k // TILE)}")
+    return a.contiguous(), block_mask.contiguous(), b.contiguous(), m, k, n
+
+
+def bsr_spgemm_cuda(a, block_mask, b, *, sr: Semiring) -> torch.Tensor:
+    """The kernel: dense C [M, N] of the block-masked product."""
+    a, block_mask, b, m, k, n = _check_masked(a, block_mask, b)
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:          # no grid to launch: nothing to count
+        return c
+    cuda_lib.launch("bsr_spgemm", cuda_lib.SEMIRING_IDS[sr.name],
+                    a.data_ptr(), block_mask.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), m, n, k, cuda_lib.stream_ptr(a))
+    return c
+
+
+def bsr_spgemm_reduce_cuda(a, block_mask, b, *, axis: int,
+                           sr: Semiring) -> torch.Tensor:
+    """The kernel: per-output-tile partials ([N/128, M] for axis=1,
+    [M/128, N] for axis=0), one per block; C is never stored."""
+    a, block_mask, b, m, k, n = _check_masked(a, block_mask, b)
+    shape = (n // TILE, m) if axis == 1 else (m // TILE, n)
+    part = torch.empty(shape, dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:          # no grid to launch: nothing to count
+        return part
+    cuda_lib.launch("bsr_spgemm_reduce", cuda_lib.SEMIRING_IDS[sr.name],
+                    a.data_ptr(), block_mask.data_ptr(), b.data_ptr(),
+                    part.data_ptr(), m, n, k, axis, cuda_lib.stream_ptr(a))
+    return part
+
+
+def bsr_spgemm(a, block_mask, b, *, semiring="plus_times",
+               impl="auto") -> torch.Tensor:
+    """Block-masked dense A [M,K] ⊗.⊕ dense B [K,N] → dense C [M,N]; A's
+    absent 128×128 tiles (``block_mask`` int32 [M/128, K/128] == 0) count
+    as the semiring zero and are skipped."""
+    sr = get_semiring(semiring)
+    if cuda_lib.resolve_impl(impl, a) == "ref":
+        return bsr_spgemm_ref(a, block_mask, b, semiring=sr)
+    return bsr_spgemm_cuda(a, block_mask, b, sr=sr)
+
+
 def bsr_spgemm_reduce(a, block_mask, b, *, axis: int,
-                      semiring="plus_times", impl="auto"):
+                      semiring="plus_times", impl="auto") -> torch.Tensor:
     """Fused ``⊕-reduce(A ⊗.⊕ B, axis)`` over a block-masked dense A →
     vector ([M] for axis=1, [N] for axis=0).
 
-    Only the plain version exists: the fused CUDA kernel (the port of
-    ``bsr_spgemm_reduce_pallas``) is not written yet, so CUDA tensors
-    raise ``NotImplementedError`` instead of silently running the
-    materializing plain version on the card.
+    The kernel never stores C: each block folds its output tile to one
+    ``[128]`` vector, and this wrapper ⊕-folds the per-tile partials.  The
+    plain version materializes C and reduces it.
     """
     sr = get_semiring(semiring)
-    if cuda_lib.resolve_impl(impl, a) == "cuda":
-        raise NotImplementedError(
-            "bsr_spgemm_reduce (the dense-strategy fused reduce kernel) is "
-            "not ported to CUDA yet; use impl='bsr' or impl='coo' for "
-            "matmul_reduce on CUDA tensors")
-    return bsr_spgemm_reduce_ref(a, block_mask, b, axis=axis, semiring=sr)
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis!r}")
+    if cuda_lib.resolve_impl(impl, a) == "ref":
+        return bsr_spgemm_reduce_ref(a, block_mask, b, axis=axis,
+                                     semiring=sr)
+    part = bsr_spgemm_reduce_cuda(a, block_mask, b, axis=axis, sr=sr)
+    return sr.add_reduce(part, axis=0)

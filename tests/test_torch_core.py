@@ -388,7 +388,8 @@ def test_port_imports_without_jax():
             "import repro_torch, repro_torch.core, repro_torch.convert, "
             "repro_torch.main_path, repro_torch.kernels.range_extract, "
             "repro_torch.kernels.semiring_matmul, "
-            "repro_torch.kernels.bsr_spgemm; "
+            "repro_torch.kernels.bsr_spgemm, "
+            "repro_torch.kernels.sorted_merge, repro_torch.ingest; "
             "bad = [m for m, v in sys.modules.items() if v is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))]; "
             "assert not bad, bad")

@@ -16,6 +16,8 @@ from repro.kernels.range_extract import ops as j_rm
 from repro.kernels.range_extract.ref import range_mask_ref as j_rm_ref
 from repro.kernels.semiring_matmul import ops as j_sm
 from repro.kernels.semiring_matmul.ref import semiring_matmul_ref as j_sm_ref
+from repro.kernels.sorted_merge import ops as j_rc
+from repro.kernels.sorted_merge.ref import rank_count_ref as j_rc_ref
 from repro_torch.core import REGISTRY
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import cuda_lib
@@ -25,6 +27,8 @@ from repro_torch.kernels.range_extract import ops as t_rm
 from repro_torch.kernels.range_extract.ref import range_mask_ref as t_rm_ref
 from repro_torch.kernels.semiring_matmul import ops as t_sm
 from repro_torch.kernels.semiring_matmul.ref import semiring_matmul_ref as t_sm_ref
+from repro_torch.kernels.sorted_merge import ops as t_rc
+from repro_torch.kernels.sorted_merge.ref import rank_count_ref as t_rc_ref
 
 from _torch_helpers import SEMIRINGS, _reset_port_stats, assert_same  # noqa: F401
 
@@ -165,6 +169,112 @@ def test_bsr_spgemm_reduce_ref_matches(sr, axis):
         axis=axis, semiring=sr), got, sr)
 
 
+@pytest.mark.parametrize("sr", SEMIRINGS)
+def test_bsr_spgemm_ref_matches(sr):
+    """The materializing block-masked product: A's absent tiles hold values
+    that must not count."""
+    rng = np.random.default_rng(25)
+    floats = sr == "plus_times"
+    a = _values(rng, (256, 384), sr, floats)
+    b = _values(rng, (384, 128), sr, floats)
+    mask = np.array([[1, 0, 1], [0, 0, 0]], np.int32)
+    t_args = [torch.from_numpy(x) for x in (a, mask, b)]
+    j_args = [jnp.asarray(x) for x in (a, mask, b)]
+    got = t_bsr_ref.bsr_spgemm_ref(*t_args, semiring=sr)
+    assert_same(got, j_bsr_ref.bsr_spgemm_ref(*j_args, semiring=sr), sr)
+    assert_same(got, j_bsr.bsr_spgemm(*j_args, semiring=sr,
+                                      impl="interpret"), sr)
+    assert_same(t_bsr.bsr_spgemm(*t_args, semiring=sr), got, sr)
+    # the empty block-row is the semiring zero
+    assert bool((got[128:] == REGISTRY[sr].zero).all())
+
+
+# -- rank_count / merge_positions / overlay_scatter --------------------------------
+
+def _sorted_keys(rng, n, n_sent):
+    """n sorted, repetition-free int32 keys whose last n_sent are SENT."""
+    k = np.sort(rng.choice(2 * n + 8, n - n_sent,
+                           replace=False)).astype(np.int32)
+    return np.concatenate([k, np.full(n_sent, SENT, np.int32)])
+
+
+# (1) JAX pads both sides to block multiples: ni, nj off the multiples
+# (2) the trap: sentinel entries of i, where the Pallas path counts its own
+#     pad sentinels in hit and differs from searchsorted
+_RANK_CASES = [(5, 2, 6, 4), (1, 0, 1, 0), (37, 5, 29, 0), (600, 40, 520, 100),
+               (8, 0, 0, 0)]
+
+
+@pytest.mark.parametrize("ni,si,nj,sj", _RANK_CASES)
+def test_rank_count_ref_matches(ni, si, nj, sj):
+    rng = np.random.default_rng(ni + nj)
+    i = _sorted_keys(rng, ni, si)
+    j = _sorted_keys(rng, nj, sj)
+    got = t_rc_ref(torch.from_numpy(i), torch.from_numpy(j))
+    want = j_rc_ref(jnp.asarray(i), jnp.asarray(j))
+    for g, w in zip(got, want):            # every entry, sentinels included
+        assert_same(g, w)
+        assert g.dtype == torch.int32
+    for g, w in zip(got, t_rc.rank_count(torch.from_numpy(i),
+                                         torch.from_numpy(j))):
+        assert torch.equal(g, w)
+    if nj:                                 # Pallas: valid entries only
+        body = j_rc.rank_count(jnp.asarray(i), jnp.asarray(j),
+                               impl="interpret")
+        ok = i != SENT
+        for g, w in zip(got, body):
+            np.testing.assert_array_equal(g.numpy()[ok], np.asarray(w)[ok])
+
+
+def test_rank_count_sentinel_trap_pinned():
+    """i=[1,3,5,S,S], j=[3,4,S,S,S,S]: searchsorted gives hit [0,1,0,4,4]
+    (the port's contract, on every entry); the JAX Pallas path gives
+    [0,1,0,6,6] (it counts its pad sentinels); valid entries agree."""
+    i = np.array([1, 3, 5, SENT, SENT], np.int32)
+    j = np.array([3, 4, SENT, SENT, SENT, SENT], np.int32)
+    rank, hit = t_rc.rank_count(torch.from_numpy(i), torch.from_numpy(j))
+    assert rank.tolist() == [0, 0, 2, 2, 2] and hit.tolist() == [0, 1, 0, 4, 4]
+    _, j_hit = j_rc.rank_count(jnp.asarray(i), jnp.asarray(j),
+                               impl="interpret")
+    assert np.asarray(j_hit).tolist() == [0, 1, 0, 6, 6]
+    ip, _, _ = t_rc.merge_positions(torch.from_numpy(i), torch.from_numpy(j))
+    j_ip, _, _ = j_rc.merge_positions(jnp.asarray(i), jnp.asarray(j),
+                                      impl="ref")
+    assert ip.tolist() == np.asarray(j_ip).tolist() == [0, 1, 3, 4, 1]
+
+
+@pytest.mark.parametrize("ni,si,nj,sj", _RANK_CASES)
+def test_merge_positions_and_overlay_scatter_match(ni, si, nj, sj):
+    rng = np.random.default_rng(7 * ni + nj)
+    i = _sorted_keys(rng, ni, si)
+    j = _sorted_keys(rng, nj, sj)
+    ti, tj = torch.from_numpy(i), torch.from_numpy(j)
+    ji, jj = jnp.asarray(i), jnp.asarray(j)
+    got = t_rc.merge_positions(ti, tj)
+    for g, w in zip(got, j_rc.merge_positions(ji, jj, impl="ref")):
+        assert_same(g, w)                  # every entry against the ref
+    dst = t_rc.overlay_scatter(ti, tj)
+    ok_i, ok_j = i != SENT, j != SENT
+    for g, w in zip(dst, j_rc.overlay_scatter(ji, jj, impl="ref")):
+        assert_same(g, w)
+    if ni and nj:                          # Pallas: valid entries only
+        for g, w, ok in zip(dst, j_rc.overlay_scatter(ji, jj,
+                                                      impl="interpret"),
+                            (ok_i, ok_j, ok_j)):
+            np.testing.assert_array_equal(g.numpy()[ok], np.asarray(w)[ok])
+    # the union layout: valid slots are 0..U-1, each key in one slot, and
+    # every sentinel goes to the out-of-bounds slot
+    i_dst, j_dst, j_dup = dst
+    union = np.union1d(i[ok_i], j[ok_j])
+    slots = np.full(ni + nj + 1, -1, np.int64)
+    slots[i_dst.numpy()[ok_i]] = i[ok_i]
+    slots[j_dst.numpy()[ok_j]] = j[ok_j]
+    np.testing.assert_array_equal(slots[:len(union)], union)
+    assert (i_dst.numpy()[~ok_i] == ni + nj).all()
+    assert (j_dst.numpy()[~ok_j] == ni + nj).all()
+    np.testing.assert_array_equal(j_dup.numpy()[ok_j], np.isin(j[ok_j], i))
+
+
 def test_make_block_mask_matches():
     rng = np.random.default_rng(31)
     rows = rng.integers(0, 300, 50).astype(np.int32)
@@ -205,11 +315,16 @@ def test_dispatch_follows_device_and_never_falls_back():
     with pytest.raises(ValueError, match="CUDA tensors"):
         t_bsr.bsr_pairlist_reduce(tiles, tiles, p, p, p, n_o=1, axis=1,
                                   impl="cuda")
-    # the dense-strategy fused reduce has no kernel yet: it raises for the
-    # card instead of running the materializing plain version there
-    with pytest.raises(NotImplementedError, match="bsr_spgemm_reduce"):
-        t_bsr.bsr_spgemm_reduce(a, torch.ones((1, 1), dtype=torch.int32), a,
-                                axis=1, impl="cuda")
+    # the block-masked kernels and the rank count raise on CPU tensors too,
+    # instead of running the materializing plain version
+    d = torch.zeros((128, 128))
+    m = torch.ones((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_bsr.bsr_spgemm_reduce(d, m, d, axis=1, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_bsr.bsr_spgemm(d, m, d, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_rc.rank_count(p, p, impl="cuda")
     assert all(v == 0 for v in LAUNCHES.values())
 
 

@@ -17,6 +17,7 @@ from _torch_helpers import (_reset_port_stats,  # noqa: F401
 
 N_CLUSTERED = 10   # 8k triples per array: the planner picks bsr
 N_UNIFORM = 8      # 2k triples over 256 keys: the planner picks dense
+                   # for A @ B, sqout(reduce=1) and matmul_reduce
 
 
 def _jax_clustered(raw, sel_keys):
@@ -76,6 +77,13 @@ def test_uniform_main_path_matches_jax_and_host():
                        floats=False)
     assert_same_tensor(res["min_plus"], ja.matmul(jb, J.MIN_PLUS),
                        floats=False)
+    sel = J.Range(res["selector"].lo, res["selector"].hi)
+    assert_same(res["sqout_reduce"], ja.sqout(reduce=1), floats=False)
+    assert_same(res["matmul_reduce0"], ja.matmul_reduce(jb, axis=0),
+                floats=False)
+    assert_same(res["pipeline"], (ja.lazy()[sel, :] @ jb.lazy()).sum(
+        axis=1).collect(), floats=False)
+    assert T.PLAN_STATS == {k: J.PLAN_STATS[k] for k in T.PLAN_STATS}
     for name, ok, detail in main_path.check_uniform(u["raw"], res):
         assert ok, (name, detail)
 
@@ -92,3 +100,18 @@ def test_planner_picks_the_slice_strategies(which, n, impl):
     plan = tsp.plan_matmul(ra, ca, rb, cb, len(a.row_space), len(ks),
                            len(b.col_space))
     assert plan.impl == impl
+
+
+def test_planner_picks_dense_for_the_uniform_reduces_at_n12():
+    """At the paper's uniform n=12 (the chip run's size) the fused reduces
+    of the main path — ``A.sqout(reduce=1)`` (A ⊗.⊕ Aᵀ) and
+    ``A.matmul_reduce(B)`` — plan ``dense``, so they run the block-masked
+    ``bsr_spgemm_reduce`` kernel on the card (planning only, no product)."""
+    u = main_path.build_uniform(12, "cpu")
+    for b in (u["A"].transpose(), u["B"]):
+        a, b, ks = tsp._contraction_aligned(u["A"], b, T.PLUS_TIMES)
+        ra, ca, _ = tsp._valid_host(a)
+        rb, cb, _ = tsp._valid_host(b)
+        plan = tsp.plan_matmul(ra, ca, rb, cb, len(a.row_space), len(ks),
+                               len(b.col_space))
+        assert plan.impl == "dense"

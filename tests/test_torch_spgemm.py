@@ -62,6 +62,26 @@ def test_matmul_reduce_matches(sr, impl, axis):
                 floats=False)
 
 
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("sr", SEMIRINGS)
+def test_dense_matmul_reduce_matches_pallas_interpret(sr, axis):
+    """The dense strategy's fused reduce (the plain version of the
+    ``bsr_spgemm_reduce`` kernel on the CPU) against the JAX package's
+    Pallas kernel in interpret mode, plain and with keep masks (the
+    filtered path builds its own block mask); integer values, exact."""
+    (ta, ja, _), (tb, jb, _) = _operands(6)
+    got = tsp.matmul_reduce(ta, tb, axis, sr, impl="dense")
+    assert_same(got, jsp.matmul_reduce(ja, jb, axis, sr, impl="dense",
+                                       kernel_impl="interpret"),
+                sr, floats=False)
+    rng = np.random.default_rng(7)
+    a_keep = rng.random(int(ta.nnz)) < 0.5
+    got = tsp.matmul_reduce(ta, tb, axis, sr, impl="dense", a_keep=a_keep)
+    assert_same(got, jsp.matmul_reduce(ja, jb, axis, sr, impl="dense",
+                                       kernel_impl="interpret",
+                                       a_keep=a_keep), sr, floats=False)
+
+
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("sr", ["plus_times", "min_plus", "max_min"])
 def test_keep_masks_match(sr, impl):
@@ -182,6 +202,15 @@ def test_stage_timing_records_each_stage(impl, stages):
     timed = dict(ms)
     tsp.matmul(ta, tb, impl=impl)
     assert tsp.STAGE_MS == timed             # no span added outside
+
+
+def test_stage_timing_dense_matmul_reduce():
+    (ta, _, _), (tb, _, _) = _operands(12)
+    want = tsp.matmul_reduce(ta, tb, 0, impl="dense")
+    with tsp.stage_timing() as ms:
+        got = tsp.matmul_reduce(ta, tb, 0, impl="dense")
+    assert set(ms) == {"align", "valid_host", "densify", "kernel"}
+    assert torch.equal(got, want)
 
 
 def test_stage_timing_matmul_reduce():
