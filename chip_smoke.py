@@ -7,8 +7,18 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a);
-2. three paths, through the entry points a user calls, each with every
+2. four paths, through the entry points a user calls, each with every
    kernel launch counter set to 0 just before it and read just after:
+   * the serve path: qwen3-1.7b at full width (28 layers, d_model 2048,
+     1.72e9 seeded random bf16 weights) through
+     ``repro_torch.launch.serve``: a prefill of batch 4 x 2048 tokens, the
+     cache repack to capacity 2080 and 32 greedy decode steps;
+     ``flash_attention`` must launch once per layer (28).  Then, outside
+     the count: the kernel route's prefill logits against the plain
+     route's (``attn_impl="ref"``) on the same weights, the first decode
+     step's logits against a prefill of the prompt plus that token, layer
+     0's attention output by both routes, and the kernel alone at the
+     path's shape (plus a window case and a ``q_off > 0`` case);
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -36,7 +46,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fp32 product and sum is exact in any order: the tolerance is 0 for
    every semiring.  ``bsr_spgemm`` and ``bsr_spgemm_reduce`` are held at
    4096^3 both with a seeded mask that keeps about 1/4 of A's tiles and
-   with the all-present mask of uniform n=12;
+   with the all-present mask of uniform n=12.  ``segment_scan`` (no caller
+   on any path, as in the JAX package) is held against its plain version
+   under sum, min and max at the size a dedup of the clustered n=18 array
+   scans (2^21 sorted pair ids);
 5. CUDA-event times (plus_times) of each kernel, its plain version and one
    PyTorch library yardstick, beside the least time the card could take;
    then ``A @ B``, ``A.sqout(reduce=1)``, the uniform ``A.matmul(B)``,
@@ -64,6 +77,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 DEVICE = "cuda:0"
 N_UNIFORM = 12      # the paper's uniform workload, planned dense
@@ -75,6 +89,15 @@ MAIN_PATH_KERNELS = ("range_mask", "bsr_pairlist", "bsr_pairlist_reduce",
 INGEST_PATH_KERNELS = ("rank_count", "range_mask")
 SEMIRINGS = ("plus_times", "max_plus", "min_plus", "max_min", "max_times",
              "and_or")
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+SERVE_SEED = 0
+# the serve path's logits by the two attention routes, and decode against
+# prefill: bf16 rounds P, each attention output and every matmul output
+# (2^-9 relative each) at other places on the two routes, and those
+# differences pass through 28 residual layers; relative L2 error of the
+# logits at most 2^-4
+LOGITS_REL_TOL = 2 ** -4
 
 
 def log(*a):
@@ -231,6 +254,229 @@ def max_err(got, want) -> float:
     return float(torch.where(same, torch.zeros_like(d), d).max())
 
 
+def flash_check(got, want, q, k, v, *, p_roundings=1, **masks):
+    """A bf16 flash output against its plain version, all [B,H,S,D]:
+    (max |err|, largest |err| / elementwise bound, relative L2 error).
+    The bound (``bf16_error_bound``): each rounding of P to bf16 moves o_id
+    by at most 2^-8·(P·|V|)_id, each rounding of the output by at most
+    2^-8·|o_id|, so it follows each row's own scale.  The relative L2 limit
+    is 2^-7: those roundings are each at most 2^-8 relative and do not all
+    point one way."""
+    from repro_torch.kernels.flash_attention.ref import bf16_error_bound
+    bound = bf16_error_bound(q, k, v, want, p_roundings=p_roundings, **masks)
+    err = (got.float() - want.float()).abs()
+    worst = float((err / bound.clamp_min(1e-30)).max())
+    return max_err(got.float(), want.float()), worst, rel_err(got, want)
+
+
+def visible_pairs(sq, sk, causal, window=None, q_off=0) -> int:
+    """(query, key) pairs that the masks leave visible, per (batch, head)."""
+    total = 0
+    for i in range(sq):
+        pos = q_off + i
+        hi = min(sk, pos + 1) if causal else sk
+        lo = max(0, pos - window + 1) if window is not None else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def rel_err(got, want) -> float:
+    d = (got.double() - want.double()).norm()
+    return float(d / want.double().norm())
+
+
+def torch_calls(fn) -> int:
+    """The torch functions and tensor methods that one call of ``fn``
+    dispatches from Python (each one host-side dispatch, most of them one
+    kernel launch)."""
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def serve_phase(dev, report, failures) -> dict:
+    """The serve path (counted), its route and decode checks, and the
+    flash-attention kernel alone at the path's shape.  Returns the
+    kernel's row of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as layers
+    from repro_torch.models import model as M
+
+    cfg = get_config(SERVE_ARCH)
+    b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    t0 = time.perf_counter()
+    gen = M.make_generator(SERVE_SEED, dev)
+    params = M.init(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev,
+                            dtype=torch.int32)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": M.param_count(params),
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+
+    # the counted run: prefill, repack, greedy decode
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = serve_lib.serve(params, cfg, prompts, g)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    out.update(prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+               decode_ms_per_token=1e3 * res["decode_s"] / g,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report["launches"] = {"serve": launches}
+    log(f"[serve path] {SERVE_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {out['params']:,} parameters (bf16, seed "
+        f"{SERVE_SEED}); batch {b}, prompt {p}, {g} greedy tokens")
+    log(f"[serve path] prefill {out['prefill_s']:.3f} s, decode "
+        f"{out['decode_ms_per_token']:.2f} ms/token, peak device memory "
+        f"{out['peak_mem_gb']:.2f} GB (weights {out['weights_gb']:.2f} GB)")
+    step_cache = M.init_cache(cfg, b, 2, device=dev)
+    out["torch_calls_per_decode_step"] = torch_calls(
+        lambda: make_serve_step(cfg)(params, step_cache, prompts[:, :1], 0))
+    del step_cache
+    log(f"[serve path] launches {launches}; torch calls per decode step "
+        f"{out['torch_calls_per_decode_step']} (host dispatches)")
+    if launches["flash_attention"] != cfg.n_layers:
+        failures.append(f"flash_attention launched "
+                        f"{launches['flash_attention']} times in one prefill "
+                        f"of {cfg.n_layers} layers")
+    toks = res["tokens"]
+    if not (toks.shape == (b, g) and bool((toks >= 0).all())
+            and bool((toks < cfg.vocab).all())
+            and bool(torch.isfinite(res["logits"]).all())
+            and bool(torch.isfinite(res["prefill_logits"]).all())):
+        failures.append("serve path: tokens out of range or logits not "
+                        "finite")
+    log(f"[serve path] generated ids (row 0): {toks[0, :16].tolist()}")
+
+    # the kernel route against the plain route, same weights and prompts
+    plain_logits, plain_cache = make_prefill_step(
+        cfg.replace(attn_impl="ref"))(params, prompts)
+    del plain_cache
+    checks = {"prefill logits, kernel vs plain route": rel_err(
+        res["prefill_logits"], plain_logits)}
+    agree = float((res["prefill_logits"].argmax(-1)
+                   == plain_logits.argmax(-1)).float().mean())
+    # decode against prefill: the logits at position p
+    one = serve_lib.serve(params, cfg, prompts, 1)
+    ext_logits, ext_cache = make_prefill_step(cfg)(
+        params, torch.cat([prompts, one["tokens"]], dim=1))
+    del ext_cache
+    checks["decode step vs prefill of prompt + token"] = rel_err(
+        one["logits"], ext_logits)
+    for name, err in checks.items():
+        ok = err <= LOGITS_REL_TOL
+        log(f"[serve check] {'ok  ' if ok else 'FAIL'} {name}: relative L2 "
+            f"error {err:.3e} (tolerance {LOGITS_REL_TOL:.3e})")
+        if not ok:
+            failures.append(f"serve check {name}: {err}")
+    log(f"[serve check] argmax agreement of the two routes' prefill "
+        f"logits: {agree:.3f}")
+    out["checks"] = checks
+    out["argmax_agreement"] = agree
+    del res, one, plain_logits, ext_logits
+
+    # layer 0's attention output by both routes
+    lp = params["dense_stack"][0]
+    pos = torch.arange(p, dtype=torch.int32, device=dev)
+    h = layers.apply_norm(lp["attn_norm"], layers.embed(
+        params["embed"], prompts).to(cfg.compute_dtype), kind=cfg.norm)
+    q, k, v = attn.gqa_qkv(lp["attn"], cfg, h, pos)
+    kw = dict(q_positions=pos, k_positions=pos, causal=True,
+              chunk=cfg.attn_chunk)
+    o_kernel = attn.chunked_attention(q, k, v, impl="cuda", **kw)
+    o_plain = attn.chunked_attention(q, k, v, impl="ref", **kw)
+    # the plain route rounds P to bf16 too: two roundings of P
+    errs = {"layer 0 attention, kernel vs plain route": flash_check(
+        *(x.transpose(1, 2) for x in (o_kernel, o_plain, q, k, v)),
+        p_roundings=2, causal=True)}
+    del params, o_kernel, o_plain, h
+
+    # the kernel alone on layer 0's q, k, v ([B, H, S, D])
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    del q, k, v
+    cases = {"path shape": dict(causal=True),
+             "window 512": dict(causal=True, window=512),
+             "q_off 1536, 512 x 2048": dict(causal=True, q_off=p - 512)}
+    for name, c in cases.items():
+        qc = qt[:, :, -512:] if "q_off" in c else qt
+        want = flash_attention_ref(qc, kt, vt, **c)
+        got = fa_ops.flash_attention_cuda(qc, kt, vt, **c)
+        errs[f"kernel vs plain, {name}"] = flash_check(got, want, qc, kt, vt,
+                                                       **c)
+        del got, want
+    for name, (err, worst, rel) in errs.items():
+        ok = worst <= 1.0 and rel <= 2 ** -7
+        log(f"[kernel check] {'ok  ' if ok else 'FAIL'} flash_attention "
+            f"{name}: max |err| {err:.3e}, largest |err| / elementwise "
+            f"bound {worst:.3f} (limit 1), relative L2 {rel:.3e} (limit "
+            f"{2 ** -7:.3e})")
+        if not ok:
+            failures.append(f"flash_attention {name}: |err|/bound {worst}, "
+                            f"relative L2 {rel}")
+    torch.cuda.synchronize()
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(qt, kt, vt, causal=True),
+                 10)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(qt, kt, vt, causal=True),
+                       3)
+    lib_ms = cuda_ms(library, 10)
+    bb, hh, ss, dd = qt.shape
+    n_bytes = 2 * (qt.numel() + kt.numel() + vt.numel() + qt.numel())
+    n_ops = 4 * dd * visible_pairs(ss, ss, True) * bb * hh
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_FLOP_PER_S * 1e3
+    log(f"[time] flash_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, library {lib_ms:.4f} ms (scaled_dot_product_attention), bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}"
+        f"; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)")
+    report["serve"] = out
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:76",
+            "launches": launches["flash_attention"],
+            "max_abs_err": errs["kernel vs plain, path shape"][0],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms}
+
+
+def segment_inputs(raw, a, gen):
+    """What a dedup of the clustered array scans: its 2^21 raw triples as
+    sorted int32 (row, col) pair ids (ranks of the distinct pairs; the
+    linear keys do not fit int32 at n=18), with quarter values (every
+    partial sum exact in any order) and normal values."""
+    import numpy as np
+    import torch
+    r = a.row_space.rank(raw[0])[0].astype(np.int64)
+    c = a.col_space.rank(raw[1])[0].astype(np.int64)
+    lin = np.sort(r * len(a.col_space) + c)
+    keys = np.unique(lin, return_inverse=True)[1].reshape(-1).astype(np.int32)
+    keys = torch.from_numpy(keys).to(a.device)
+    return (keys, quarter_values(keys.shape[0], gen, a.device),
+            torch.randn(keys.shape[0], generator=gen).to(a.device))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-clustered", type=int, default=18,
@@ -258,6 +504,8 @@ def main() -> int:
         from repro_torch.kernels.bsr_spgemm import ops as bsr_ops
         from repro_torch.kernels.bsr_spgemm import ref as bsr_ref
         from repro_torch.kernels.range_extract import ops as rm_ops
+        from repro_torch.kernels.segment_reduce import ops as ss_ops
+        from repro_torch.kernels.segment_reduce.ref import segment_scan_ref
         from repro_torch.kernels.range_extract.ref import range_mask_ref
         from repro_torch.kernels.semiring_matmul import ops as sm_ops
         from repro_torch.kernels.semiring_matmul.ref import semiring_matmul_ref
@@ -284,7 +532,11 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] kernels built and loaded in {report['build_s']:.1f} s")
 
-    # -- phase 2: the main path, counted -----------------------------------
+    # -- phase 2: the serve path, counted (its checks and kernel 9 follow) ---
+    flash_row = serve_phase(dev, report, failures)
+    torch.cuda.empty_cache()
+
+    # the main path, counted
     gen_n, uni_n = args.n_clustered, N_UNIFORM
     reset_all_stats()
     reset_launch_counts()
@@ -301,7 +553,7 @@ def main() -> int:
                         **{f"uniform_{k}": v
                            for k, v in res_u["seconds"].items()}}
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    report["launches"] = {"main": launches}
+    report["launches"]["main"] = launches
     report["dispatch_stats"] = dict(DISPATCH_STATS)
     report["plan_stats"] = dict(PLAN_STATS)
     log(f"[main path] clustered n={gen_n}, uniform n={uni_n}: "
@@ -395,6 +647,25 @@ def main() -> int:
                                         max_err(got[1], want[1]))
     got = rm_ops.range_mask_cuda(*rm_in)
     errs["range_mask"] = {"-": max_err(got, range_mask_ref(*rm_in))}
+    sk_keys, sk_quarter, sk_normal = segment_inputs(clus["raw"], a, gen)
+    errs["segment_scan"] = {
+        comb: max_err(ss_ops.segment_scan_cuda(sk_keys, sk_quarter,
+                                               combine=comb),
+                      segment_scan_ref(sk_keys, sk_quarter, combine=comb))
+        for comb in ("sum", "min", "max")}
+    # normal values: the sums differ by summation order only, each by at
+    # most (its depth, below 32) · 2^-24 · Σ|v| over the run so far
+    got = ss_ops.segment_scan_cuda(sk_keys, sk_normal)
+    want = segment_scan_ref(sk_keys, sk_normal)
+    sum_err = max_err(got, want)
+    sum_tol = 64 * 2 ** -24 * segment_scan_ref(sk_keys, sk_normal.abs())
+    sum_ok = bool(((got - want).abs() <= sum_tol).all())
+    log(f"[kernel check] {'ok  ' if sum_ok else 'FAIL'} segment_scan sum of "
+        f"normal values: max |err| {sum_err:.3e} (tolerance 64 · 2^-24 · "
+        f"the scan of |v|, at most {float(sum_tol.max()):.3e})")
+    if not sum_ok:
+        failures.append(f"segment_scan sum of normal values: {sum_err}")
+    report["segment_scan_normal_sum_err"] = sum_err
     for name in SEMIRINGS:
         sr = REGISTRY[name]
         x, y = dn_ops(sr)
@@ -446,7 +717,8 @@ def main() -> int:
         f"{len(rd_plan.a_blocks)}+{len(rd_plan.b_blocks)} tiles -> {n_o}; "
         f"bsr_spgemm(_reduce) {dm}x{dk}x{dn}, {int(uni_mask.sum())} and "
         f"{int(mk_mask.sum())} of {mk_mask.numel()} A tiles present; "
-        f"rank_count {rk_i.shape[0]} x {rk_j.shape[0]}")
+        f"rank_count {rk_i.shape[0]} x {rk_j.shape[0]}; segment_scan "
+        f"N={sk_keys.shape[0]} ({int(sk_keys[-1]) + 1} runs)")
 
     # -- phase 5: times (plus_times) beside the bound --------------------------
     pt = REGISTRY["plus_times"]
@@ -542,6 +814,12 @@ def main() -> int:
                               torch.searchsorted(rk_j, rk_i, right=True)),
              bytes=4 * (rk_i.shape[0] + rk_j.shape[0]) + 8 * rk_i.shape[0],
              ops=0, repeats=50),
+        dict(name="segment_scan", route="cuda",
+             source="src/repro_torch/csrc/segment_scan.cu",
+             replaces="src/repro/kernels/segment_reduce/segment_reduce.py:65",
+             kernel=lambda: ss_ops.segment_scan_cuda(sk_keys, sk_quarter),
+             plain=lambda: segment_scan_ref(sk_keys, sk_quarter),
+             library=None, bytes=12 * sk_keys.shape[0], ops=0, repeats=50),
     ]
     kernels = []
     for r in rows:
@@ -562,6 +840,7 @@ def main() -> int:
             f" library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {max(t_bytes, t_ops):.4f} ms ({kernels[-1]['bound_by']})")
         del r["kernel"], r["plain"], r["library"]
+    kernels.append(flash_row)
     # per-semiring kernel times (the bound doubles off plus_times: ⊕ and ⊗
     # are two fp32 instructions where (+, ×) is one FMA)
     by_sr = {}

@@ -1,0 +1,58 @@
+"""Config registry: one module per assigned architecture (+ the paper's own
+D4M benchmark workload in ``d4m_bench``).
+
+``get_config(name)`` → full published config; ``get_smoke(name)`` → reduced
+same-family config for CPU smoke tests.  The registry names the same ten
+architectures as the JAX package; only those in :data:`PORTED` have a
+config module here yet, and asking for another raises and names the
+ROADMAP step that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from .base import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,
+                   ModelConfig, ShapeSpec)
+
+ARCH_IDS: List[str] = [
+    "chatglm3_6b",
+    "qwen3_1_7b",
+    "starcoder2_7b",
+    "minicpm_2b",
+    "whisper_medium",
+    "deepseek_v3_671b",
+    "mixtral_8x22b",
+    "chameleon_34b",
+    "mamba2_130m",
+    "zamba2_7b",
+]
+PORTED: List[str] = ["qwen3_1_7b"]
+
+
+def _normalize(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def _mod(name: str):
+    name = _normalize(name)
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP.md, module step 9: "
+            f"the LLM scaffold); ported: {PORTED}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _mod(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _mod(name).SMOKE
+
+
+__all__ = ["ARCH_IDS", "PORTED", "ModelConfig", "ShapeSpec", "get_config",
+           "get_smoke", "ALL_SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
+           "LONG_500K"]

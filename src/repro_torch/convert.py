@@ -5,6 +5,14 @@ same four as torch tensors.  :func:`from_jax_state` takes the numpy form of
 the JAX one (``np.asarray`` of each field and ``KeySpace.keys``) and
 :func:`to_numpy_state` gives the same form back, so arrays move between
 the packages without either importing the other.
+
+Model parameters and decode caches move the same way
+(:func:`from_jax_params`/:func:`to_numpy_params`,
+:func:`from_jax_cache`/:func:`to_numpy_cache`).  Both packages keep the
+same leaves under the same names, and a linear weight ``w`` as
+``[d_in, d_out]`` (``y = x @ w``).  The JAX package stacks the layers on
+axis 0 under ``dense_stack``; the port keeps a list of per-layer dicts.
+numpy has no bfloat16, so bf16 leaves travel as float32 (exact both ways).
 """
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ import torch
 from .core.assoc_tensor import AssocTensor, resolve_device
 from .core.keyspace import KeySpace
 
-__all__ = ["from_jax_state", "to_numpy_state"]
+__all__ = ["from_jax_cache", "from_jax_params", "from_jax_state",
+           "to_numpy_cache", "to_numpy_params", "to_numpy_state"]
 
 
 def from_jax_state(rows, cols, vals, nnz, row_keys, col_keys,
@@ -54,3 +63,79 @@ def to_numpy_state(t: AssocTensor) -> dict:
         "col_keys": t.col_space.keys,
         "val_keys": None if t.val_space is None else t.val_space.keys,
     }
+
+
+# -- model parameters and decode caches ------------------------------------------
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_jax_params(params_np: dict, cfg, *, device="cuda") -> dict:
+    """The port's parameters from the numpy form of a JAX parameter pytree
+    (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``): every
+    leaf cast to ``cfg.param_dtype`` on ``device``, and ``dense_stack``
+    (layers on axis 0) split into a list of per-layer dicts."""
+    dev = resolve_device(device)
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(
+            dev, cfg.param_dtype)
+
+    out = {}
+    for name, sub in params_np.items():
+        if name == "dense_stack":
+            out[name] = [_map(lambda x, i=i: tensor(np.asarray(x)[i]), sub)
+                         for i in range(cfg.n_layers)]
+        else:
+            out[name] = _map(tensor, sub)
+    return out
+
+
+def to_numpy_params(params: dict) -> dict:
+    """The inverse of :func:`from_jax_params`: float32 numpy leaves, with
+    ``dense_stack`` stacked on axis 0 as in the JAX package."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {}
+    for name, sub in params.items():
+        if name == "dense_stack":
+            out[name] = _stack([_map(arr, layer) for layer in sub])
+        else:
+            out[name] = _map(arr, sub)
+    return out
+
+
+def _stack(layers):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return np.stack(layers)
+
+
+def from_jax_cache(cache_np: dict, cfg, *, device="cuda") -> dict:
+    """The port's decode cache from the numpy form of a JAX one
+    (``{"dense_stack": {"k", "v": [L,B,Sc,KV,Dh], "len": [L]}}``, the same
+    layout in both packages): ``k``/``v`` in ``cfg.compute_dtype``, ``len``
+    int32."""
+    dev = resolve_device(device)
+    out = {}
+    for name, st in cache_np.items():
+        out[name] = {
+            key: torch.from_numpy(np.array(st[key], dtype=np.float32)).to(
+                dev, cfg.compute_dtype) for key in ("k", "v")}
+        out[name]["len"] = torch.from_numpy(
+            np.array(st["len"], dtype=np.int32)).to(dev)
+    return out
+
+
+def to_numpy_cache(cache: dict) -> dict:
+    """The inverse of :func:`from_jax_cache`: float32 ``k``/``v``, int32
+    ``len``."""
+    return {name: {"k": st["k"].float().cpu().numpy(),
+                   "v": st["v"].float().cpu().numpy(),
+                   "len": st["len"].cpu().numpy()}
+            for name, st in cache.items()}

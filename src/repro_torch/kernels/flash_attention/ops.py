@@ -1,0 +1,95 @@
+"""Flash attention: the CUDA kernel (``csrc/flash_attention.cu``) or its
+plain version, and the model-layout wrapper.
+
+``repro_torch.models.attention.chunked_attention`` calls
+:func:`flash_attention` when ``cfg.attn_impl`` is ``"auto"`` or ``"cuda"``
+with [B, S, H, D] tensors.  ``impl="auto"`` launches the kernel on CUDA
+tensors and runs the plain version on CPU tensors.  Decode (a query over a
+cache, ``k_valid_len`` given) never comes here: ``chunked_attention`` keeps
+it on its own plain path, as the JAX package keeps it off the kernel, which
+targets the S² train/prefill work.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from .ref import flash_attention_ref
+
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         sm_scale: Optional[float] = None, q_off: int = 0,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel: q [B,H,Sq,D], k/v [B,KV,Sk,D] (any strides over the first
+    three axes, D contiguous; bf16 or fp32, all one dtype; D a multiple of
+    16 up to 128) → o [B,H,Sq,D], written into ``out`` if given (a view of
+    the same shape, for example a transposed [B,Sq,H,D] tensor)."""
+    cuda_lib.check_cuda(q, k, v)
+    if q.dtype not in DTYPE_IDS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_cuda takes bf16 or fp32 q, k, v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    _, kv, sk, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} does not match k/v "
+                         f"{tuple(k.shape)} (H a multiple of KV)")
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"head dim {d} must be a multiple of 16 up to 128")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be at least 1")
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    elif out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    cuda_lib.check_cuda(out)
+    size = q.element_size()
+
+    def rows_ok(t):                      # the kernel copies 16-byte chunks
+        return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+                and all(s * size % 16 == 0 for s in t.stride()[:3]))
+    q, k, v = (t if rows_ok(t) else t.contiguous() for t in (q, k, v))
+    if out.stride(3) != 1:
+        raise ValueError("out must have a contiguous last axis")
+    if b == 0 or h == 0 or sq == 0:       # no grid to launch
+        return out
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    cuda_lib.launch("flash_attention", DTYPE_IDS[q.dtype], q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                    b, h, kv, sq, sk, d, int(causal),
+                    -1 if window is None else int(window), int(q_off),
+                    float(scale), cuda_lib.stream_ptr(q))
+    return out
+
+
+def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
+                    causal: bool = True, window: Optional[int] = None,
+                    sm_scale: Optional[float] = None, impl: str = "auto",
+                    q_off: int = 0) -> torch.Tensor:
+    """Model-layout entry: q [B,Sq,H,D], k/v [B,Sk,KV,D] → [B,Sq,H,D].
+
+    Assumes contiguous positions starting at ``q_off`` (the position
+    arrays are accepted for signature parity with the plain path).
+    """
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if cuda_lib.resolve_impl(impl, q) == "ref":
+        return flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                   sm_scale=sm_scale,
+                                   q_off=q_off).transpose(1, 2)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    flash_attention_cuda(qt, kt, vt, causal=causal, window=window,
+                         sm_scale=sm_scale, q_off=q_off,
+                         out=out.transpose(1, 2))
+    return out

@@ -1,0 +1,54 @@
+"""Step builders: prefill and serve (one decode step).
+
+The JAX package's ``launch/steps.py`` also builds the train step and the
+jitted, sharded variants for its dry-run; those have no port yet
+(ROADMAP.md, module step 9).  PyTorch runs eagerly, so each builder returns
+a plain function.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+
+
+def _unembed_last(params, cfg: ModelConfig, hidden: torch.Tensor):
+    head = params.get("lm_head", params["embed"])
+    last = hidden[:, -1:]
+    logits = (last @ head["table"].to(last.dtype).T).float()
+    if cfg.logit_scale is not None:
+        logits = logits * cfg.logit_scale
+    return logits[:, 0]
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """(params, tokens [B,S]) → (last-position logits [B,V] fp32, cache with
+    capacity S)."""
+    if cfg.prefill_chunk:
+        raise NotImplementedError(
+            "chunked (window-wise) prefill is not ported yet (ROADMAP.md, "
+            "module step 9)")
+
+    def prefill_step(params, tokens, enc_inputs=None):
+        if enc_inputs is not None:
+            raise NotImplementedError("encoder-decoder models are not ported "
+                                      "yet (ROADMAP.md, module step 9)")
+        # hidden → unembed ONLY the last position: the [B, S, V] logits
+        # tensor would be 2.5 GB at batch 4 × 2048 × 151,936 in fp32
+        hidden, _, cache = M.forward(params, cfg, tokens, mode="prefill",
+                                     return_hidden=True)
+        return _unembed_last(params, cfg, hidden), cache
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: (params, cache, tokens [B,1], pos) → (logits [B,V],
+    cache).  The cache's K/V are written in place."""
+    def serve_step(params, cache, tokens, pos):
+        positions = torch.as_tensor(pos, dtype=torch.int32,
+                                    device=tokens.device).reshape(1)
+        logits, _, new_cache = M.forward(params, cfg, tokens, mode="decode",
+                                         cache=cache, positions=positions)
+        return logits[:, 0], new_cache
+    return serve_step

@@ -389,7 +389,10 @@ def test_port_imports_without_jax():
             "repro_torch.main_path, repro_torch.kernels.range_extract, "
             "repro_torch.kernels.semiring_matmul, "
             "repro_torch.kernels.bsr_spgemm, "
-            "repro_torch.kernels.sorted_merge, repro_torch.ingest; "
+            "repro_torch.kernels.sorted_merge, repro_torch.ingest, "
+            "repro_torch.kernels.segment_reduce, "
+            "repro_torch.kernels.flash_attention, repro_torch.configs, "
+            "repro_torch.models.model, repro_torch.launch.serve; "
             "bad = [m for m, v in sys.modules.items() if v is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))]; "
             "assert not bad, bad")

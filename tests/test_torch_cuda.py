@@ -23,6 +23,12 @@ from repro_torch.kernels.semiring_matmul.ops import semiring_matmul
 from repro_torch.kernels.semiring_matmul.ref import semiring_matmul_ref
 from repro_torch.kernels.sorted_merge import ops as rc_ops
 from repro_torch.kernels.sorted_merge.ref import rank_count_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import (bf16_error_bound,
+                                                     flash_attention_ref)
+from repro_torch.models.attention import chunked_attention
+from repro_torch.kernels.segment_reduce import ops as ss_ops
+from repro_torch.kernels.segment_reduce.ref import segment_scan_ref
 
 from _torch_helpers import SEMIRINGS, _reset_port_stats  # noqa: F401
 
@@ -232,3 +238,147 @@ def test_pairlist_rejects_bad_pairs(card):
     with pytest.raises(ValueError, match="pair lists"):
         bsr_ops.bsr_pairlist_reduce(t, t, i32(0, 1), i32(0, 1), i32(0, 3),
                                     n_o=2, axis=1)
+
+
+# -- flash attention ----------------------------------------------------------------
+# fp32: the kernel's products are exact and its sums fp32, so it differs from
+# the plain version by summation order (3e-4, the JAX package's tolerance).
+# bf16: an elementwise bound from the plain version (ref.bf16_error_bound):
+# the rounding of P before P·V moves o_id by at most 2^-8·(P·|V|)_id, each
+# output rounding by at most 2^-8·|o_id|.  It follows each row's own scale.
+# Next to it, the relative L2 error stays below 2^-7: the roundings are each
+# at most 2^-8 relative and do not all point one way.
+
+def assert_flash_close(got, want, q, k, v, *, p_roundings=1, **masks):
+    """``got`` against the plain ``want``, all [B,H,S,D]."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        assert float(err.max()) <= 3e-4, float(err.max())
+        return
+    bound = bf16_error_bound(q, k, v, want, p_roundings=p_roundings, **masks)
+    assert bool((err <= bound).all()), float((err - bound).max())
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel <= 2 ** -7, rel
+
+
+FLASH_CARD_CASES = [
+    # b, h, kv, sq, sk, d, causal, window, q_off
+    (2, 4, 2, 256, 256, 64, True, None, 0),
+    (1, 4, 4, 512, 512, 32, True, 128, 0),
+    (2, 2, 1, 256, 512, 64, False, None, 0),
+    (1, 8, 8, 128, 128, 128, True, None, 0),
+    (2, 4, 2, 100, 300, 48, True, None, 200),     # ragged, q_off > 0
+    (1, 6, 3, 70, 70, 16, True, 33, 0),           # ragged, window
+    (1, 2, 1, 64, 200, 80, False, None, 0),
+    (4, 16, 8, 2048, 2048, 128, True, None, 0),   # the serve path's shape
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(FLASH_CARD_CASES)))
+def test_flash_attention_kernel(card, case, dtype):
+    b, h, kv, sq, sk, d, causal, window, q_off = FLASH_CARD_CASES[case]
+    gen = torch.Generator().manual_seed(case)
+    q = torch.randn((b, h, sq, d), generator=gen).to(card, dtype)
+    k = torch.randn((b, kv, sk, d), generator=gen).to(card, dtype)
+    v = torch.randn((b, kv, sk, d), generator=gen).to(card, dtype)
+    kw = dict(causal=causal, window=window, q_off=q_off)
+    reset_launch_counts()
+    got = fa_ops.flash_attention_cuda(q, k, v, **kw)
+    assert LAUNCHES["flash_attention"] == 1
+    want = flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert_flash_close(got, want, q, k, v, **kw)
+
+
+def test_flash_attention_model_layout_on_card(card):
+    """[B,S,H,D] views go in and out without copies; "auto" launches the
+    kernel on CUDA tensors; decode (k_valid_len) takes the plain path."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 192, 8, 64), generator=gen).to(card, torch.bfloat16)
+    k = torch.randn((2, 192, 2, 64), generator=gen).to(card, torch.bfloat16)
+    v = torch.randn((2, 192, 2, 64), generator=gen).to(card, torch.bfloat16)
+    reset_launch_counts()
+    got = fa_ops.flash_attention(q, k, v, causal=True, impl="auto")
+    assert LAUNCHES["flash_attention"] == 1 and got.shape == q.shape
+    want = fa_ops.flash_attention(q, k, v, causal=True, impl="ref")
+    assert_flash_close(*(x.transpose(1, 2) for x in (got, want, q, k, v)),
+                       causal=True)
+    chunked_attention(q[:, :1], k, v, k_valid_len=torch.tensor(5, device=card),
+                      q_positions=torch.tensor([4], device=card),
+                      k_positions=torch.arange(192, device=card), causal=True,
+                      impl="cuda")
+    assert LAUNCHES["flash_attention"] == 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa_ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), impl="cuda")
+
+
+def test_serve_path_on_card(card):
+    """The SMOKE qwen3 served on the card: one flash launch per layer in
+    the prefill, none in decode, and the kernel route's logits within
+    bf16 rounding of the plain route's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve as TSV
+    from repro_torch.models import model as TM
+    cfg = get_smoke("qwen3-1.7b")
+    params = TM.init(TM.make_generator(0, card), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 64), device=card,
+                            dtype=torch.int32)
+    reset_launch_counts()
+    res = TSV.serve(params, cfg, prompts, 4)
+    assert LAUNCHES["flash_attention"] == cfg.n_layers
+    assert res["tokens"].shape == (2, 4)
+    plain = TSV.serve(params, cfg.replace(attn_impl="ref"), prompts, 4)
+    want = plain["prefill_logits"]
+    err = float((res["prefill_logits"] - want).abs().max())
+    assert err <= 2 ** -5 * float(want.abs().max()), err
+
+
+# -- segment scan -------------------------------------------------------------------
+
+def _runs(gen, n, max_run, card, quarters):
+    lengths = torch.randint(1, max_run + 1, (n,), generator=gen)
+    keys = torch.repeat_interleave(torch.arange(n), lengths)[:n] * 5 - 7
+    vals = (torch.randint(1, 9, (n,), generator=gen).float() / 4 if quarters
+            else torch.randn(n, generator=gen))
+    return keys.to(card, torch.int32), vals.to(card)
+
+
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+@pytest.mark.parametrize("n,max_run", [(1, 1), (5, 3), (256, 40),
+                                       (1000, 600), (4097, 2000),
+                                       (300000, 5000), (2 ** 21, 4)])
+def test_segment_scan_kernel(card, n, max_run, combine):
+    """min/max exact; sums exact on quarter values (every partial sum is
+    a multiple of 1/4 below 2^20).  On normal values each version's
+    rounding error is at most (its summation depth) · 2^-24 · Σ|v| over the
+    run so far; both depths are below 32 here, so they agree to
+    64 · 2^-24 · (the segmented scan of |v|)."""
+    gen = torch.Generator().manual_seed(n)
+    for quarters in (True, False):
+        keys, vals = _runs(gen, n, max_run, card, quarters)
+        reset_launch_counts()
+        got = ss_ops.segment_scan(keys, vals, combine=combine, impl="cuda")
+        assert LAUNCHES["segment_scan"] == 1
+        want = segment_scan_ref(keys, vals, combine=combine)
+        if combine != "sum" or quarters:
+            assert torch.equal(got, want)
+        else:
+            tol = 64 * 2 ** -24 * segment_scan_ref(keys, vals.abs())
+            assert bool(((got - want).abs() <= tol).all())
+
+
+def test_segment_scan_empty_and_aggregate(card):
+    none = torch.zeros(0, dtype=torch.int32, device=card)
+    reset_launch_counts()
+    assert ss_ops.segment_scan(none, none.float(), impl="cuda").shape == (0,)
+    assert ss_ops.segment_scan_cuda(none, none.float()).shape == (0,)
+    assert LAUNCHES["segment_scan"] == 0
+    keys = torch.tensor([0, 0, 1, 3, 3, 3], dtype=torch.int32, device=card)
+    vals = torch.tensor([1., 2., 5., 1., 1., 1.], device=card)
+    _, v, heads = ss_ops.aggregate_runs(keys, vals)       # auto: the kernel
+    assert LAUNCHES["segment_scan"] == 1
+    assert v.tolist() == [3.0, 0.0, 5.0, 3.0, 0.0, 0.0]
+    assert heads.tolist() == [True, False, True, True, False, False]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ss_ops.segment_scan(keys.cpu(), vals.cpu(), impl="cuda")
