@@ -34,7 +34,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("range_mask.cu", "semiring_matmul.cu", "bsr_pairlist.cu",
            "bsr_spgemm.cu", "rank_count.cu", "segment_scan.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu")
 HEADERS = ("semiring.cuh", "tile_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -48,7 +48,7 @@ LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
                             "bsr_pairlist": 0, "bsr_pairlist_reduce": 0,
                             "bsr_spgemm": 0, "bsr_spgemm_reduce": 0,
                             "rank_count": 0, "segment_scan": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_wgmma": 0}
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -61,8 +61,10 @@ _SIGNATURES = {
     "bsr_spgemm_reduce_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rank_count_launch": (_P, _P, _P, _P, _I, _I, _P),
     "segment_scan_launch": (_I, _P, _P, _P, _LL, _P, _P),
-    "flash_attention_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _P),
+    "flash_attention_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _F, _P),
 }
 
 _LOCK = threading.Lock()          # guards the one-time build and load

@@ -1,5 +1,12 @@
-"""Flash attention: the CUDA kernel (``csrc/flash_attention.cu``) or its
-plain version, and the model-layout wrapper.
+"""Flash attention: the CUDA kernels or their plain version, and the
+model-layout wrapper.
+
+The kernel route follows the dtype alone: bf16 goes to the Hopper kernel
+(``csrc/flash_attention_sm90.cu``: TMA, wgmma, softmax in registers;
+counted as ``flash_attention_wgmma``), fp32 to the CUDA-core kernel
+(``csrc/flash_attention.cu``; counted as ``flash_attention``).  A launch
+that fails raises: neither route gives way to the other or to the plain
+version.
 
 ``repro_torch.models.attention.chunked_attention`` calls
 :func:`flash_attention` when ``cfg.attn_impl`` is ``"auto"`` or ``"cuda"``
@@ -20,7 +27,16 @@ import torch
 from repro_torch.kernels import cuda_lib
 from .ref import flash_attention_ref
 
-DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel (and its LAUNCHES key) for each dtype
+ROUTES = {torch.bfloat16: "flash_attention_wgmma",
+          torch.float32: "flash_attention"}
+
+
+def kernel_route(dtype: torch.dtype) -> str:
+    """The kernel that ``flash_attention_cuda`` launches for ``dtype``."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention_cuda takes bf16 or fp32; got {dtype}")
+    return ROUTES[dtype]
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,9 +46,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernel: q [B,H,Sq,D], k/v [B,KV,Sk,D] (any strides over the first
     three axes, D contiguous; bf16 or fp32, all one dtype; D a multiple of
     16 up to 128) → o [B,H,Sq,D], written into ``out`` if given (a view of
-    the same shape, for example a transposed [B,Sq,H,D] tensor)."""
+    the same shape, for example a transposed [B,Sq,H,D] tensor, with
+    16-byte aligned rows).  bf16 launches the wgmma kernel, fp32 the
+    CUDA-core kernel (:func:`kernel_route`)."""
     cuda_lib.check_cuda(q, k, v)
-    if q.dtype not in DTYPE_IDS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_cuda takes bf16 or fp32 q, k, v of "
                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
@@ -55,18 +73,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda_lib.check_cuda(out)
     size = q.element_size()
 
-    def rows_ok(t):                      # the kernel copies 16-byte chunks
+    def rows_ok(t):      # 16-byte chunks (TMA boxes on the bf16 route)
         return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-                and all(s * size % 16 == 0 for s in t.stride()[:3]))
+                and all(s > 0 and s * size % 16 == 0 for s in t.stride()[:3]))
     q, k, v = (t if rows_ok(t) else t.contiguous() for t in (q, k, v))
-    if out.stride(3) != 1:
-        raise ValueError("out must have a contiguous last axis")
     if b == 0 or h == 0 or sq == 0:       # no grid to launch
         return out
+    if not rows_ok(out):
+        raise ValueError("out must have a contiguous last axis and 16-byte "
+                         "aligned rows")
+    if sk == 0:                           # no key: every row is 0
+        return out.zero_()
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    cuda_lib.launch("flash_attention", DTYPE_IDS[q.dtype], q.data_ptr(),
+    cuda_lib.launch(kernel_route(q.dtype), q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
                     b, h, kv, sq, sk, d, int(causal),
                     -1 if window is None else int(window), int(q_off),

@@ -26,17 +26,20 @@ SENT = int(INT_SENTINEL)
 
 def rank_count_cuda(i: torch.Tensor, j: torch.Tensor):
     """The kernel: int32 sorted ``i`` [Ni] and ``j`` [Nj] on one sm_90
-    card → int32 ``(rank, hit)`` [Ni].  An unsorted ``j`` gives wrong
-    counts but never reads out of bounds (every probe lies in [0, Nj))."""
+    card → int32 ``(rank, hit)`` [Ni], in one merge-path launch (after a
+    memset of ``hit``).  Unsorted input gives wrong counts but never reads
+    or writes out of bounds (every split lies inside both arrays)."""
     cuda_lib.check_cuda(i, j)
     if i.dtype != torch.int32 or j.dtype != torch.int32:
         raise TypeError("rank_count takes int32 i and j")
     if i.dim() != 1 or j.dim() != 1:
         raise ValueError(f"i {tuple(i.shape)} and j {tuple(j.shape)} must "
                          f"be 1-D")
+    if i.shape[0] + j.shape[0] >= 2 ** 31:
+        raise ValueError("rank_count takes fewer than 2^31 keys in all")
     i, j = i.contiguous(), j.contiguous()
-    rank = torch.empty_like(i)
-    hit = torch.empty_like(i)
+    rank, hit = torch.empty((2, i.shape[0]), dtype=torch.int32,
+                            device=i.device).unbind(0)   # one allocation
     if i.shape[0] == 0:           # no grid to launch: nothing to count
         return rank, hit
     cuda_lib.launch("rank_count", i.data_ptr(), j.data_ptr(), rank.data_ptr(),

@@ -149,6 +149,54 @@ def test_rank_count_kernel(card, ni, nj):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("ni,nj,vmax", [(50000, 7, 3), (7, 50000, 3),
+                                        (20000, 30000, 20),
+                                        (262144, 262144, 40000)])
+def test_rank_count_kernel_long_runs(card, ni, nj, vmax):
+    """Runs of equal values and sentinel tails longer than one block (2048
+    merged elements), on both sides and in both tie orders."""
+    gen = torch.Generator().manual_seed(ni * 3 + nj)
+    i = torch.sort(torch.randint(0, vmax, (ni,), generator=gen,
+                                 dtype=torch.int32)).values
+    j = torch.sort(torch.randint(0, vmax, (nj,), generator=gen,
+                                 dtype=torch.int32)).values
+    i[ni - ni // 3:] = 2 ** 31 - 1
+    j[nj - nj // 4:] = 2 ** 31 - 1
+    i, j = i.to(card), j.to(card)
+    for p, q in ((i, j), (j, i)):
+        reset_launch_counts()
+        got, want = rc_ops.rank_count_cuda(p, q), rank_count_ref(p, q)
+        assert LAUNCHES["rank_count"] == 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_rank_count_kernel_at_the_size_limit(card):
+    """2^31 - 1 keys in all, the most the wrapper takes: the last block's
+    slice end lies past the int32 range unless it is summed in 64 bits.
+    i's entries above every j merge into that last block in both tie
+    orders.  One key more is refused before any launch."""
+    ni = 1000
+    nj = 2 ** 31 - 1 - ni
+    j = torch.arange(nj, dtype=torch.int32, device=card) // 8  # runs of 8
+    top = nj // 8
+    gen = torch.Generator().manual_seed(31)
+    i = torch.cat([
+        torch.randint(0, top, (600,), generator=gen, dtype=torch.int32),
+        torch.full((100,), top - 1, dtype=torch.int32),
+        torch.randint(top, 2 ** 30, (200,), generator=gen, dtype=torch.int32),
+        torch.full((100,), 2 ** 31 - 1, dtype=torch.int32)])
+    i = torch.sort(i).values.to(card)
+    reset_launch_counts()
+    got, want = rc_ops.rank_count_cuda(i, j), rank_count_ref(i, j)
+    assert LAUNCHES["rank_count"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    del j
+    over = torch.zeros(1, dtype=torch.int32, device=card).expand(nj + 1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        rc_ops.rank_count_cuda(i, over)
+    assert LAUNCHES["rank_count"] == 1
+
+
 def test_rank_count_sentinel_case(card):
     """The all-pairs Pallas path counts its own pad sentinels here; the
     kernel follows searchsorted: hit = [0, 1, 0, 4, 4]."""
@@ -221,6 +269,12 @@ def test_empty_inputs_launch_nothing(card):
     assert bsr_ops.bsr_spgemm_reduce(empty, mask, t[0],
                                      axis=1).shape == (0,)
     assert rc_ops.rank_count_cuda(none, none)[0].shape == (0,)
+    q = torch.ones((1, 2, 5, 64), dtype=torch.bfloat16, device=card)
+    kv = torch.zeros((1, 1, 0, 64), dtype=torch.bfloat16, device=card)
+    for dt in (torch.bfloat16, torch.float32):   # no key: every row is 0
+        got = fa_ops.flash_attention_cuda(q.to(dt), kv.to(dt), kv.to(dt),
+                                          causal=False)
+        assert got.shape == q.shape and not bool(got.any())
     assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
 
 
@@ -271,6 +325,13 @@ FLASH_CARD_CASES = [
     (1, 6, 3, 70, 70, 16, True, 33, 0),           # ragged, window
     (1, 2, 1, 64, 200, 80, False, None, 0),
     (4, 16, 8, 2048, 2048, 128, True, None, 0),   # the serve path's shape
+    (1, 4, 2, 64, 96, 64, False, None, 0),        # Sk < 128
+    (2, 4, 2, 300, 300, 128, True, None, 0),      # Sq, Sk not multiples of 128
+    (1, 4, 2, 200, 333, 48, True, None, 133),     # D 48: zero-filled boxes
+    (2, 4, 4, 257, 257, 80, True, 100, 0),        # D 80 across two boxes
+    (1, 4, 2, 384, 384, 128, True, 200, 0),       # window edge inside a tile
+    (2, 8, 2, 192, 640, 128, True, None, 448),    # q_off, Sq < Sk
+    (1, 2, 1, 400, 100, 64, False, 16, 0),        # q tiles with no key tile
 ]
 
 
@@ -285,7 +346,11 @@ def test_flash_attention_kernel(card, case, dtype):
     kw = dict(causal=causal, window=window, q_off=q_off)
     reset_launch_counts()
     got = fa_ops.flash_attention_cuda(q, k, v, **kw)
-    assert LAUNCHES["flash_attention"] == 1
+    route = "flash_attention_wgmma" if dtype == torch.bfloat16 else \
+        "flash_attention"
+    assert fa_ops.kernel_route(dtype) == route
+    assert LAUNCHES[route] == 1
+    assert LAUNCHES["flash_attention"] + LAUNCHES["flash_attention_wgmma"] == 1
     want = flash_attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == want.shape
     assert_flash_close(got, want, q, k, v, **kw)
@@ -300,7 +365,7 @@ def test_flash_attention_model_layout_on_card(card):
     v = torch.randn((2, 192, 2, 64), generator=gen).to(card, torch.bfloat16)
     reset_launch_counts()
     got = fa_ops.flash_attention(q, k, v, causal=True, impl="auto")
-    assert LAUNCHES["flash_attention"] == 1 and got.shape == q.shape
+    assert LAUNCHES["flash_attention_wgmma"] == 1 and got.shape == q.shape
     want = fa_ops.flash_attention(q, k, v, causal=True, impl="ref")
     assert_flash_close(*(x.transpose(1, 2) for x in (got, want, q, k, v)),
                        causal=True)
@@ -308,14 +373,14 @@ def test_flash_attention_model_layout_on_card(card):
                       q_positions=torch.tensor([4], device=card),
                       k_positions=torch.arange(192, device=card), causal=True,
                       impl="cuda")
-    assert LAUNCHES["flash_attention"] == 1
+    assert LAUNCHES["flash_attention_wgmma"] == 1
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa_ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), impl="cuda")
 
 
 def test_serve_path_on_card(card):
     """The SMOKE qwen3 served on the card: one flash launch per layer in
-    the prefill, none in decode, and the kernel route's logits within
+    the prefill (bf16: the wgmma route), none in decode, and the kernel route's logits within
     bf16 rounding of the plain route's."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch import serve as TSV
@@ -326,7 +391,8 @@ def test_serve_path_on_card(card):
                             dtype=torch.int32)
     reset_launch_counts()
     res = TSV.serve(params, cfg, prompts, 4)
-    assert LAUNCHES["flash_attention"] == cfg.n_layers
+    assert LAUNCHES["flash_attention_wgmma"] == cfg.n_layers
+    assert LAUNCHES["flash_attention"] == 0
     assert res["tokens"].shape == (2, 4)
     plain = TSV.serve(params, cfg.replace(attn_impl="ref"), prompts, 4)
     want = plain["prefill_logits"]

@@ -243,6 +243,118 @@ def test_rank_count_sentinel_trap_pinned():
     assert ip.tolist() == np.asarray(j_ip).tolist() == [0, 1, 3, 4, 1]
 
 
+def _split(a, b, diag, first, lanes):
+    """csrc/rank_count.cu's ``warp_split`` with ``lanes`` lanes: the count
+    of a among the first ``diag`` merged elements, each round probing one
+    split per lane and keeping the range between the last true and the
+    first false probe."""
+    lo, hi = max(0, diag - len(b)), min(diag, len(a))
+    while hi > lo:
+        span = hi - lo
+        if span <= lanes:
+            return lo + sum(bool(first(a[lo + l], b[diag - lo - l - 1]))
+                            for l in range(span))
+        xs = [lo + l * span // lanes for l in range(lanes)]
+        k = sum(bool(first(a[x], b[diag - x - 1])) for x in xs)
+        if k == 0:
+            return lo
+        nxt = lo + k * span // lanes if k < lanes else hi
+        lo, hi = lo + (k - 1) * span // lanes + 1, nxt
+    return lo
+
+
+def _merge_path_rank_count(i, j, *, threads, items, lanes):
+    """A numpy model of the merge-path kernel: for each tie order, blocks of
+    threads·items merged elements, each block's window from two splits,
+    each thread's start by binary search in the window and ``items``
+    sequential merge steps; rank from the i-first order, hit as the sum of
+    +upper (j-first order) and -lower, as the kernel's reductions do."""
+    tile = threads * items
+    total = len(i) + len(j)
+    rank = np.full(len(i), -1, np.int64)
+    hit = np.zeros(len(i), np.int64)
+    for lower in (True, False):
+        def first(x, y):                   # does i's x go before j's y?
+            return x <= y if lower else x < y
+        seen = np.zeros(len(i), bool)
+        for d0 in range(0, total, tile):
+            d1 = min(d0 + tile, total)
+            a0, a1 = (_split(i, j, d, first, lanes) for d in (d0, d1))
+            b0, b1 = d0 - a0, d1 - a1
+            si, sj = i[a0:a1], j[b0:b1]
+            na, nb = len(si), len(sj)
+            assert na + nb == d1 - d0
+            cnt = np.full(na, -1, np.int64)
+            for t in range(threads):
+                diag = min(t * items, na + nb)
+                lo, hi = max(0, diag - nb), min(diag, na)
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if first(si[mid], sj[diag - mid - 1]):
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                x, y = lo, diag - lo
+                for _ in range(items):
+                    if x + y < na + nb:
+                        if y >= nb or (x < na and first(si[x], sj[y])):
+                            cnt[x] = b0 + y
+                            x += 1
+                        else:
+                            y += 1
+            assert (cnt >= 0).all()        # each i of the window merged once
+            seen[a0:a1] = True
+            if lower:
+                rank[a0:a1] = cnt
+                hit[a0:a1] -= cnt
+            else:
+                hit[a0:a1] += cnt
+        assert seen.all()
+    return rank, hit
+
+
+def _runs_with_tail(rng, n, vmax, n_sent):
+    """n sorted int32 keys from [0, vmax) (long runs of equal values when
+    vmax is small) whose last n_sent are SENT."""
+    k = np.sort(rng.integers(0, vmax, n - n_sent)).astype(np.int32)
+    return np.concatenate([k, np.full(n_sent, SENT, np.int32)])
+
+
+@pytest.mark.parametrize("ni,si,nj,sj,vmax,threads,items,lanes", [
+    (40, 10, 60, 25, 6, 2, 3, 4),          # runs and sentinel tails span blocks
+    (300, 20, 5, 2, 50, 2, 4, 4),          # Ni >> Nj
+    (5, 1, 300, 40, 50, 3, 2, 4),          # Nj >> Ni
+    (2000, 300, 3000, 700, 40, 4, 8, 32),  # 32-way splits, many rounds
+    (3000, 800, 2500, 600, 5000, 256, 8, 32),  # the kernel's own sizes
+])
+def test_merge_path_model_matches_rank_count_ref(ni, si, nj, sj, vmax,
+                                                 threads, items, lanes):
+    """The merge-path partition and per-thread merge of csrc/rank_count.cu,
+    in both tie orders, give searchsorted's counts on every entry (held
+    against the JAX package's reference)."""
+    rng = np.random.default_rng(ni * 7 + nj)
+    i = _runs_with_tail(rng, ni, vmax, si)
+    j = _runs_with_tail(rng, nj, vmax, sj)
+    for p, q in ((i, j), (j, i)):
+        rank, hit = _merge_path_rank_count(p, q, threads=threads,
+                                           items=items, lanes=lanes)
+        want = j_rc_ref(jnp.asarray(p), jnp.asarray(q))
+        np.testing.assert_array_equal(rank, np.asarray(want[0]))
+        np.testing.assert_array_equal(hit, np.asarray(want[1]))
+
+
+def test_merge_path_model_pinned_sentinel_case():
+    """i=[1,3,5,S,S], j=[3,4,S,S,S,S] through the model at blocks of 2 and
+    4 merged elements: hit = [0, 1, 0, 4, 4], as searchsorted gives."""
+    i = np.array([1, 3, 5, SENT, SENT], np.int32)
+    j = np.array([3, 4, SENT, SENT, SENT, SENT], np.int32)
+    for threads, items in ((1, 2), (2, 2)):
+        rank, hit = _merge_path_rank_count(i, j, threads=threads,
+                                           items=items, lanes=2)
+        assert rank.tolist() == [0, 0, 2, 2, 2]
+        assert hit.tolist() == [0, 1, 0, 4, 4]
+
+
 @pytest.mark.parametrize("ni,si,nj,sj", _RANK_CASES)
 def test_merge_positions_and_overlay_scatter_match(ni, si, nj, sj):
     rng = np.random.default_rng(7 * ni + nj)

@@ -241,27 +241,29 @@ def test_flash_wrapper_model_layout(q_off):
 
 
 def _kernel_arithmetic(q, k, v, *, skip_rescale_from=None):
-    """The CUDA kernel's bf16 arithmetic in torch: 64-key tiles, running
-    max and sum in fp32, P rounded to bf16 before P·V, fp32 accumulator,
-    output rounded once.  ``skip_rescale_from`` breaks it: tiles from that
-    key on no longer rescale the accumulator."""
+    """The bf16 wgmma kernel's arithmetic in torch: 128-key tiles, scores
+    scaled by scale·log2(e) into a running max in those units and p =
+    2^(s - m), running max and sum in fp32, P rounded to bf16 once before
+    P·V, fp32 accumulator, output rounded once.  ``skip_rescale_from``
+    breaks it: tiles from that key on no longer rescale the accumulator."""
     b, h, sq, d = q.shape
     g = h // k.shape[1]
     kk, vv = (x.float().repeat_interleave(g, 1) for x in (k, v))
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / math.sqrt(d)
+    c = math.log2(math.e) / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * c
     s = s.masked_fill(torch.arange(k.shape[2])[None, :]
                       > torch.arange(sq)[:, None], float("-inf"))
     m = torch.full((b, h, sq, 1), -1e30)
     l = torch.zeros((b, h, sq, 1))
     acc = torch.zeros((b, h, sq, d))
-    for k0 in range(0, k.shape[2], 64):
-        st = s[..., k0:k0 + 64]
+    for k0 in range(0, k.shape[2], 128):
+        st = s[..., k0:k0 + 128]
         m_new = torch.maximum(m, st.amax(-1, keepdim=True))
-        alpha, p = torch.exp(m - m_new), torch.exp(st - m_new)
+        alpha, p = torch.exp2(m - m_new), torch.exp2(st - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
         if skip_rescale_from is None or k0 < skip_rescale_from:
             acc = acc * alpha
-        acc = acc + p.bfloat16().float() @ vv[..., k0:k0 + 64, :]
+        acc = acc + p.bfloat16().float() @ vv[..., k0:k0 + 128, :]
         m = m_new
     return (acc / l.clamp_min(1e-30)).bfloat16()
 
@@ -283,8 +285,34 @@ def test_bf16_error_bound_holds_for_the_kernels_arithmetic():
     err = (_kernel_arithmetic(q, k, v).float() - want.float()).abs()
     assert bool((err <= bound).all())
     assert float(err.norm() / want.float().norm()) <= 2 ** -7
-    bad = _kernel_arithmetic(q, k, v, skip_rescale_from=2048 - 64)
+    bad = _kernel_arithmetic(q, k, v, skip_rescale_from=2048 - 128)
     assert not bool(((bad.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "flash_attention_wgmma"), (torch.float32,
+                                                "flash_attention")])
+def test_flash_route_is_chosen_by_dtype(monkeypatch, dtype, route):
+    """bf16 launches the wgmma kernel and fp32 the CUDA-core kernel, by
+    dtype alone; a launch that fails raises, with no second launch on the
+    other kernel and no plain-version result."""
+    from repro_torch.kernels import cuda_lib
+    calls = []
+
+    def failing_launch(kernel, *args):
+        calls.append(kernel)
+        raise RuntimeError(f"{kernel} launch failed")
+    monkeypatch.setattr(cuda_lib, "check_cuda", lambda *t: None)
+    monkeypatch.setattr(cuda_lib, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(cuda_lib, "launch", failing_launch)
+    q = torch.zeros(1, 32, 2, 16, dtype=dtype)
+    k = torch.zeros(1, 32, 1, 16, dtype=dtype)
+    assert t_flash.kernel_route(dtype) == route
+    with pytest.raises(RuntimeError, match=route):
+        t_flash.flash_attention(q, k, k, impl="cuda")
+    assert calls == [route]
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        t_flash.kernel_route(torch.float16)
 
 
 def test_flash_dispatch_never_falls_back():
