@@ -28,7 +28,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      paper's uniform workload at n=12: ``A.matmul(B)`` under
      ``PLUS_TIMES`` and ``MIN_PLUS``, ``A.sqout(reduce=1)``,
      ``A.matmul_reduce(B, axis=0)`` and the same lazy pipeline (all
-     planned ``dense``); every kernel of the path must have launched;
+     planned ``dense``); every kernel of the path must have launched, the
+     uniform ``PLUS_TIMES`` product and fused reduces on the TF32 route
+     and ``MIN_PLUS`` on the CUDA-core route;
    * the ingest path: the uniform workload at n=15 (262,144 triples per
      array, ~32.8k x 32.8k keys) as an ``IngestTable`` over A that takes
      B in 16 batches, with snapshots (merge-on-read) after batch 8 and
@@ -44,18 +46,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. each kernel against its plain torch version on the card, on inputs of
    the main path's shapes, under all six semirings where a semiring
    applies.  The matmul inputs are multiples of 1/4 in [1/4, 2], so every
-   fp32 product and sum is exact in any order: the tolerance is 0 for
-   every semiring.  ``bsr_spgemm`` and ``bsr_spgemm_reduce`` are held at
-   4096^3 both with a seeded mask that keeps about 1/4 of A's tiles and
-   with the all-present mask of uniform n=12.  ``segment_scan`` (no caller
-   on any path, as in the JAX package) is held against its plain version
+   fp32 product and sum is exact in any order, on the CUDA cores and on
+   the TF32 route alike: the tolerance is 0 for every semiring.
+   ``bsr_spgemm`` and ``bsr_spgemm_reduce`` are held at 4096^3 both with a
+   seeded mask that keeps about 1/4 of A's tiles and with the all-present
+   mask of uniform n=12.  The TF32 route ((+, ×) of ``semiring_matmul``
+   and ``bsr_spgemm_reduce``) is also held on normal values against the
+   fp64 product, within its stated bound and a relative L2 error of 2^-16,
+   at 4096^3 and unaligned shapes, and on ±inf and near-FLT_MAX inputs,
+   where it must equal the plain version.  ``segment_scan`` (no caller on
+   any path, as in the JAX package) is held against its plain version
    under sum, min and max at the size a dedup of the clustered n=18 array
    scans (2^21 sorted pair ids);
 5. CUDA-event device times (plus_times, L2 evicted before each call) of
    each kernel, its plain version and one PyTorch library yardstick,
-   beside the least time the card could take (a kernel time below it
-   fails the run; ``rank_count`` is also timed by the host's clock,
-   launch overhead included);
+   beside the least time the card could take for the kernel's route (a
+   kernel time below it fails the run; ``rank_count`` is also timed by the
+   host's clock, launch overhead included); the dense kernels' times
+   under every semiring beside each route's bound (FMA pipe, ALU pipe and
+   issue rates of the CUDA cores; three TF32 products), with
+   ``bsr_spgemm``, whose old mainloop does the same work, as the witness;
    then ``A @ B``, ``A.sqout(reduce=1)``, the uniform ``A.matmul(B)``,
    the uniform ``A.sqout(reduce=1)`` and two ingest snapshots (n=15 and
    the n=18 fallback) once more under ``spgemm.stage_timing()``, for
@@ -81,7 +91,22 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
+# CUDA-core issue rates of one H100 SXM (132 SMs at the 1.98 GHz boost
+# clock; CUDA C++ Programming Guide, arithmetic instruction throughput
+# table, compute capability 9.0): FFMA/FADD/FMUL on the FMA pipe at 128 a
+# clock per SM, compare/min/max (FMNMX) on the ALU pipe at 64, and one warp
+# instruction a clock from each of 4 sub-partitions (128 a clock per SM)
+SM_COUNT = 132
+SM_CLOCK_HZ = 1.98e9
+FMA_PIPE_PER_CLK = 128
+ALU_PIPE_PER_CLK = 64
+ISSUE_PER_CLK = 128
+# (FMA-pipe, ALU-pipe) instructions per MAC of each semiring's ⊕ and ⊗
+SEMIRING_INSTRUCTIONS = {"plus_times": (1, 0), "max_plus": (1, 1),
+                         "min_plus": (1, 1), "max_min": (0, 2),
+                         "max_times": (1, 1), "and_or": (0, 2)}
 SLEEP_CYCLES = 50_000_000  # about 25 ms of head start for cuda_ms
 L2_FLUSH_BYTES = 256 << 20  # written before each timed call (L2: 50 MB)
 
@@ -110,13 +135,40 @@ def log(*a):
     print(*a, flush=True)
 
 
-def nvidia_smi_line() -> str:
+def cuda_core_bound_ms(semiring: str, macs: int) -> float:
+    """Least CUDA-core time of ``macs`` semiring MACs: the busier of the
+    FMA pipe, the ALU pipe and instruction issue."""
+    fma, alu = SEMIRING_INSTRUCTIONS[semiring]
+    per_sm = max(fma / FMA_PIPE_PER_CLK, alu / ALU_PIPE_PER_CLK,
+                 (fma + alu) / ISSUE_PER_CLK)
+    return macs * per_sm / (SM_COUNT * SM_CLOCK_HZ) * 1e3
+
+
+def tf32x3_bound_ms(macs: int) -> float:
+    """Least time of the TF32 route: three tensor-core products."""
+    return 3 * 2 * macs / TF32_FLOP_PER_S * 1e3
+
+
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--query-gpu={query}",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def clocks_under_load(fn, calls: int) -> str:
+    """The card's SM clock, power draw and temperature read while ``calls``
+    queued calls of ``fn`` run (the bounds assume the 1.98 GHz boost)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        fn()
+    line = nvidia_smi_line("clocks.sm,power.draw,temperature.gpu")
+    torch.cuda.synchronize()
+    return line
 
 
 def cuda_ms(fn, repeats: int, warmup: int = 1) -> float:
@@ -558,7 +610,8 @@ def main() -> int:
         from repro_torch.kernels.segment_reduce.ref import segment_scan_ref
         from repro_torch.kernels.range_extract.ref import range_mask_ref
         from repro_torch.kernels.semiring_matmul import ops as sm_ops
-        from repro_torch.kernels.semiring_matmul.ref import semiring_matmul_ref
+        from repro_torch.kernels.semiring_matmul.ref import (
+            nonfinite_operands, semiring_matmul_ref, tf32x3_error_bound)
         from repro_torch.kernels.sorted_merge import ops as rc_ops
         from repro_torch.kernels.sorted_merge.ref import rank_count_ref
     except ImportError as exc:
@@ -613,6 +666,16 @@ def main() -> int:
     for k in MAIN_PATH_KERNELS:
         if launches[k] < 1:
             failures.append(f"kernel {k} was not launched on the main path")
+    # the uniform PLUS_TIMES product and fused reduces on the TF32 route,
+    # MIN_PLUS on the CUDA-core ring
+    routes = {"semiring_matmul tf32x3": launches["semiring_matmul_tf32"],
+              "semiring_matmul ring": launches["semiring_matmul"]
+              - launches["semiring_matmul_tf32"],
+              "bsr_spgemm_reduce tf32x3": launches["bsr_spgemm_reduce_tf32"]}
+    log(f"[main path] launches by route {routes}")
+    for name, n in routes.items():
+        if n < 1:
+            failures.append(f"{name} was not launched on the main path")
     if DISPATCH_STATS["range"] < 1:
         failures.append("the row Range selection did not take the range path")
     nnz = {k: int(res[k].nnz) for k in ("select", "add", "matmul")}
@@ -760,6 +823,76 @@ def main() -> int:
             failures.append(f"kernel {k} disagrees with its plain version: "
                             f"{per}")
     report["max_abs_err"] = errs
+
+    # the TF32 route on normal values against the fp64 product, within its
+    # stated bound (semiring_matmul.ref.tf32x3_error_bound; the fused
+    # reduce's fp32 fold adds 2^-23 per term of |C|'s row or column sums)
+    # and a relative L2 error below 2^-16 (a product without the lo passes
+    # stands near 2^-12); at the path's 4096^3 (both masks for the reduce)
+    # and at unaligned shapes.  Then ±inf and near-FLT_MAX inputs, equal to
+    # the plain version: inf where it has inf, NaN only where it has NaN.
+    tf32_checks = {}
+
+    def normal_check(label, got, want, bound):
+        ratio = float(((got.double() - want).abs()
+                       / bound.clamp_min(1e-300)).max())
+        rel = rel_err(got, want)
+        tf32_checks[label] = {"max_err_over_bound": ratio, "rel_l2": rel}
+        ok = ratio <= 1.0 and rel <= 2 ** -16
+        log(f"[kernel check] {'ok  ' if ok else 'FAIL'} {label}, normal "
+            f"values: largest |err| / bound {ratio:.3e} (limit 1), relative "
+            f"L2 {rel:.3e} (limit {2 ** -16:.3e})")
+        if not ok:
+            failures.append(f"{label} on normal values: |err|/bound {ratio}, "
+                            f"relative L2 {rel}")
+
+    for mm, kk, nn in ((dm, dk, dn), (1000, 4099, 3001), (129, 33, 257)):
+        xa = torch.randn((mm, kk), generator=gen).to(dev)
+        xb = torch.randn((kk, nn), generator=gen).to(dev)
+        normal_check(f"semiring_matmul {mm}x{kk}x{nn}",
+                     sm_ops.semiring_matmul(xa, xb, impl="cuda"),
+                     xa.double() @ xb.double(), tf32x3_error_bound(xa, xb))
+    xa = torch.randn((dm, dk), generator=gen).to(dev)
+    xb = torch.randn((dk, dn), generator=gen).to(dev)
+    for label, mask in (("1/4 mask", mk_mask), ("n=12 mask", uni_mask)):
+        full = (mask.repeat_interleave(128, 0).repeat_interleave(128, 1)
+                != 0)
+        xam = torch.where(full, xa, 0.0)
+        c = xam.double() @ xb.double()
+        cb = tf32x3_error_bound(xam, xb)
+        for axis in (0, 1):
+            normal_check(
+                f"bsr_spgemm_reduce {label} axis={axis}",
+                bsr_ops.bsr_spgemm_reduce(xa, mask, xb, axis=axis,
+                                          impl="cuda"),
+                c.sum(axis), cb.sum(axis)
+                + c.shape[axis] * 2.0 ** -23 * c.abs().sum(axis))
+        del c, cb, xam, full
+    del xa, xb
+    ia, ib = nonfinite_operands(1024, dk, 1024, gen, dev)
+    ones = torch.ones((8, dk // 128), dtype=torch.int32, device=dev)
+    inf_cases = {"semiring_matmul": (
+        sm_ops.semiring_matmul(ia, ib, impl="cuda"),
+        semiring_matmul_ref(ia, ib))}
+    for axis in (0, 1):
+        inf_cases[f"bsr_spgemm_reduce axis={axis}"] = (
+            bsr_ops.bsr_spgemm_reduce(ia, ones, ib, axis=axis, impl="cuda"),
+            bsr_ref.bsr_spgemm_reduce_ref(ia, ones, ib, axis=axis))
+    for label, (got, want) in inf_cases.items():
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        n_inf, n_nan = int(torch.isinf(want).sum()), int(torch.isnan(want).sum())
+        tf32_checks[f"{label} nonfinite"] = {"mismatches": int((~same).sum()),
+                                             "inf": n_inf, "nan": n_nan}
+        ok = bool(same.all()) and n_inf + n_nan > 0
+        log(f"[kernel check] {'ok  ' if ok else 'FAIL'} {label}, ±inf and "
+            f"near-FLT_MAX inputs ({tuple(ia.shape)} x {tuple(ib.shape)}): "
+            f"{int((~same).sum())} entries differ from the plain version "
+            f"(which has {n_inf} inf, {n_nan} NaN)")
+        if not ok:
+            failures.append(f"{label} on non-finite inputs: "
+                            f"{tf32_checks[f'{label} nonfinite']}")
+    del ia, ib, inf_cases
+    report["tf32_checks"] = tf32_checks
     log(f"[kernel check] shapes: range_mask N={a.capacity}; semiring_matmul "
         f"{dm}x{dk}x{dn}; bsr_pairlist {len(mm_plan.pair_a)} pairs, "
         f"{len(mm_plan.a_blocks)}+{len(mm_plan.b_blocks)} tiles -> {n_c}; "
@@ -825,17 +958,17 @@ def main() -> int:
              bytes=(len(rd_plan.a_blocks) + len(rd_plan.b_blocks)) * tile_b
              + 12 * p_rd + 512 * n_o,
              ops=2 * 128 ** 3 * p_rd, repeats=3),
-        dict(name="semiring_matmul", route="cuda",
-             source="src/repro_torch/csrc/semiring_matmul.cu",
+        dict(name="semiring_matmul", route="cuda-wgmma-tf32x3",
+             source="src/repro_torch/csrc/semiring_tf32_sm90.cu",
              replaces="src/repro/kernels/semiring_matmul/semiring_matmul.py:53",
              kernel=lambda: sm_ops.semiring_matmul(x, y, semiring=pt,
                                                    impl="cuda"),
              plain=lambda: semiring_matmul_ref(x, y, semiring=pt),
              library=lambda: torch.matmul(x, y),
              bytes=4 * (dm * dk + dk * dn + dm * dn),
-             ops=2 * dm * dk * dn, repeats=5),
-        dict(name="bsr_spgemm_reduce", route="cuda",
-             source="src/repro_torch/csrc/bsr_spgemm.cu",
+             ops=2 * dm * dk * dn, tf32x3=True, repeats=5),
+        dict(name="bsr_spgemm_reduce", route="cuda-wgmma-tf32x3",
+             source="src/repro_torch/csrc/semiring_tf32_sm90.cu",
              replaces="src/repro/kernels/bsr_spgemm/bsr_spgemm.py:153",
              kernel=lambda: bsr_ops.bsr_spgemm_reduce(
                  x, uni_mask, y, axis=1, semiring=pt, impl="cuda"),
@@ -844,7 +977,8 @@ def main() -> int:
              library=lambda: torch.matmul(x_masked, y).sum(1),
              bytes=4 * (n_present * 128 * 128 + dk * dn + uni_mask.numel()
                         + dm),
-             ops=2 * 128 ** 3 * n_present * (dn // 128), repeats=5),
+             ops=2 * 128 ** 3 * n_present * (dn // 128), tf32x3=True,
+             repeats=5),
         dict(name="bsr_spgemm", route="cuda",
              source="src/repro_torch/csrc/bsr_spgemm.cu",
              replaces="src/repro/kernels/bsr_spgemm/bsr_spgemm.py:74",
@@ -878,7 +1012,10 @@ def main() -> int:
         lib_ms = (cuda_ms(r["library"], max(1, r["repeats"] // 2))
                   if r["library"] else None)
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / FP32_FLOP_PER_S * 1e3
+        t_fp32 = r["ops"] / FP32_FLOP_PER_S * 1e3
+        # the TF32 route's bound is its three tensor-core products
+        t_ops = (tf32x3_bound_ms(r["ops"] // 2) if r.get("tf32x3")
+                 else t_fp32)
         kernels.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "launches": launches[r["name"]],
@@ -886,12 +1023,17 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms})
+        if r.get("tf32x3"):
+            kernels[-1]["bound_fp32_ms"] = max(t_bytes, t_fp32)
         ratio = ("" if lib_ms is None
                  else f", kernel / library {ms / lib_ms:.3f}")
-        log(f"[time] {r['name']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+        fp32 = (f", fp32 CUDA-core bound {max(t_bytes, t_fp32):.4f} ms"
+                if r.get("tf32x3") else "")
+        log(f"[time] {r['name']} ({r['route']}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
             f"{ratio}, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({kernels[-1]['bound_by']})")
+            f"({kernels[-1]['bound_by']}){fp32}")
         del r["kernel"], r["plain"], r["library"]
     kernels.append(flash_row)
     # a time under the least the card could take is a fault of the timing
@@ -911,27 +1053,53 @@ def main() -> int:
         f"{rc_host['kernel']:.4f} ms, library {rc_host['library']:.4f} ms, "
         f"kernel / library {rc_host['kernel'] / rc_host['library']:.3f}")
     report["rank_count_host_ms"] = rc_host
-    # per-semiring kernel times (the bound doubles off plus_times: ⊕ and ⊗
-    # are two fp32 instructions where (+, ×) is one FMA)
+    # per-semiring kernel times beside each route's bound, and bsr_spgemm
+    # (tile_mma.cuh, unchanged: the old mainloop at the same work) as the
+    # in-run witness of the design the two dense kernels replaced
     by_sr = {}
+    dense_macs = dm * dk * dn
+    mask_macs = 128 ** 3 * n_present * (dn // 128)
     for name in SEMIRINGS:
         sr = REGISTRY[name]
         xs, ys = dn_ops(sr)
         ats, bts = mm_tiles(sr)
         ars, brs = rd_tiles(sr)
         by_sr[name] = {
+            "route": sm_ops.route(sr),
             "semiring_matmul": cuda_ms(lambda: sm_ops.semiring_matmul(
                 xs, ys, semiring=sr, impl="cuda"), 3),
+            "bsr_spgemm_reduce": cuda_ms(
+                lambda: bsr_ops.bsr_spgemm_reduce(xs, uni_mask, ys, axis=1,
+                                                  semiring=sr, impl="cuda"),
+                3),
+            "bsr_spgemm (witness)": cuda_ms(lambda: bsr_ops.bsr_spgemm_cuda(
+                xs, uni_mask, ys, sr=sr), 3),
             "bsr_pairlist": cuda_ms(lambda: bsr_ops.bsr_pairlist_cuda(
                 ats, bts, *mm_pairs, n_c=n_c, sr=sr), 2),
             "bsr_pairlist_reduce": cuda_ms(
                 lambda: bsr_ops.bsr_pairlist_reduce_cuda(
-                    ars, brs, *rd_pairs, n_o=n_o, axis=1, sr=sr), 2)}
-        by_sr[name]["bsr_spgemm_reduce"] = cuda_ms(
-            lambda: bsr_ops.bsr_spgemm_reduce(xs, uni_mask, ys, axis=1,
-                                              semiring=sr, impl="cuda"), 3)
+                    ars, brs, *rd_pairs, n_o=n_o, axis=1, sr=sr), 2),
+            "cuda_core_bound_ms": cuda_core_bound_ms(name, dense_macs)}
+        if sm_ops.route(sr) == "tf32x3":
+            by_sr[name]["tf32x3_bound_ms"] = tf32x3_bound_ms(dense_macs)
+        route_bound = by_sr[name].get("tf32x3_bound_ms",
+                                      by_sr[name]["cuda_core_bound_ms"])
+        for k in ("semiring_matmul", "bsr_spgemm_reduce"):
+            macs = dense_macs if k == "semiring_matmul" else mask_macs
+            bound = route_bound * macs / dense_macs
+            if by_sr[name][k] < bound:
+                failures.append(f"{k} under {name}: {by_sr[name][k]} ms is "
+                                f"below its bound {bound} ms")
+        if name in ("max_plus", "plus_times"):
+            by_sr[name]["clocks_under_load"] = clocks_under_load(
+                lambda: sm_ops.semiring_matmul(xs, ys, semiring=sr,
+                                               impl="cuda"), 60)
         del xs, ys, ats, bts, ars, brs
-    log("[time] kernel ms by semiring " + json.dumps(by_sr))
+    log("[time] kernel ms by semiring, with the CUDA-core bound (FMA pipe "
+        f"{FMA_PIPE_PER_CLK}, ALU pipe {ALU_PIPE_PER_CLK}, issue "
+        f"{ISSUE_PER_CLK} a clock per SM, {SM_COUNT} SMs at "
+        f"{SM_CLOCK_HZ / 1e9} GHz) and the TF32 route's "
+        + json.dumps(by_sr))
     report["ms_by_semiring"] = by_sr
     # the fused reduce where the mask skips work: the seeded 1/4 mask
     xq, yq = mk_ops(pt)
@@ -945,10 +1113,15 @@ def main() -> int:
         "plain_ms": cuda_ms(lambda: bsr_ref.bsr_spgemm_reduce_ref(
             xq, mk_mask, yq, axis=1, semiring=pt), 2),
         "library_ms": cuda_ms(lambda: torch.matmul(xq_masked, yq).sum(1), 2),
-        "bound_ms": 2 * 128 ** 3 * q_present * (yq.shape[1] // 128)
+        "bound_ms": tf32x3_bound_ms(128 ** 3 * q_present
+                                    * (yq.shape[1] // 128)),
+        "bound_fp32_ms": 2 * 128 ** 3 * q_present * (yq.shape[1] // 128)
         / FP32_FLOP_PER_S * 1e3}
     log("[time] bsr_spgemm_reduce at the seeded 1/4 mask "
         + json.dumps(quarter))
+    if quarter["ms"] < quarter["bound_ms"]:
+        failures.append(f"bsr_spgemm_reduce at the 1/4 mask: {quarter['ms']}"
+                        f" ms is below its bound {quarter['bound_ms']} ms")
     report["bsr_spgemm_reduce_quarter_mask"] = quarter
     del xq, yq, xq_masked
 

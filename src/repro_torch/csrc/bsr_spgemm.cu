@@ -8,26 +8,30 @@
 // semiring zero and its contraction is skipped.  B is [K, N] fp32, dense.
 // One 256-thread block owns one 128x128 output tile (i, j): it walks the
 // k tiles of block-row i, skips those with mask[i][k] == 0, and
-// contracts the present ones into a register accumulator
-// (tile::contract, 32-deep k-slabs through shared memory).  The TPU
+// contracts the present ones into a register accumulator.  The TPU
 // kernel carries that accumulator across a sequential k grid axis; here
 // the k walk is the loop inside the block, and the (i, j) tiles run in
-// parallel on the SMs.  A block-row with no present tile stores sr.zero,
+// parallel on the SMs.  A block-row with no present tile gives sr.zero,
 // as the Pallas _init does.
 //
-// bsr_spgemm stores the tile.  bsr_spgemm_reduce never stores C: the
-// block ⊕-folds its tile over columns (axis 1) or rows (axis 0) through
-// shared memory into one [128] vector and writes it as a partial,
-// [N/128, M] for axis 1 or [M/128, N] for axis 0; the wrapper ⊕-folds
-// the leading axis (the JAX wrapper folds its lanes the same way).  No
-// two blocks write one partial, so there are no atomics.
+// bsr_spgemm stores the tile; it contracts with tile::contract
+// (tile_mma.cuh: 32-deep k-slabs loaded through registers into one
+// shared-memory slab) for all six semirings.  bsr_spgemm_reduce never
+// stores C: the block ⊕-folds its tile over columns (axis 1) or rows
+// (axis 0) through shared memory into one [128] vector and writes it as a
+// partial, [N/128, M] for axis 1 or [M/128, N] for axis 0; the wrapper
+// ⊕-folds the leading axis (the JAX wrapper folds its lanes the same way).
+// No two blocks write one partial, so there are no atomics.  Its five
+// CUDA-core semirings contract on the cp.async ring (ring::contract,
+// semiring_gemm_sm90.cuh), which walks only the present k tiles;
+// PLUS_TIMES takes the TF32 route (semiring_tf32_sm90.cu).
 //
 // Bound on an H100: operations.  Every present tile pair is 2·128^3 fp32
 // operations against 128 KB of tile reads (32 a byte, above the fp32
-// ridge of 20), and the reduce writes 1/128 of C.  The design is the
-// dense semiring_matmul kernel's, tile for tile, plus a skip of absent
-// tiles that is uniform across the block (the mask is one int per
-// block-row and k tile, so the branch never diverges).
+// ridge of 20), and the reduce writes 1/128 of C.  The skip of absent
+// tiles is uniform across the block (the mask is one int per block-row
+// and k tile, so the branch never diverges).
+#include "semiring_gemm_sm90.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -65,21 +69,22 @@ __global__ void __launch_bounds__(tile::THREADS)
 }
 
 template <class SR>
-__global__ void __launch_bounds__(tile::THREADS)
+__global__ void __launch_bounds__(ring::THREADS, 2)
     bsr_spgemm_reduce_kernel(const float* __restrict__ A, const int* __restrict__ mask,
                              const float* __restrict__ B, float* __restrict__ part, int M,
                              int N, int K, int axis) {
-  __shared__ tile::Slab s;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ring::Stage* st = reinterpret_cast<ring::Stage*>(smem_raw);
   const long long bi = blockIdx.y;
   const long long bj = blockIdx.x;
   float acc[8][8];
-  masked_row_product<SR>(s, acc, A, mask, B, bi, bj, N, K);
+  ring::contract<SR>(st, acc, A + bi * ring::BM * (long long)K, K, B + bj * ring::BN, N,
+                     mask + bi * (K / kTileK), K);
 
   // fold: each thread ⊕-folds its 8 columns (axis 1) or 8 rows (axis 0)
-  // into red[16][128], then 128 threads fold the 16 partials.  A skipped
-  // or finished contraction leaves the slab free: the last contract ended
-  // on a barrier, and with no present tile no thread touched it.
-  float* red = &s.a[0][0];
+  // into red[16][128], then 128 threads fold the 16 partials.  The ring is
+  // free: contract ends on a barrier with no copy in flight.
+  float* red = reinterpret_cast<float*>(smem_raw);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   if (axis == 1) {
@@ -88,7 +93,7 @@ __global__ void __launch_bounds__(tile::THREADS)
       float v = acc[i][0];
 #pragma unroll
       for (int j = 1; j < 8; ++j) v = SR::add(v, acc[i][j]);
-      red[tx * tile::BM + tile::row_of(ty, i)] = v;
+      red[tx * ring::BM + ring::row_of(ty, i)] = v;
     }
   } else {
 #pragma unroll
@@ -96,21 +101,34 @@ __global__ void __launch_bounds__(tile::THREADS)
       float v = acc[0][j];
 #pragma unroll
       for (int i = 1; i < 8; ++i) v = SR::add(v, acc[i][j]);
-      red[ty * tile::BN + tile::col_of(tx, j)] = v;
+      red[ty * ring::BN + ring::col_of(tx, j)] = v;
     }
   }
   __syncthreads();
-  if (threadIdx.x < tile::BM) {
+  if (threadIdx.x < ring::BM) {
     float v = red[threadIdx.x];
 #pragma unroll
-    for (int q = 1; q < 16; ++q) v = SR::add(v, red[q * tile::BM + threadIdx.x]);
+    for (int q = 1; q < 16; ++q) v = SR::add(v, red[q * ring::BM + threadIdx.x]);
     // axis 1: row bi*128 + t of partial bj ([N/128, M]);
     // axis 0: column bj*128 + t of partial bi ([M/128, N])
     if (axis == 1)
-      part[bj * M + bi * tile::BM + threadIdx.x] = v;
+      part[bj * M + bi * ring::BM + threadIdx.x] = v;
     else
-      part[bi * N + bj * tile::BN + threadIdx.x] = v;
+      part[bi * N + bj * ring::BN + threadIdx.x] = v;
   }
+}
+
+template <class SR>
+int launch_reduce(const float* a, const int* mask, const float* b, float* part, int m, int n,
+                  int k, int axis, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(bsr_spgemm_reduce_kernel<SR>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       ring::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(n / ring::BN, m / ring::BM);
+  bsr_spgemm_reduce_kernel<SR><<<grid, ring::THREADS, ring::SMEM_BYTES, stream>>>(
+      a, mask, b, part, m, n, k, axis);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -126,15 +144,15 @@ extern "C" int bsr_spgemm_launch(int sr, const void* a, const void* mask, const 
   return (int)cudaGetLastError();
 }
 
-// As above; part is [N/128, M] (axis 1) or [M/128, N] (axis 0) fp32.
+// As above, for the five CUDA-core semirings (1..5; PLUS_TIMES takes
+// bsr_spgemm_reduce_tf32_launch); part is [N/128, M] (axis 1) or
+// [M/128, N] (axis 0) fp32.
 extern "C" int bsr_spgemm_reduce_launch(int sr, const void* a, const void* mask,
                                         const void* b, void* part, int m, int n, int k,
                                         int axis, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  const dim3 grid(n / tile::BN, m / tile::BM);
-  SR_DISPATCH(sr,
-              bsr_spgemm_reduce_kernel<SR><<<grid, tile::THREADS, 0, (cudaStream_t)stream>>>(
-                  (const float*)a, (const int*)mask, (const float*)b, (float*)part, m, n, k,
-                  axis));
-  return (int)cudaGetLastError();
+  SR_DISPATCH_CORE(sr, return launch_reduce<SR>((const float*)a, (const int*)mask,
+                                                (const float*)b, (float*)part, m, n, k, axis,
+                                                (cudaStream_t)stream));
+  return 0;
 }

@@ -62,3 +62,16 @@ using AndOr = Semiring<OpMax, OpMin, ZERO_0>;
     case 5: { using SR = AndOr; __VA_ARGS__; } break;     \
     default: return (int)cudaErrorInvalidValue;   \
   }
+
+// The same for the five semirings of the CUDA-core route (every one but
+// PlusTimes, which takes the TF32 tensor-core route); id 0 or an unknown id
+// returns cudaErrorInvalidValue.
+#define SR_DISPATCH_CORE(id, ...)                         \
+  switch (id) {                                           \
+    case 1: { using SR = MaxPlus; __VA_ARGS__; } break;   \
+    case 2: { using SR = MinPlus; __VA_ARGS__; } break;   \
+    case 3: { using SR = MaxMin; __VA_ARGS__; } break;    \
+    case 4: { using SR = MaxTimes; __VA_ARGS__; } break;  \
+    case 5: { using SR = AndOr; __VA_ARGS__; } break;     \
+    default: return (int)cudaErrorInvalidValue;           \
+  }

@@ -2,11 +2,13 @@
 
 The pair-list kernels (``csrc/bsr_pairlist.cu``) back the ``bsr``
 strategy; the block-masked dense kernels (``csrc/bsr_spgemm.cu``) back the
-``dense`` strategy's fused reduce.  The pair lists come from the planner
-(:func:`repro_torch.core.spgemm.plan_matmul`) and MUST arrive grouped
-(sorted) by ``pair_c`` / ``pair_o``: the wrapper turns the sorted output
-ids into run offsets, and the CUDA kernel gives each run to one block.  ``impl="auto"``
-launches the kernel on CUDA tensors and the plain version on CPU tensors.
+``dense`` strategy's fused reduce, whose (+, ×) takes the TF32
+tensor-core route (``csrc/semiring_tf32_sm90.cu``, ``route``).  The pair
+lists come from the planner (:func:`repro_torch.core.spgemm.plan_matmul`)
+and MUST arrive grouped (sorted) by ``pair_c`` / ``pair_o``: the wrapper
+turns the sorted output ids into run offsets, and the CUDA kernel gives
+each run to one block.  ``impl="auto"`` launches the kernel on CUDA
+tensors and the plain version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.core.semiring import Semiring, get_semiring
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.semiring_matmul.ops import route, tf32_scratch
 from .ref import (bsr_pairlist_ref, bsr_pairlist_reduce_ref,
                   bsr_spgemm_ref, bsr_spgemm_reduce_ref)
 
@@ -170,9 +173,20 @@ def bsr_spgemm_reduce_cuda(a, block_mask, b, *, axis: int,
     [M/128, N] for axis=0), one per block; C is never stored."""
     a, block_mask, b, m, k, n = _check_masked(a, block_mask, b)
     shape = (n // TILE, m) if axis == 1 else (m // TILE, n)
-    part = torch.empty(shape, dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:          # no grid to launch: nothing to count
+        return torch.empty(shape, dtype=torch.float32, device=a.device)
+    if route(sr) == "tf32x3":
+        if k == 0:                # the empty sum, with no product to run
+            return torch.zeros(shape, dtype=torch.float32, device=a.device)
+        part = torch.empty(shape, dtype=torch.float32, device=a.device)
+        scratch, flags = tf32_scratch(m, n, k, a.device)
+        cuda_lib.launch("bsr_spgemm_reduce_tf32", a.data_ptr(),
+                        block_mask.data_ptr(), b.data_ptr(),
+                        scratch.data_ptr(), flags.data_ptr(), part.data_ptr(),
+                        m, n, k, axis, cuda_lib.stream_ptr(a),
+                        counts=("bsr_spgemm_reduce", "bsr_spgemm_reduce_tf32"))
         return part
+    part = torch.empty(shape, dtype=torch.float32, device=a.device)
     cuda_lib.launch("bsr_spgemm_reduce", cuda_lib.SEMIRING_IDS[sr.name],
                     a.data_ptr(), block_mask.data_ptr(), b.data_ptr(),
                     part.data_ptr(), m, n, k, axis, cuda_lib.stream_ptr(a))

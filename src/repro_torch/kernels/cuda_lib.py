@@ -34,8 +34,9 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("range_mask.cu", "semiring_matmul.cu", "bsr_pairlist.cu",
            "bsr_spgemm.cu", "rank_count.cu", "segment_scan.cu",
-           "flash_attention.cu", "flash_attention_sm90.cu")
-HEADERS = ("semiring.cuh", "tile_mma.cuh")
+           "flash_attention.cu", "flash_attention_sm90.cu",
+           "semiring_tf32_sm90.cu")
+HEADERS = ("semiring.cuh", "tile_mma.cuh", "semiring_gemm_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -43,10 +44,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SEMIRING_IDS = {"plus_times": 0, "max_plus": 1, "min_plus": 2, "max_min": 3,
                 "max_times": 4, "and_or": 5}
 
-# kernel launches since the last reset, by kernel
+# kernel launches since the last reset, by kernel.  A *_tf32 key counts the
+# tensor-core route of the kernel named before it, whose own key counts
+# both routes; flash_attention and flash_attention_wgmma count one route
+# each
 LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
+                            "semiring_matmul_tf32": 0,
                             "bsr_pairlist": 0, "bsr_pairlist_reduce": 0,
                             "bsr_spgemm": 0, "bsr_spgemm_reduce": 0,
+                            "bsr_spgemm_reduce_tf32": 0,
                             "rank_count": 0, "segment_scan": 0,
                             "flash_attention": 0, "flash_attention_wgmma": 0}
 
@@ -55,10 +61,13 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "range_mask_launch": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
     "semiring_matmul_launch": (_I, _P, _P, _P, _I, _I, _I, _P),
+    "semiring_matmul_tf32_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsr_pairlist_launch": (_I, _P, _P, _P, _P, _P, _P, _I, _P),
     "bsr_pairlist_reduce_launch": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "bsr_spgemm_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsr_spgemm_reduce_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "bsr_spgemm_reduce_tf32_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _P),
     "rank_count_launch": (_P, _P, _P, _P, _I, _I, _P),
     "segment_scan_launch": (_I, _P, _P, _P, _LL, _P, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -187,14 +196,16 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(kernel: str, *args) -> None:
-    """Call ``<kernel>_launch(*args)``; raise on a CUDA error, else count.
-    Call it only with a non-empty grid: the C entries return 0 without a
-    launch on an empty size, which would count a launch that never ran."""
+def launch(kernel: str, *args, counts=None) -> None:
+    """Call ``<kernel>_launch(*args)``; raise on a CUDA error, else add one
+    to each key of ``counts`` (default: ``kernel``).  Call it only with a
+    non-empty grid: the C entries return 0 without a launch on an empty
+    size, which would count a launch that never ran."""
     lib = load()
     err = getattr(lib, kernel + "_launch")(*args)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
     with _COUNT_LOCK:
-        LAUNCHES[kernel] += 1
+        for key in counts or (kernel,):
+            LAUNCHES[key] += 1

@@ -1,9 +1,12 @@
 """Dense semiring matmul: pads to the kernel's tiles, dispatches kernel/ref.
 
-``impl="auto"`` launches the CUDA kernel (``csrc/semiring_matmul.cu``) on
-CUDA tensors and the plain version on CPU tensors.  The kernel's block
-tile is 128×128 with 32-deep k-slabs; operands are padded with the
-semiring zero to those multiples, which leaves every ⊕ unchanged.
+``impl="auto"`` launches the CUDA kernel on CUDA tensors and the plain
+version on CPU tensors.  On the card the route follows the semiring
+(:func:`route`): (+, ×) runs as three TF32 tensor-core passes
+(``csrc/semiring_tf32_sm90.cu``), the other five on the CUDA cores
+(``csrc/semiring_matmul.cu``).  Both kernels' block tile is 128×128 with
+32-deep k-slabs; operands are padded with the semiring zero to those
+multiples, which leaves every ⊕ unchanged.
 """
 from __future__ import annotations
 
@@ -15,6 +18,22 @@ from repro_torch.kernels import cuda_lib
 from .ref import semiring_matmul_ref
 
 BM, BN, BK = 128, 128, 32
+
+
+def route(sr: Semiring) -> str:
+    """The card's route for a semiring: ``"tf32x3"`` (three TF32 wgmma
+    passes) for the multiply-accumulate (+, ×), which the TPU kernel sends
+    to its matrix unit, and ``"ring"`` (the CUDA-core cp.async ring) for
+    the other five.  There is no switch: the semiring decides."""
+    return "tf32x3" if sr.mxu else "ring"
+
+
+def tf32_scratch(m: int, n: int, k: int, device):
+    """The TF32 route's scratch: the split operands (A_hi, A_lo [M, K] and
+    B_hi^T, B_lo^T [N, K], fp32) and the exact-path flags (int32 [M + N],
+    zeroed)."""
+    return (torch.empty(2 * (m + n) * k, dtype=torch.float32, device=device),
+            torch.zeros(m + n, dtype=torch.int32, device=device))
 
 
 def _pad_to(x: torch.Tensor, mult_r: int, mult_c: int, fill: float):
@@ -39,9 +58,19 @@ def semiring_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError("semiring_matmul_cuda takes float32 operands")
     a, b = a.contiguous(), b.contiguous()
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:          # no grid to launch: nothing to count
+        return torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if route(sr) == "tf32x3":
+        if k == 0:                # the empty sum, with no product to run
+            return torch.zeros((m, n), dtype=torch.float32, device=a.device)
+        c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        scratch, flags = tf32_scratch(m, n, k, a.device)
+        cuda_lib.launch("semiring_matmul_tf32", a.data_ptr(), b.data_ptr(),
+                        scratch.data_ptr(), flags.data_ptr(), c.data_ptr(),
+                        m, n, k, cuda_lib.stream_ptr(a),
+                        counts=("semiring_matmul", "semiring_matmul_tf32"))
         return c
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     cuda_lib.launch("semiring_matmul", cuda_lib.SEMIRING_IDS[sr.name],
                     a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                     cuda_lib.stream_ptr(a))

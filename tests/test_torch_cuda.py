@@ -6,7 +6,10 @@ conftest is left out):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Inputs are small integers or quarters, so every fp32 ⊕ is exact in any
-order: kernel and plain version must agree exactly under every semiring.
+order: kernel and plain version must agree exactly under every semiring,
+on both routes ((+, ×) on the TF32 tensor cores, the other five on the
+CUDA cores).  Normal values hold the TF32 route within its stated bound
+(``semiring_matmul.ref.tf32x3_error_bound``).
 """
 import numpy as np
 import pytest
@@ -20,7 +23,9 @@ from repro_torch.kernels.bsr_spgemm import ref as bsr_ref
 from repro_torch.kernels.range_extract.ops import range_mask_cuda
 from repro_torch.kernels.range_extract.ref import range_mask_ref
 from repro_torch.kernels.semiring_matmul.ops import semiring_matmul
-from repro_torch.kernels.semiring_matmul.ref import semiring_matmul_ref
+from repro_torch.kernels.semiring_matmul.ref import (nonfinite_operands,
+                                                     semiring_matmul_ref,
+                                                     tf32x3_error_bound)
 from repro_torch.kernels.sorted_merge import ops as rc_ops
 from repro_torch.kernels.sorted_merge.ref import rank_count_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -63,13 +68,62 @@ def test_range_mask_kernel(card, n):
                                range_mask_ref(r, c, b))
 
 
+# (M, K, N): the ring's and the TF32 route's edges — one 32-deep slab, one
+# 128-wide k tile, M and N not multiples of 128, K not a multiple of 32
+MATMUL_SHAPES = [(300, 200, 130), (128, 32, 128), (128, 128, 128),
+                 (200, 70, 330), (129, 4099, 257)]
+
+
+def _route_counts():
+    return {k: LAUNCHES[k] for k in ("semiring_matmul", "semiring_matmul_tf32",
+                                     "bsr_spgemm_reduce",
+                                     "bsr_spgemm_reduce_tf32")}
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
 @pytest.mark.parametrize("sr", SEMIRINGS)
-def test_semiring_matmul_kernel(card, sr):
+def test_semiring_matmul_kernel(card, sr, shape):
+    m, k, n = shape
     gen = torch.Generator().manual_seed(1)
-    a = _vals(gen, (300, 200), sr, card)
-    b = _vals(gen, (200, 130), sr, card)
-    assert torch.equal(semiring_matmul(a, b, semiring=sr, impl="cuda"),
-                       semiring_matmul_ref(a, b, semiring=sr))
+    a = _vals(gen, (m, k), sr, card)
+    b = _vals(gen, (k, n), sr, card)
+    reset_launch_counts()
+    got = semiring_matmul(a, b, semiring=sr, impl="cuda")
+    tf32 = int(sr == "plus_times")
+    assert _route_counts() == {"semiring_matmul": 1,
+                               "semiring_matmul_tf32": tf32,
+                               "bsr_spgemm_reduce": 0,
+                               "bsr_spgemm_reduce_tf32": 0}
+    assert torch.equal(got, semiring_matmul_ref(a, b, semiring=sr))
+
+
+def _normal(gen, shape, card):
+    return torch.randn(shape, generator=gen).to(card)
+
+
+@pytest.mark.parametrize("shape", [(256, 4096, 256), (129, 4099, 257),
+                                   (128, 32, 128)])
+def test_semiring_matmul_tf32_within_bound(card, shape):
+    """Normal values: within the stated bound of the fp64 product, and a
+    relative L2 error below 2^-16, which a product without the lo passes
+    (about 2^-12) misses."""
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(11)
+    a, b = _normal(gen, (m, k), card), _normal(gen, (k, n), card)
+    got = semiring_matmul(a, b, impl="cuda").double()
+    want = a.double() @ b.double()
+    assert bool(((got - want).abs() <= tf32x3_error_bound(a, b)).all())
+    assert float((got - want).norm() / want.norm()) < 2 ** -16
+
+
+def test_semiring_matmul_tf32_nonfinite(card):
+    """±inf, NaN and overflow as in the plain version (inf, not NaN)."""
+    a, b = nonfinite_operands(200, 300, 150, torch.Generator().manual_seed(12),
+                              card)
+    got = semiring_matmul(a, b, impl="cuda")
+    want = semiring_matmul_ref(a, b)
+    assert bool(torch.isinf(want).any()) and bool(torch.isnan(want).any())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 def _pairs(gen, card, n_a=3, n_b=4, n_pairs=9, n_out=4):
@@ -122,15 +176,68 @@ def test_bsr_spgemm_kernel(card, sr):
     assert torch.equal(got, bsr_ref.bsr_spgemm_ref(a, mask, b, semiring=sr))
 
 
+def _masked_case(gen, card, sr, case):
+    """The fused reduce's edges: the 3 x 2 block mask with an empty
+    block-row (_masked), one 128-wide k tile, and a block-row with one
+    present k tile of six beside a full one and an empty one."""
+    if case == "empty row":
+        return _masked(gen, card, sr)
+    if case == "one k tile":
+        a, b = _vals(gen, (128, 128), sr, card), _vals(gen, (128, 128), sr, card)
+        return a, torch.ones((1, 1), dtype=torch.int32, device=card), b
+    a, _, b = _masked(gen, card, sr, m=384, k=768, n=256)
+    mask = torch.zeros((3, 6), dtype=torch.int32)
+    mask[0], mask[1, 4] = 1, 1
+    return a, mask.to(card), b
+
+
+@pytest.mark.parametrize("case", ["empty row", "one k tile", "one present"])
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("sr", SEMIRINGS)
-def test_bsr_spgemm_reduce_kernel(card, sr, axis):
-    a, mask, b = _masked(torch.Generator().manual_seed(5), card, sr)
+def test_bsr_spgemm_reduce_kernel(card, sr, axis, case):
+    a, mask, b = _masked_case(torch.Generator().manual_seed(5), card, sr, case)
     reset_launch_counts()
     got = bsr_ops.bsr_spgemm_reduce(a, mask, b, axis=axis, semiring=sr)
-    assert LAUNCHES["bsr_spgemm_reduce"] == 1
+    tf32 = int(sr == "plus_times")
+    assert _route_counts() == {"semiring_matmul": 0,
+                               "semiring_matmul_tf32": 0,
+                               "bsr_spgemm_reduce": 1,
+                               "bsr_spgemm_reduce_tf32": tf32}
     want = bsr_ref.bsr_spgemm_reduce_ref(a, mask, b, axis=axis, semiring=sr)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_bsr_spgemm_reduce_tf32_within_bound(card, axis):
+    """Normal values under a mask with an empty block-row: each fold of the
+    partials within the bound of the fp64 product (the fold's fp32 sums
+    add 2^-23 per term of |C|'s row or column sum at most)."""
+    gen = torch.Generator().manual_seed(13)
+    a, b = _normal(gen, (384, 4096), card), _normal(gen, (4096, 256), card)
+    mask = (torch.rand((3, 32), generator=gen) < 0.5).int()
+    mask[1] = 0
+    mask = mask.to(card)
+    got = bsr_ops.bsr_spgemm_reduce(a, mask, b, axis=axis).double()
+    full = torch.repeat_interleave(torch.repeat_interleave(mask, 128, 0),
+                                   128, 1) != 0
+    am = torch.where(full, a, 0.0)
+    c = am.double() @ b.double()
+    want = c.sum(axis)
+    width = c.shape[axis]
+    tol = (tf32x3_error_bound(am, b).sum(axis)
+           + width * 2.0 ** -23 * c.abs().sum(axis))
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_bsr_spgemm_reduce_tf32_nonfinite(card, axis):
+    """±inf, NaN and overflow in the fused reduce as in the plain version."""
+    a, b = nonfinite_operands(256, 384, 256, torch.Generator().manual_seed(14),
+                              card)
+    mask = torch.ones((2, 3), dtype=torch.int32, device=card)
+    got = bsr_ops.bsr_spgemm_reduce(a, mask, b, axis=axis)
+    want = bsr_ref.bsr_spgemm_reduce_ref(a, mask, b, axis=axis)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("ni,nj", [(1, 1), (5, 0), (300, 7), (4099, 70000)])
@@ -218,6 +325,10 @@ def test_main_path_on_card_launches_every_kernel(card):
     for k in ("range_mask", "bsr_pairlist", "bsr_pairlist_reduce",
               "semiring_matmul", "bsr_spgemm_reduce"):
         assert LAUNCHES[k] >= 1, LAUNCHES
+    # PLUS_TIMES on the TF32 route, MIN_PLUS on the CUDA-core route
+    assert LAUNCHES["semiring_matmul_tf32"] >= 1, LAUNCHES
+    assert LAUNCHES["semiring_matmul"] > LAUNCHES["semiring_matmul_tf32"]
+    assert LAUNCHES["bsr_spgemm_reduce_tf32"] >= 1, LAUNCHES
     for name, ok, detail in (main_path.check_clustered(c["raw"], res, True)
                              + main_path.check_uniform(u["raw"], res_u)):
         assert ok, (name, detail)

@@ -1,0 +1,213 @@
+"""The TF32 route's arithmetic on the CPU: a numpy model of the three-pass
+product of ``csrc/semiring_tf32_sm90.cu`` (hi and lo rounded to TF32 by bit
+operations, the kernel's pass order, each 32-deep slab summed afresh with
+every addition truncated to fp32 as the tensor cores may do, the slab sums
+added in fp32 round-to-nearest, the exact path for flagged rows and
+columns), held against fp64 and the plain version, and the wrappers'
+choice of route.
+
+The kernel itself runs on the card only (``tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import REGISTRY
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.bsr_spgemm import ops as t_bsr
+from repro_torch.kernels.semiring_matmul import ops as t_sm
+from repro_torch.kernels.semiring_matmul.ref import (nonfinite_operands,
+                                                     semiring_matmul_ref,
+                                                     tf32x3_error_bound)
+
+from _torch_helpers import SEMIRINGS
+
+HUGE_ABS = 2.0 ** 62   # the split's limit: larger entries take the exact path
+
+
+def tf32_rna(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: round fp32 to 10 explicit mantissa bits, to
+    nearest with ties away from zero (add half of the 13 dropped bits to
+    the magnitude, then clear them); inf and NaN pass through."""
+    x = np.asarray(x, np.float32)
+    bits = x.view(np.uint32)
+    r = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    return np.where(np.isfinite(x), r, x).astype(np.float32)
+
+
+def split(x: np.ndarray):
+    with np.errstate(invalid="ignore", over="ignore"):
+        hi = tf32_rna(x)
+        lo = np.where(np.isfinite(hi), tf32_rna(x - hi), np.float32(0))
+    return hi, lo.astype(np.float32)
+
+
+def add_truncated(acc: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """acc + t rounded toward zero to fp32 (the tensor core's accumulation
+    taken as truncating)."""
+    s = acc.astype(np.float64) + t
+    r = s.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(s)
+    return np.where(over, np.nextafter(r, np.float32(0)), r)
+
+
+def model(a: np.ndarray, b: np.ndarray, passes: int = 3,
+          exact_path: bool = True, slab: int = 32) -> np.ndarray:
+    """The kernel's product: per k8 step A_lo·B_hi, A_hi·B_lo, then
+    A_hi·B_hi (``passes=1``: A_hi·B_hi alone), each tf32 x tf32 product
+    exact, each addition into the slab's sum truncated; the slab sums
+    (``slab`` deep; ``slab=K``: one long sum) added rounded to nearest;
+    then outputs on a flagged row of A or column of B recomputed in fp32
+    FMA in k order."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    (ah, al), (bh, bl) = split(a), split(b)
+    order = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    kk = a.shape[1]
+    with np.errstate(invalid="ignore", over="ignore"):
+        for s0 in range(0, kk, slab):
+            d = np.zeros_like(acc)
+            for k8 in range(s0, min(s0 + slab, kk), 8):
+                for x, y in order:
+                    for k in range(k8, min(k8 + 8, kk)):
+                        d = add_truncated(d, np.multiply.outer(
+                            x[:, k].astype(np.float64),
+                            y[k].astype(np.float64)))
+            acc = (acc + d).astype(np.float32)
+        if exact_path:
+            rows = ~(np.abs(a) <= HUGE_ABS).all(axis=1)
+            cols = ~(np.abs(b) <= HUGE_ABS).all(axis=0)
+            for i, j in zip(*np.nonzero(rows[:, None] | cols[None, :])):
+                s = np.float32(0)
+                for k in range(a.shape[1]):   # fmaf: one rounding
+                    s = np.float32(np.float64(a[i, k]) * np.float64(b[k, j])
+                                   + np.float64(s))
+                acc[i, j] = s
+    return acc
+
+
+def bound(a, b):
+    return tf32x3_error_bound(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = np.float32(1)
+    x = np.array([1 + 2 ** -11, 1 + 2 ** -12, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                  3.0, 0.25, np.finfo(np.float32).max, -np.inf, 2 ** -130],
+                 np.float32)
+    want = np.array([1 + 2 ** -10, one, -(1 + 2 ** -10), 1 + 2 ** -9, 3.0, 0.25,
+                     np.inf, -np.inf, tf32_rna(np.float32(2 ** -130))],
+                    np.float32)
+    np.testing.assert_array_equal(tf32_rna(x), want)
+    # the low 13 bits are clear: what wgmma reads is the value itself
+    assert not (tf32_rna(np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32)).view(np.uint32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("kind,k", [("integers", 64), ("quarters", 4096)])
+def test_model_is_exact_on_tf32_values(kind, k):
+    """Integers 1..100 (the D4M workloads) and multiples of 1/4 in [1/4, 2]
+    (the kernel checks) are TF32 values: lo = 0 and every partial sum fits
+    in 24 bits, so the product is exact."""
+    rng = np.random.default_rng(k)
+    if kind == "integers":
+        a = rng.integers(1, 101, (12, k)).astype(np.float32)
+        b = rng.integers(1, 101, (k, 10)).astype(np.float32)
+    else:
+        a = (rng.integers(1, 9, (6, k)) / 4).astype(np.float32)
+        b = (rng.integers(1, 9, (k, 5)) / 4).astype(np.float32)
+    assert not split(a)[1].any() and not split(b)[1].any()
+    np.testing.assert_array_equal(model(a, b), a.astype(np.float64) @ b)
+
+
+@pytest.mark.parametrize("k", [32, 4096, 4099])
+def test_model_within_bound_on_normal_values(k):
+    rng = np.random.default_rng(k)
+    a = rng.standard_normal((8, k)).astype(np.float32)
+    b = rng.standard_normal((k, 6)).astype(np.float32)
+    want = a.astype(np.float64) @ b
+    err = np.abs(model(a, b) - want)
+    assert (err <= bound(a, b)).all()
+    assert np.linalg.norm(model(a, b) - want) / np.linalg.norm(want) < 2 ** -16
+
+
+def test_one_truncating_sum_would_lose_the_lo_passes():
+    """Why each slab starts a fresh sum: one 3K-long truncating sum loses
+    up to an ulp of it at every small lo product, and at K = 4096 ends as
+    far from the fp64 product as one pass does."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((4, 4096)).astype(np.float32)
+    b = rng.standard_normal((4096, 4)).astype(np.float32)
+    want = a.astype(np.float64) @ b
+
+    def rel(x):
+        return np.linalg.norm(x - want) / np.linalg.norm(want)
+    assert rel(model(a, b, slab=4096)) > 2 ** -16 > 8 * rel(model(a, b))
+
+
+def test_bound_breaks_without_the_lo_passes():
+    """One pass (A_hi·B_hi) leaves 2^-11-relative errors per operand: the
+    element-wise bound breaks at K = 32, and the relative L2 limit of the
+    card checks (2^-16) at K = 4096.  This is what catches a kernel that drops the lo passes."""
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((16, 32)).astype(np.float32)
+    b = rng.standard_normal((32, 16)).astype(np.float32)
+    err = np.abs(model(a, b, passes=1) - a.astype(np.float64) @ b)
+    assert (err > bound(a, b)).any()
+    a = rng.standard_normal((4, 4096)).astype(np.float32)
+    b = rng.standard_normal((4096, 4)).astype(np.float32)
+    want = a.astype(np.float64) @ b
+    rel = np.linalg.norm(model(a, b, passes=1) - want) / np.linalg.norm(want)
+    assert rel > 2 ** -16
+
+
+def test_nonfinite_inputs_follow_the_plain_version():
+    """±inf, NaN and overflow: the exact path gives the plain version's
+    values (fp32 matmul), inf where it has inf and NaN only where it has
+    NaN; the split product alone would give NaN (an inf times a lo part of
+    0) where the plain version has ±inf."""
+    ta, tb = nonfinite_operands(96, 88, 90, torch.Generator().manual_seed(2),
+                                "cpu")
+    a, b = ta.numpy(), tb.numpy()
+    want = semiring_matmul_ref(ta, tb).numpy()
+    assert np.isinf(want).any() and np.isnan(want).any()
+    np.testing.assert_array_equal(model(a, b), want)   # NaN == NaN here
+    alone = model(a, b, exact_path=False)
+    assert (np.isnan(alone) & np.isinf(want)).any()
+
+
+def test_error_bound_formula():
+    a = torch.tensor([[1.0, -2.0], [0.5, 4.0]])
+    b = torch.tensor([[3.0], [-1.0]])
+    scale = 52 * 2.0 ** -22 + 1 * 2.0 ** -24      # K = 2: one slab
+    torch.testing.assert_close(tf32x3_error_bound(a, b),
+                               scale * torch.tensor([[5.0], [5.5]],
+                                                    dtype=torch.float64))
+
+
+def test_route_follows_the_semiring_and_never_falls_back():
+    """(+, ×) takes the TF32 route, the other five the CUDA-core ring; a
+    CPU tensor runs the plain version under auto and raises under cuda,
+    for both routes, with no launch counted."""
+    assert {s: t_sm.route(REGISTRY[s]) for s in SEMIRINGS} == {
+        s: ("tf32x3" if s == "plus_times" else "ring") for s in SEMIRINGS}
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(1, 9, (130, 70)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(1, 9, (70, 40)).astype(np.float32))
+    mask = torch.ones((1, 1), dtype=torch.int32)
+    d = torch.ones((128, 128))
+    before = dict(LAUNCHES)
+    for s in SEMIRINGS:
+        assert torch.equal(t_sm.semiring_matmul(a, b, semiring=s),
+                           semiring_matmul_ref(a, b, semiring=s))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            t_sm.semiring_matmul(a, b, semiring=s, impl="cuda")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            t_bsr.bsr_spgemm_reduce(d, mask, d, axis=1, semiring=s,
+                                    impl="cuda")
+    assert dict(LAUNCHES) == before
+    # the route's scratch: split operands and zeroed flags
+    scratch, flags = t_sm.tf32_scratch(256, 128, 64, "cpu")
+    assert scratch.shape == (2 * (256 + 128) * 64,)
+    assert flags.shape == (384,) and not flags.any()

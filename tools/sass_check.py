@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""What the compiler made of the dense semiring kernels: ptxas's register
+and spill report, and each kernel's instruction mix from ``cuobjdump
+-sass``.
+
+    python3 tools/sass_check.py [--json chiprun_out/sass.json]
+
+Needs the CUDA toolkit (``nvcc``, ``cuobjdump``), not a card.  It builds
+the port's kernels afresh into a temporary directory with ``-Xptxas -v``
+and fails (exit 1) if
+
+* a kernel of ``csrc/semiring_matmul.cu``, ``csrc/bsr_spgemm.cu`` or
+  ``csrc/semiring_tf32_sm90.cu`` spills (spill stores or loads > 0);
+* a ring kernel of a max/min semiring (``semiring_matmul_kernel`` and
+  ``bsr_spgemm_reduce_kernel`` under MaxPlus, MinPlus, MaxMin, MaxTimes,
+  AndOr) compiles ⊕ to a compare and select (``FSETP``/``FSEL``) instead
+  of one ``FMNMX`` a MAC: it must hold at least 8·8·4 ``FMNMX`` (one
+  unrolled k4 step's MACs), and ``FSETP`` + ``FSEL`` under 1/8 of them;
+* the TF32 kernels hold no ``HGMMA`` ... ``.TF32`` instruction.
+
+For each kernel it prints the counts of FMNMX, FADD, FMUL, FFMA,
+FSETP + FSEL, LDS, HGMMA and all instructions, and the LDS share per ALU
+instruction of the contraction.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+OPS = ("FMNMX", "FADD", "FMUL", "FFMA", "FSETP", "FSEL", "LDS", "HGMMA")
+# mangled names hold the template arguments' identifiers as substrings
+SEMIRING_OF = {"MaxPlus": ("5OpMax", "6OpPlus"), "MinPlus": ("5OpMin", "6OpPlus"),
+               "MaxMin": ("5OpMax", "5OpMin"), "MaxTimes": ("5OpMax", "7OpTimes"),
+               "AndOr": ("5OpMax", "5OpMin"), "PlusTimes": ("6OpPlus", "7OpTimes")}
+RING_KERNELS = ("semiring_matmul_kernel", "bsr_spgemm_reduce_kernel")
+CHECKED_SOURCES = ("semiring_matmul.cu", "bsr_spgemm.cu", "semiring_tf32_sm90.cu")
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "cuobjdump")
+
+
+def ptxas_report(text: str) -> dict:
+    """{source: {mangled function: {"registers", "spill_stores",
+    "spill_loads"}}} from the build's ``-Xptxas -v`` output."""
+    out, src, fn = {}, None, None
+    for line in text.splitlines():
+        m = re.match(r"\[nvcc (\S+)\]", line)
+        if m:
+            src = m.group(1)
+            out.setdefault(src, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(src, {}).setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[src][fn].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(src, {}).setdefault(fn, {})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[src][fn]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(lib: Path) -> dict:
+    """{mangled function: {opcode: count, "total": n}}."""
+    text = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {op: 0 for op in OPS} | {"total": 0, "tf32_hgmma": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\S*)", line)
+        if m and fn:
+            op = m.group(1)
+            base = op.split(".")[0]
+            out[fn]["total"] += 1
+            if base in out[fn]:
+                out[fn][base] += 1
+            if base == "HGMMA" and "TF32" in op:
+                out[fn]["tf32_hgmma"] += 1
+    return out
+
+
+def semiring_of(name: str):
+    for sr, parts in SEMIRING_OF.items():
+        i = name.find("Semiring")
+        if i >= 0 and all(p in name[i:] for p in parts):
+            # MaxMin and AndOr differ by the zero (Li1E / Li0E)
+            if sr in ("MaxMin", "AndOr"):
+                return "AndOr" if "Li0E" in name[i:] else "MaxMin"
+            return sr
+    return None
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--json", default=None, help="also write the report here")
+    args = ap.parse_args()
+
+    from repro_torch.kernels import cuda_lib
+    failures, report = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_lib._BUILD = Path(tmp)          # a fresh build, with the report
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            lib = cuda_lib.build(verbose=True)
+        ptxas = ptxas_report(buf.getvalue())
+        sass = sass_counts(lib)
+    for src in CHECKED_SOURCES:
+        for fn, r in ptxas.get(src, {}).items():
+            if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+                failures.append(f"{src} {fn} spills: {r}")
+    report["ptxas"] = {s: ptxas.get(s, {}) for s in CHECKED_SOURCES}
+    rows = {}
+    for fn, c in sass.items():
+        ring = next((k for k in RING_KERNELS if k in fn), None)
+        tf32 = "tf32x3_kernel" in fn
+        if not (ring or tf32):
+            continue
+        sr = semiring_of(fn) if ring else "PlusTimes"
+        key = f"{ring or 'tf32x3_kernel'}<{sr}>" + (
+            "" if ring else ("<reduce>" if "Lb1E" in fn else "<matmul>"))
+        alu = c["FMNMX"] + c["FADD"] + c["FMUL"] + c["FFMA"]
+        c = dict(c, lds_per_alu=c["LDS"] / alu if alu else None)
+        rows[key] = c
+        print(f"[sass] {key}: " + ", ".join(f"{k} {v}" for k, v in c.items()
+                                           if v), flush=True)
+        if ring and sr != "PlusTimes":
+            if (c["FMNMX"] < 8 * 8 * 4
+                    or (c["FSEL"] + c["FSETP"]) * 8 > c["FMNMX"]):
+                failures.append(f"{key}: ⊕ is not one FMNMX a MAC ({c})")
+        if tf32 and c["tf32_hgmma"] == 0:
+            failures.append(f"{key}: no HGMMA .TF32 instruction")
+    for src, fns in report["ptxas"].items():
+        for fn, r in fns.items():
+            print(f"[ptxas] {src} {fn}: {r}", flush=True)
+    report["sass"] = rows
+    report["failures"] = failures
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=1)
+    for f in failures:
+        print(f"sass_check FAILED: {f}", file=sys.stderr)
+    if not rows:
+        print("sass_check FAILED: no ring or TF32 kernel found", file=sys.stderr)
+        return 1
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
