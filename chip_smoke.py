@@ -29,8 +29,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ``PLUS_TIMES`` and ``MIN_PLUS``, ``A.sqout(reduce=1)``,
      ``A.matmul_reduce(B, axis=0)`` and the same lazy pipeline (all
      planned ``dense``); every kernel of the path must have launched, the
-     uniform ``PLUS_TIMES`` product and fused reduces on the TF32 route
-     and ``MIN_PLUS`` on the CUDA-core route;
+     uniform ``PLUS_TIMES`` product and fused reduces and the n=18
+     ``A @ B``, ``A.sqout(reduce=1)`` and pipeline on the TF32 routes, and
+     ``MIN_PLUS`` on the CUDA-core route;
    * the ingest path: the uniform workload at n=15 (262,144 triples per
      array, ~32.8k x 32.8k keys) as an ``IngestTable`` over A that takes
      B in 16 batches, with snapshots (merge-on-read) after batch 8 and
@@ -54,18 +55,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and ``bsr_spgemm_reduce``) is also held on normal values against the
    fp64 product, within its stated bound and a relative L2 error of 2^-16,
    at 4096^3 and unaligned shapes, and on ±inf and near-FLT_MAX inputs,
-   where it must equal the plain version.  ``segment_scan`` (no caller on
+   where it must equal the plain version; the pair kernels' TF32 route on
+   normal values at the n=18 pairs, within that bound with K = 128 x the
+   run's pairs (the reduce: plus its folds).  ``segment_scan`` (no caller on
    any path, as in the JAX package) is held against its plain version
    under sum, min and max at the size a dedup of the clustered n=18 array
    scans (2^21 sorted pair ids);
 5. CUDA-event device times (plus_times, L2 evicted before each call) of
-   each kernel, its plain version and one PyTorch library yardstick,
-   beside the least time the card could take for the kernel's route (a
+   each kernel, its plain version and one PyTorch library yardstick (the
+   pair kernels at their launch, ``pairlist_launch``: the wrappers' input
+   check reads back from the card, and a host round trip inside a timed
+   call would count the host's time), beside the least time the card could take for the kernel's route (a
    kernel time below it fails the run; ``rank_count`` is also timed by the
    host's clock, launch overhead included); the dense kernels' times
    under every semiring beside each route's bound (FMA pipe, ALU pipe and
    issue rates of the CUDA cores; three TF32 products), with
-   ``bsr_spgemm``, whose old mainloop does the same work, as the witness;
+   ``bsr_spgemm``, whose old mainloop does the same work, as the witness,
+   and the pair kernels' times under every semiring beside the same
+   bounds;
    then ``A @ B``, ``A.sqout(reduce=1)``, the uniform ``A.matmul(B)``,
    the uniform ``A.sqout(reduce=1)`` and two ingest snapshots (n=15 and
    the n=18 fallback) once more under ``spgemm.stage_timing()``, for
@@ -233,8 +240,9 @@ def quarter_values(n: int, gen, device):
 
 
 def pairlist_inputs(a, b, axis, gen):
-    """Packed tiles (random quarter values) and pair lists of ``a @ b`` as
-    the planner makes them; ``axis`` regroups for the fused reduce."""
+    """Packed tiles (random quarter values; ``tiles(sr, normal=True)``:
+    standard normal values) and pair lists of ``a @ b`` as the planner
+    makes them; ``axis`` regroups for the fused reduce."""
     import torch
 
     from repro_torch.core import spgemm
@@ -248,12 +256,17 @@ def pairlist_inputs(a, b, axis, gen):
     dev = a.device
     va = quarter_values(len(ra), gen, dev)
     vb = quarter_values(len(rb), gen, dev)
+    ngen = torch.Generator().manual_seed(7)   # leaves `gen`'s draws as they were
+    na = torch.randn(len(ra), generator=ngen).to(dev)
+    nb = torch.randn(len(rb), generator=ngen).to(dev)
 
-    def tiles(sr):
-        at = spgemm.pack_tiles(va, plan.a_tile_of, plan.a_lr, plan.a_lc,
-                               len(plan.a_blocks), 128, 128, sr.zero)
-        bt = spgemm.pack_tiles(vb, plan.b_tile_of, plan.b_lr, plan.b_lc,
-                               len(plan.b_blocks), 128, 128, sr.zero)
+    def tiles(sr, normal=False):
+        at = spgemm.pack_tiles(na if normal else va, plan.a_tile_of,
+                               plan.a_lr, plan.a_lc, len(plan.a_blocks), 128,
+                               128, sr.zero)
+        bt = spgemm.pack_tiles(nb if normal else vb, plan.b_tile_of,
+                               plan.b_lr, plan.b_lc, len(plan.b_blocks), 128,
+                               128, sr.zero)
         return at, bt
 
     def up(x):
@@ -267,6 +280,21 @@ def pairlist_inputs(a, b, axis, gen):
         pairs = (up(pa), up(pb), up(po))
         n_out = len(o_uniq)
     return plan, tiles, pairs, n_out
+
+
+def pair_products_f64(at, bt, pa, pb, po, n_out, chunk=1024):
+    """Each output's Σ_p A_p·B_p and Σ_p |A_p|·|B_p| over its pairs, in
+    fp64 ([n_out, 128, 128] each)."""
+    import torch
+    c = torch.zeros((n_out, 128, 128), dtype=torch.float64, device=at.device)
+    m = torch.zeros_like(c)
+    pa, pb, po = (x.long() for x in (pa, pb, po))
+    for p0 in range(0, pa.shape[0], chunk):
+        x = at[pa[p0:p0 + chunk]].double()
+        y = bt[pb[p0:p0 + chunk]].double()
+        c.index_add_(0, po[p0:p0 + chunk], torch.bmm(x, y))
+        m.index_add_(0, po[p0:p0 + chunk], torch.bmm(x.abs(), y.abs()))
+    return c, m
 
 
 def dense_inputs(a, b, gen):
@@ -611,7 +639,8 @@ def main() -> int:
         from repro_torch.kernels.range_extract.ref import range_mask_ref
         from repro_torch.kernels.semiring_matmul import ops as sm_ops
         from repro_torch.kernels.semiring_matmul.ref import (
-            nonfinite_operands, semiring_matmul_ref, tf32x3_error_bound)
+            TF32X3_C1, nonfinite_operands, semiring_matmul_ref,
+            tf32x3_error_bound)
         from repro_torch.kernels.sorted_merge import ops as rc_ops
         from repro_torch.kernels.sorted_merge.ref import rank_count_ref
     except ImportError as exc:
@@ -667,11 +696,15 @@ def main() -> int:
         if launches[k] < 1:
             failures.append(f"kernel {k} was not launched on the main path")
     # the uniform PLUS_TIMES product and fused reduces on the TF32 route,
-    # MIN_PLUS on the CUDA-core ring
+    # MIN_PLUS on the CUDA-core ring; the n=18 A @ B, sqout(reduce=1) and
+    # pipeline (PLUS_TIMES) on the pair kernels' TF32 route
     routes = {"semiring_matmul tf32x3": launches["semiring_matmul_tf32"],
               "semiring_matmul ring": launches["semiring_matmul"]
               - launches["semiring_matmul_tf32"],
-              "bsr_spgemm_reduce tf32x3": launches["bsr_spgemm_reduce_tf32"]}
+              "bsr_spgemm_reduce tf32x3": launches["bsr_spgemm_reduce_tf32"],
+              "bsr_pairlist tf32x3": launches["bsr_pairlist_tf32"],
+              "bsr_pairlist_reduce tf32x3":
+                  launches["bsr_pairlist_reduce_tf32"]}
     log(f"[main path] launches by route {routes}")
     for name, n in routes.items():
         if n < 1:
@@ -869,6 +902,32 @@ def main() -> int:
                 + c.shape[axis] * 2.0 ** -23 * c.abs().sum(axis))
         del c, cb, xam, full
     del xa, xb
+    # the pair kernels' TF32 route at the n=18 shapes: each C tile within
+    # the bound above with K = 128 x (its run's pairs) and |A|·|B| summed
+    # over the run; the fused reduce adds its fp32 folds (2^-23 a term of
+    # the 128 folded outputs, 2^-24 a chunk partial), each term at most
+    # the row's Σ_j (|A|·|B|)
+    pt = REGISTRY["plus_times"]
+    for label, tiles, pairs, n_out in (
+            ("bsr_pairlist", mm_tiles, mm_pairs, n_c),
+            ("bsr_pairlist_reduce", rd_tiles, rd_pairs, n_o)):
+        at, bt = tiles(pt, normal=True)
+        c, m = pair_products_f64(at, bt, *pairs, n_out)
+        runs = bsr_ops.run_offsets(pairs[2], n_out)
+        lens = (runs[1:] - runs[:-1]).double()
+        scale = (TF32X3_C1 * 2.0 ** -22 + 4 * lens * 2.0 ** -24)[:, None, None]
+        if label == "bsr_pairlist":
+            normal_check(f"{label} n={gen_n}", bsr_ops.bsr_pairlist_cuda(
+                at, bt, *pairs, n_c=n_out, sr=pt), c, scale * m)
+        else:
+            chunks = torch.clamp(torch.ceil(lens / bsr_ops.REDUCE_CHUNK), min=1)
+            tol = ((scale * m).sum(2) + (128 * 2.0 ** -23 + (chunks[:, None] - 1)
+                                         * 2.0 ** -24) * m.sum(2))
+            normal_check(f"{label} n={gen_n} axis=1",
+                         bsr_ops.bsr_pairlist_reduce_cuda(
+                             at, bt, *pairs, n_o=n_out, axis=1, sr=pt),
+                         c.sum(2), tol)
+        del at, bt, c, m
     ia, ib = nonfinite_operands(1024, dk, 1024, gen, dev)
     ones = torch.ones((8, dk // 128), dtype=torch.int32, device=dev)
     inf_cases = {"semiring_matmul": (
@@ -893,6 +952,23 @@ def main() -> int:
                             f"{tf32_checks[f'{label} nonfinite']}")
     del ia, ib, inf_cases
     report["tf32_checks"] = tf32_checks
+    # the pair lists' runs: pairs per output tile (A @ B) and per output
+    # block (the fused reduce), and the reduce's work items (chunks)
+    runs_stats = {}
+    for label, pairs, n_out in (("bsr_pairlist", mm_pairs, n_c),
+                                ("bsr_pairlist_reduce", rd_pairs, n_o)):
+        lens = torch.bincount(pairs[2].long(), minlength=n_out).double()
+        q = torch.quantile(lens, torch.tensor([0.5, 0.9, 0.99],
+                                              dtype=torch.float64,
+                                              device=lens.device)).tolist()
+        runs_stats[label] = {
+            "outputs": n_out, "pairs": int(lens.sum()),
+            "mean": float(lens.mean()), "median": q[0], "p90": q[1],
+            "p99": q[2], "max": int(lens.max()),
+            "reduce_items": int(torch.clamp(torch.ceil(
+                lens / bsr_ops.REDUCE_CHUNK), min=1).sum())}
+    report["pair_runs"] = runs_stats
+    log("[kernel check] pairs per run " + json.dumps(runs_stats))
     log(f"[kernel check] shapes: range_mask N={a.capacity}; semiring_matmul "
         f"{dm}x{dk}x{dn}; bsr_pairlist {len(mm_plan.pair_a)} pairs, "
         f"{len(mm_plan.a_blocks)}+{len(mm_plan.b_blocks)} tiles -> {n_c}; "
@@ -904,7 +980,6 @@ def main() -> int:
         f"N={sk_keys.shape[0]} ({int(sk_keys[-1]) + 1} runs)")
 
     # -- phase 5: times (plus_times) beside the bound --------------------------
-    pt = REGISTRY["plus_times"]
     tile_b = 128 * 128 * 4
     x, y = dn_ops(pt)
     mm_at, mm_bt = mm_tiles(pt)
@@ -936,28 +1011,28 @@ def main() -> int:
              kernel=lambda: rm_ops.range_mask_cuda(*rm_in),
              plain=lambda: range_mask_ref(*rm_in), library=None,
              bytes=12 * n_rm, ops=0, repeats=50),
-        dict(name="bsr_pairlist", route="cuda",
-             source="src/repro_torch/csrc/bsr_pairlist.cu",
+        dict(name="bsr_pairlist", route="cuda-wgmma-tf32x3",
+             source="src/repro_torch/csrc/bsr_pairlist_tf32_sm90.cu",
              replaces="src/repro/kernels/bsr_spgemm/pairlist.py:69",
-             kernel=lambda: bsr_ops.bsr_pairlist_cuda(
-                 mm_at, mm_bt, *mm_pairs, n_c=n_c, sr=pt),
+             kernel=lambda: bsr_ops.pairlist_launch(
+                 mm_at, mm_bt, *mm_pairs, n_c=n_c, sid=0),
              plain=lambda: bsr_ref.bsr_pairlist_ref(
                  mm_at, mm_bt, *mm_pairs, n_c=n_c, semiring=pt),
              library=bmm_index_add,
              bytes=(len(mm_plan.a_blocks) + len(mm_plan.b_blocks) + n_c)
              * tile_b + 12 * p_mm,
-             ops=2 * 128 ** 3 * p_mm, repeats=3),
-        dict(name="bsr_pairlist_reduce", route="cuda",
-             source="src/repro_torch/csrc/bsr_pairlist.cu",
+             ops=2 * 128 ** 3 * p_mm, tf32x3=True, repeats=3),
+        dict(name="bsr_pairlist_reduce", route="cuda-wgmma-tf32x3",
+             source="src/repro_torch/csrc/bsr_pairlist_tf32_sm90.cu",
              replaces="src/repro/kernels/bsr_spgemm/pairlist.py:131",
-             kernel=lambda: bsr_ops.bsr_pairlist_reduce_cuda(
-                 rd_at, rd_bt, *rd_pairs, n_o=n_o, axis=1, sr=pt),
+             kernel=lambda: bsr_ops.pairlist_reduce_launch(
+                 rd_at, rd_bt, *rd_pairs, n_o=n_o, axis=1, sid=0),
              plain=lambda: bsr_ref.bsr_pairlist_reduce_ref(
                  rd_at, rd_bt, *rd_pairs, n_o=n_o, axis=1, semiring=pt),
              library=bmm_sum_index_add,
              bytes=(len(rd_plan.a_blocks) + len(rd_plan.b_blocks)) * tile_b
              + 12 * p_rd + 512 * n_o,
-             ops=2 * 128 ** 3 * p_rd, repeats=3),
+             ops=2 * 128 ** 3 * p_rd, tf32x3=True, repeats=3),
         dict(name="semiring_matmul", route="cuda-wgmma-tf32x3",
              source="src/repro_torch/csrc/semiring_tf32_sm90.cu",
              replaces="src/repro/kernels/semiring_matmul/semiring_matmul.py:53",
@@ -1061,6 +1136,7 @@ def main() -> int:
     mask_macs = 128 ** 3 * n_present * (dn // 128)
     for name in SEMIRINGS:
         sr = REGISTRY[name]
+        sid = cuda_lib.kernel_semiring_id(sr)
         xs, ys = dn_ops(sr)
         ats, bts = mm_tiles(sr)
         ars, brs = rd_tiles(sr)
@@ -1074,11 +1150,11 @@ def main() -> int:
                 3),
             "bsr_spgemm (witness)": cuda_ms(lambda: bsr_ops.bsr_spgemm_cuda(
                 xs, uni_mask, ys, sr=sr), 3),
-            "bsr_pairlist": cuda_ms(lambda: bsr_ops.bsr_pairlist_cuda(
-                ats, bts, *mm_pairs, n_c=n_c, sr=sr), 2),
+            "bsr_pairlist": cuda_ms(lambda: bsr_ops.pairlist_launch(
+                ats, bts, *mm_pairs, n_c=n_c, sid=sid), 2),
             "bsr_pairlist_reduce": cuda_ms(
-                lambda: bsr_ops.bsr_pairlist_reduce_cuda(
-                    ars, brs, *rd_pairs, n_o=n_o, axis=1, sr=sr), 2),
+                lambda: bsr_ops.pairlist_reduce_launch(
+                    ars, brs, *rd_pairs, n_o=n_o, axis=1, sid=sid), 2),
             "cuda_core_bound_ms": cuda_core_bound_ms(name, dense_macs)}
         if sm_ops.route(sr) == "tf32x3":
             by_sr[name]["tf32x3_bound_ms"] = tf32x3_bound_ms(dense_macs)
@@ -1087,6 +1163,13 @@ def main() -> int:
         for k in ("semiring_matmul", "bsr_spgemm_reduce"):
             macs = dense_macs if k == "semiring_matmul" else mask_macs
             bound = route_bound * macs / dense_macs
+            if by_sr[name][k] < bound:
+                failures.append(f"{k} under {name}: {by_sr[name][k]} ms is "
+                                f"below its bound {bound} ms")
+        # the pair kernels: the route's bound at their pairs' MACs
+        for k, pairs in (("bsr_pairlist", p_mm), ("bsr_pairlist_reduce", p_rd)):
+            bound = route_bound * 128 ** 3 * pairs / dense_macs
+            by_sr[name][f"{k}_bound_ms"] = bound
             if by_sr[name][k] < bound:
                 failures.append(f"{k} under {name}: {by_sr[name][k]} ms is "
                                 f"below its bound {bound} ms")

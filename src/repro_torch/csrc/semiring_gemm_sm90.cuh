@@ -1,7 +1,7 @@
-// The CUDA-core semiring contraction of semiring_matmul and
-// bsr_spgemm_reduce for the five semirings with no tensor-core form
-// (max_plus, min_plus, max_min, max_times, and_or); (+, ×) takes the TF32
-// route (semiring_tf32_sm90.cu).
+// The CUDA-core semiring contraction of semiring_matmul, bsr_spgemm_reduce,
+// bsr_pairlist and bsr_pairlist_reduce for the five semirings with no
+// tensor-core form (max_plus, min_plus, max_min, max_times, and_or); (+, ×)
+// takes the TF32 routes (semiring_tf32_sm90.cu, bsr_pairlist_tf32_sm90.cu).
 //
 // Bound on an H100: instruction issue.  ⊕ is one FMNMX, which issues on the
 // 64-wide ALU pipe (64 a clock per SM on cc 9.0, FFMA 128), and ⊗ is one
@@ -172,6 +172,37 @@ __device__ __forceinline__ void contract(Stage* ring, float (&acc)[8][8],
     __syncthreads();        // ... everyone's; and slab t - 1 is contracted
     if (t + STAGES - 1 < n) {
       load_stage(ring[(t + STAGES - 1) % STAGES], A + ld.k0(), lda, B + ld.k0() * ldb, ldb);
+      ld.next();
+    }
+    cp_commit();
+    mma_stage<SR>(ring[t % STAGES], acc);
+  }
+  cp_wait<0>();
+  __syncthreads();
+}
+
+// The same pipeline over any walk of 32-deep slabs: `ld` gives count(), the
+// slab's A corner a() (128 x 32, lda) and B corner b() (32 x 128, ldb), and
+// next() (the pair-list kernels walk their pairs' tiles).  contract keeps
+// its own copy: in this form the masked kernels spill at 128 registers.
+template <class SR, class Walk>
+__device__ __forceinline__ void contract_walk(Stage* ring, float (&acc)[8][8], Walk ld,
+                                              long long lda, long long ldb) {
+  fill<SR>(acc);
+  const int n = ld.count();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) {
+      load_stage(ring[s], ld.a(), lda, ld.b(), ldb);
+      ld.next();
+    }
+    cp_commit();
+  }
+  for (int t = 0; t < n; ++t) {
+    cp_wait<STAGES - 2>();  // slab t has landed (this thread's copies)
+    __syncthreads();        // ... everyone's; and slab t - 1 is contracted
+    if (t + STAGES - 1 < n) {
+      load_stage(ring[(t + STAGES - 1) % STAGES], ld.a(), lda, ld.b(), ldb);
       ld.next();
     }
     cp_commit();

@@ -11,10 +11,10 @@
 // TFLOP/s (0.833 ms at 4096^3), against 2MNK over 67 TFLOP/s (2.05 ms)
 // for one fp32 product on the CUDA cores.
 //
-// Split pass.  x = hi + lo + d with hi = cvt.rna.tf32(x) and lo =
-// cvt.rna.tf32(x - hi) (x - hi is exact in fp32).  wgmma ignores the low 13
-// bits of a 32-bit operand, so hi is rounded here; a raw fp32 would be
-// truncated.  A keeps its [M, K] layout; B is written transposed as
+// Split pass.  x = hi + lo + d with hi = x and lo = x - hi (exact in
+// fp32) each rounded to TF32 as cvt.rna.tf32 rounds (tf32_sm90.cuh: split).
+// wgmma ignores the low 13 bits of a 32-bit operand, so hi is rounded
+// here; a raw fp32 would be truncated.  A keeps its [M, K] layout; B is written transposed as
 // B_hi^T and B_lo^T [N, K] through a 32 x 32 shared-memory tile, because
 // wgmma takes .tf32 operands K-major only (the transpose bits exist for
 // 16-bit types alone).  The same pass flags every row of A and column of B
@@ -58,14 +58,12 @@
 // The result is exact wherever every input is a TF32 value (lo = 0) and
 // every partial sum fits in 24 bits: the D4M workloads' integers 1..100 and
 // the kernel checks' multiples of 1/4 in [1/4, 2].
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
 #include "semiring_gemm_sm90.cuh"  // ring::Slabs: the walk over present k slabs
+#include "tf32_sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int STAGES = 3;
@@ -76,23 +74,8 @@ constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // A_hi, A_lo, B_hi^T, B_lo^T
 constexpr int BAR_OFF = STAGES * STAGE_BYTES;
 constexpr int RED_OFF = BAR_OFF + 16 * STAGES;  // full[STAGES], empty[STAGES]
 constexpr int SMEM_BYTES = RED_OFF + 8 * BN * 4 + 1024;  // + slack to align the base
-constexpr float HUGE_ABS = 4.611686018427387904e18f;  // 2^62
-constexpr unsigned FULL = 0xffffffffu;
 
 // -- split pass ---------------------------------------------------------------
-
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// hi and lo of x; true where x needs the exact path
-__device__ __forceinline__ bool split(float x, float& hi, float& lo) {
-  hi = tf32_rna(x);
-  lo = isfinite(hi) ? tf32_rna(x - hi) : 0.f;
-  return !(fabsf(x) <= HUGE_ABS);  // NaN included
-}
 
 // A [M, K] -> hi, lo [M, K]; flag[row] = 1 where the row needs the exact
 // path.  With a mask (int32 [M/128, K/128]) absent tiles are skipped.
@@ -138,99 +121,6 @@ __global__ void split_cols_t(const float* __restrict__ b, float* __restrict__ hi
     lo[o] = tl[tx][r];
   }
   if (ty == 0 && tf[tx]) flag[c0 + tx] = 1;
-}
-
-// -- TMA, mbarrier and wgmma helpers (as in flash_attention_sm90.cu) ----------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that never
-// ends (a lost transaction) traps, so the launch fails instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 2-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 1 in bits 62-63
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  constexpr uint32_t lbo = 16, sbo = 1024;  // 8 rows of 128 bytes per core matrix group
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (+)= A · B^T, m64n128k8, A and B K-major tf32 in shared memory (128 B
-// swizzle), fp32 accumulator in registers; accumulate = 0 overwrites D
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // -- the product --------------------------------------------------------------
@@ -284,7 +174,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -407,46 +297,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, taken through the runtime's driver entry point
-// (the library links no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a tensor map over a row-major [rows, k] fp32 array: boxes of 32 columns
-// (128 bytes) x 128 rows, 128 B swizzle
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int k) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k * 4};
-  const cuuint32_t box[2] = {BK, 128};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // split A and B into the scratch, then the product.  scratch: A_hi, A_lo
 // [M, K], B_hi^T, B_lo^T [N, K]; flags: int32 [M + N], zeroed by the caller.
 int run(const float* a, const int* mask, const float* b, float* scratch, int* flags, float* out,
@@ -464,8 +314,8 @@ int run(const float* a, const int* mask, const float* b, float* scratch, int* fl
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   Maps maps;
-  if (!make_map(&maps.a_hi, a_hi, m, k) || !make_map(&maps.a_lo, a_lo, m, k) ||
-      !make_map(&maps.b_hi, b_hi, n, k) || !make_map(&maps.b_lo, b_lo, n, k))
+  if (!make_map_k32(&maps.a_hi, a_hi, m, k) || !make_map_k32(&maps.a_lo, a_lo, m, k) ||
+      !make_map_k32(&maps.b_hi, b_hi, n, k) || !make_map_k32(&maps.b_lo, b_lo, n, k))
     return (int)cudaErrorInvalidValue;
   Args p{a, b, mask, flags, flags + m, out, m, n, k, axis};
   const dim3 grid(n / BN, m / BM);

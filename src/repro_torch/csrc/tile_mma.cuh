@@ -1,4 +1,7 @@
-// The shared 128x128 block contraction of the dense and pair-list kernels.
+// The original 128x128 block contraction, kept for bsr_spgemm alone (no path
+// calls it, as in JAX; it also serves as the in-run witness of the
+// mainloop that the semiring_matmul, bsr_spgemm_reduce and pair-list
+// kernels left for the cp.async ring and the TF32 tensor-core routes).
 //
 // A block of 256 threads owns one 128x128 fp32 accumulator in registers:
 // thread (ty, tx) = (tid / 16, tid % 16) holds rows {ty*4 + i, 64 + ty*4 + i}

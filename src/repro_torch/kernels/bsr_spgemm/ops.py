@@ -1,14 +1,17 @@
 """Block-sparse contractions (kernel or plain version) and the block mask.
 
-The pair-list kernels (``csrc/bsr_pairlist.cu``) back the ``bsr``
-strategy; the block-masked dense kernels (``csrc/bsr_spgemm.cu``) back the
-``dense`` strategy's fused reduce, whose (+, ×) takes the TF32
-tensor-core route (``csrc/semiring_tf32_sm90.cu``, ``route``).  The pair
-lists come from the planner (:func:`repro_torch.core.spgemm.plan_matmul`)
-and MUST arrive grouped (sorted) by ``pair_c`` / ``pair_o``: the wrapper
-turns the sorted output ids into run offsets, and the CUDA kernel gives
-each run to one block.  ``impl="auto"`` launches the kernel on CUDA
-tensors and the plain version on CPU tensors.
+The pair-list kernels back the ``bsr`` strategy; the block-masked dense
+kernels (``csrc/bsr_spgemm.cu``) back the ``dense`` strategy's fused
+reduce.  Both route by semiring (``route``): (+, ×) on the TF32 tensor
+cores (``csrc/bsr_pairlist_tf32_sm90.cu``, ``csrc/semiring_tf32_sm90.cu``),
+the other five on the CUDA-core ring (``csrc/bsr_pairlist.cu``,
+``csrc/bsr_spgemm.cu``).  The pair lists come from the planner
+(:func:`repro_torch.core.spgemm.plan_matmul`) and MUST arrive grouped
+(sorted) by ``pair_c`` / ``pair_o``: the wrapper turns the sorted output
+ids into run offsets, and the kernels give each run (the fused reduce:
+each chunk of at most ``REDUCE_CHUNK`` pairs of a run, :func:`reduce_chunks`)
+to one work item.  ``impl="auto"`` launches the kernel on CUDA tensors and
+the plain version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,11 +19,14 @@ import torch
 
 from repro_torch.core.semiring import Semiring, get_semiring
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.semiring_matmul.ops import route, tf32_scratch
+from repro_torch.kernels.semiring_matmul.ops import tf32_scratch
 from .ref import (bsr_pairlist_ref, bsr_pairlist_reduce_ref,
                   bsr_spgemm_ref, bsr_spgemm_reduce_ref)
 
 TILE = 128
+# pairs of an output block's run that one work item of the fused pair-list
+# reduce takes at most (a longer run is split over several blocks)
+REDUCE_CHUNK = 16
 
 
 def make_block_mask(rows, cols, valid, mb: int, kb: int, *, bm=128, bk=128):
@@ -40,6 +46,23 @@ def run_offsets(pair_sorted: torch.Tensor, n: int) -> torch.Tensor:
     ids = torch.arange(n + 1, dtype=torch.int32, device=pair_sorted.device)
     return torch.searchsorted(pair_sorted.to(torch.int32).contiguous(), ids,
                               out_int32=True)
+
+
+def reduce_chunks(runs: torch.Tensor, n_pairs: int,
+                  chunk: int = REDUCE_CHUNK):
+    """Cut each run of ``runs`` (int32 [n+1] offsets) into chunks of at
+    most ``chunk`` pairs, an empty run into one empty chunk.  Returns
+    ``chunk_off`` (int32 [n+1], on the runs' device: output o's chunks are
+    items ``chunk_off[o] .. chunk_off[o+1]-1``, chunk c of them its pairs
+    ``runs[o] + c·chunk`` up to ``runs[o+1]``) and the most items any
+    runs of ``n_pairs`` pairs can make, ``n + n_pairs // chunk`` (a bound
+    the host knows without reading ``chunk_off`` back)."""
+    n = runs.shape[0] - 1
+    lens = runs[1:] - runs[:-1]
+    per = torch.clamp((lens + chunk - 1) // chunk, min=1)
+    off = torch.zeros(n + 1, dtype=torch.int32, device=runs.device)
+    off[1:] = torch.cumsum(per, 0)
+    return off, n + n_pairs // chunk
 
 
 def _check_pairlist(a_tiles, b_tiles, pair_a, pair_b, pair_x, n_out):
@@ -74,34 +97,73 @@ def _check_pairlist(a_tiles, b_tiles, pair_a, pair_b, pair_x, n_out):
 
 def bsr_pairlist_cuda(a_tiles, b_tiles, pair_a, pair_b, pair_c, *,
                       n_c: int, sr: Semiring) -> torch.Tensor:
-    """The kernel: packed C tiles ``[n_c, 128, 128]``."""
+    """The kernel: packed C tiles ``[n_c, 128, 128]``; (+, ×) on the TF32
+    route, the other five on the ring.  Checks its inputs (one host
+    read-back), then :func:`pairlist_launch`."""
+    sid = cuda_lib.kernel_semiring_id(sr)
     a_tiles, b_tiles, pair_a, pair_b = _check_pairlist(
         a_tiles, b_tiles, pair_a, pair_b, pair_c, n_c)
+    return pairlist_launch(a_tiles, b_tiles, pair_a, pair_b, pair_c, n_c=n_c,
+                           sid=sid)
+
+
+def pairlist_launch(a_tiles, b_tiles, pair_a, pair_b, pair_c, *, n_c: int,
+                    sid: int) -> torch.Tensor:
+    """The launch alone, on inputs as :func:`_check_pairlist` returns them
+    and the semiring's ``kernel_semiring_id``: no host read-back, so a
+    device timing of it measures the kernel, not a host round trip."""
     runs = run_offsets(pair_c, n_c)
     c_tiles = torch.empty((n_c, TILE, TILE), dtype=torch.float32,
                           device=a_tiles.device)
     if n_c == 0:                  # no grid to launch: nothing to count
         return c_tiles
-    cuda_lib.launch("bsr_pairlist", cuda_lib.SEMIRING_IDS[sr.name],
-                    a_tiles.data_ptr(), b_tiles.data_ptr(), pair_a.data_ptr(),
-                    pair_b.data_ptr(), runs.data_ptr(), c_tiles.data_ptr(),
-                    n_c, cuda_lib.stream_ptr(a_tiles))
+    ptrs = (a_tiles.data_ptr(), b_tiles.data_ptr(), pair_a.data_ptr(),
+            pair_b.data_ptr(), runs.data_ptr(), c_tiles.data_ptr())
+    stream = cuda_lib.stream_ptr(a_tiles)
+    if sid == 0:
+        cuda_lib.launch("bsr_pairlist_tf32", *ptrs, a_tiles.shape[0], n_c,
+                        stream, counts=("bsr_pairlist", "bsr_pairlist_tf32"))
+    else:
+        cuda_lib.launch("bsr_pairlist", sid, *ptrs, n_c, stream)
     return c_tiles
 
 
 def bsr_pairlist_reduce_cuda(a_tiles, b_tiles, pair_a, pair_b, pair_o, *,
                              n_o: int, axis: int, sr: Semiring) -> torch.Tensor:
-    """The kernel: per-output-block ⊕-folded vectors ``[n_o, 128]``."""
+    """The kernel: per-output-block ⊕-folded vectors ``[n_o, 128]``; (+, ×)
+    on the TF32 route, the other five on the ring.  Checks its inputs (one
+    host read-back), then :func:`pairlist_reduce_launch`."""
+    sid = cuda_lib.kernel_semiring_id(sr)
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis!r}")
     a_tiles, b_tiles, pair_a, pair_b = _check_pairlist(
         a_tiles, b_tiles, pair_a, pair_b, pair_o, n_o)
+    return pairlist_reduce_launch(a_tiles, b_tiles, pair_a, pair_b, pair_o,
+                                  n_o=n_o, axis=axis, sid=sid)
+
+
+def pairlist_reduce_launch(a_tiles, b_tiles, pair_a, pair_b, pair_o, *,
+                           n_o: int, axis: int, sid: int) -> torch.Tensor:
+    """The reduce's launch alone (as :func:`pairlist_launch`).  Each chunk
+    of a run (:func:`reduce_chunks`) writes a partial, which the same
+    launch folds per output."""
     runs = run_offsets(pair_o, n_o)
     out = torch.empty((n_o, TILE), dtype=torch.float32, device=a_tiles.device)
     if n_o == 0:                  # no grid to launch: nothing to count
         return out
-    cuda_lib.launch("bsr_pairlist_reduce", cuda_lib.SEMIRING_IDS[sr.name],
-                    a_tiles.data_ptr(), b_tiles.data_ptr(), pair_a.data_ptr(),
-                    pair_b.data_ptr(), runs.data_ptr(), out.data_ptr(),
-                    n_o, axis, cuda_lib.stream_ptr(a_tiles))
+    chunk_off, max_items = reduce_chunks(runs, pair_a.shape[0])
+    part = torch.empty((max_items, TILE), dtype=torch.float32,
+                       device=a_tiles.device)
+    ptrs = (a_tiles.data_ptr(), b_tiles.data_ptr(), pair_a.data_ptr(),
+            pair_b.data_ptr(), runs.data_ptr(), chunk_off.data_ptr(),
+            part.data_ptr(), out.data_ptr())
+    shape = (n_o, max_items, REDUCE_CHUNK, axis, cuda_lib.stream_ptr(a_tiles))
+    if sid == 0:
+        cuda_lib.launch("bsr_pairlist_reduce_tf32", *ptrs, a_tiles.shape[0],
+                        *shape, counts=("bsr_pairlist_reduce",
+                                        "bsr_pairlist_reduce_tf32"))
+    else:
+        cuda_lib.launch("bsr_pairlist_reduce", sid, *ptrs, *shape)
     return out
 
 
@@ -156,14 +218,15 @@ def _check_masked(a, block_mask, b):
 
 
 def bsr_spgemm_cuda(a, block_mask, b, *, sr: Semiring) -> torch.Tensor:
-    """The kernel: dense C [M, N] of the block-masked product."""
+    """The kernel: dense C [M, N] of the block-masked product (all six
+    semirings on ``tile_mma.cuh``'s CUDA-core mainloop)."""
+    sid = cuda_lib.kernel_semiring_id(sr)
     a, block_mask, b, m, k, n = _check_masked(a, block_mask, b)
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:          # no grid to launch: nothing to count
         return c
-    cuda_lib.launch("bsr_spgemm", cuda_lib.SEMIRING_IDS[sr.name],
-                    a.data_ptr(), block_mask.data_ptr(), b.data_ptr(),
-                    c.data_ptr(), m, n, k, cuda_lib.stream_ptr(a))
+    cuda_lib.launch("bsr_spgemm", sid, a.data_ptr(), block_mask.data_ptr(),
+                    b.data_ptr(), c.data_ptr(), m, n, k, cuda_lib.stream_ptr(a))
     return c
 
 
@@ -171,11 +234,12 @@ def bsr_spgemm_reduce_cuda(a, block_mask, b, *, axis: int,
                            sr: Semiring) -> torch.Tensor:
     """The kernel: per-output-tile partials ([N/128, M] for axis=1,
     [M/128, N] for axis=0), one per block; C is never stored."""
+    sid = cuda_lib.kernel_semiring_id(sr)
     a, block_mask, b, m, k, n = _check_masked(a, block_mask, b)
     shape = (n // TILE, m) if axis == 1 else (m // TILE, n)
     if m == 0 or n == 0:          # no grid to launch: nothing to count
         return torch.empty(shape, dtype=torch.float32, device=a.device)
-    if route(sr) == "tf32x3":
+    if sid == 0:                  # (+, ×): the TF32 route
         if k == 0:                # the empty sum, with no product to run
             return torch.zeros(shape, dtype=torch.float32, device=a.device)
         part = torch.empty(shape, dtype=torch.float32, device=a.device)
@@ -187,9 +251,9 @@ def bsr_spgemm_reduce_cuda(a, block_mask, b, *, axis: int,
                         counts=("bsr_spgemm_reduce", "bsr_spgemm_reduce_tf32"))
         return part
     part = torch.empty(shape, dtype=torch.float32, device=a.device)
-    cuda_lib.launch("bsr_spgemm_reduce", cuda_lib.SEMIRING_IDS[sr.name],
-                    a.data_ptr(), block_mask.data_ptr(), b.data_ptr(),
-                    part.data_ptr(), m, n, k, axis, cuda_lib.stream_ptr(a))
+    cuda_lib.launch("bsr_spgemm_reduce", sid, a.data_ptr(),
+                    block_mask.data_ptr(), b.data_ptr(), part.data_ptr(),
+                    m, n, k, axis, cuda_lib.stream_ptr(a))
     return part
 
 

@@ -27,22 +27,47 @@ from typing import Dict
 
 import torch
 
-__all__ = ["LAUNCHES", "SEMIRING_IDS", "build", "check_cuda", "launch",
-           "load", "reset_launch_counts", "resolve_impl"]
+from repro_torch.core.semiring import REGISTRY, Semiring
+
+__all__ = ["LAUNCHES", "SEMIRING_IDS", "build", "check_cuda",
+           "kernel_semiring_id", "launch", "load", "reset_launch_counts",
+           "resolve_impl"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("range_mask.cu", "semiring_matmul.cu", "bsr_pairlist.cu",
            "bsr_spgemm.cu", "rank_count.cu", "segment_scan.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
-           "semiring_tf32_sm90.cu")
-HEADERS = ("semiring.cuh", "tile_mma.cuh", "semiring_gemm_sm90.cuh")
+           "semiring_tf32_sm90.cu", "bsr_pairlist_tf32_sm90.cu")
+HEADERS = ("semiring.cuh", "tile_mma.cuh", "semiring_gemm_sm90.cuh",
+           "tf32_sm90.cuh", "pairlist_items.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # template instance of each registered semiring (csrc/semiring.cuh)
 SEMIRING_IDS = {"plus_times": 0, "max_plus": 1, "min_plus": 2, "max_min": 3,
                 "max_times": 4, "and_or": 5}
+_RING = tuple(k for k, v in SEMIRING_IDS.items() if v)
+
+
+def kernel_semiring_id(sr: Semiring) -> int:
+    """The kernels' template index for ``sr``, which every card route asks
+    for before a launch.  A semiring with ``mxu=True`` is a plain
+    multiply-accumulate, which the JAX kernels send to ``jnp.dot``: 0, the
+    (+, ×) kernels (the TF32 route where one exists).  Any other semiring
+    has a kernel only if it is the registry's own object of one of the five
+    ring semirings (1-5); an unregistered one, or a copy that reuses a
+    registered name with other operations, raises ``ValueError`` — no
+    kernel computes its ⊕ and ⊗.  CPU tensors run any semiring through the
+    plain versions and never ask."""
+    if sr.mxu:
+        return SEMIRING_IDS["plus_times"]
+    if REGISTRY.get(sr.name) is sr and sr.name in _RING:
+        return SEMIRING_IDS[sr.name]
+    raise ValueError(
+        f"no CUDA kernel computes semiring {sr.name!r} (not the registry's "
+        f"object; the card's kernels run a semiring with mxu=True and the "
+        f"registry's {', '.join(_RING)}): run it on CPU tensors")
 
 # kernel launches since the last reset, by kernel.  A *_tf32 key counts the
 # tensor-core route of the kernel named before it, whose own key counts
@@ -50,7 +75,9 @@ SEMIRING_IDS = {"plus_times": 0, "max_plus": 1, "min_plus": 2, "max_min": 3,
 # each
 LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
                             "semiring_matmul_tf32": 0,
-                            "bsr_pairlist": 0, "bsr_pairlist_reduce": 0,
+                            "bsr_pairlist": 0, "bsr_pairlist_tf32": 0,
+                            "bsr_pairlist_reduce": 0,
+                            "bsr_pairlist_reduce_tf32": 0,
                             "bsr_spgemm": 0, "bsr_spgemm_reduce": 0,
                             "bsr_spgemm_reduce_tf32": 0,
                             "rank_count": 0, "segment_scan": 0,
@@ -63,7 +90,11 @@ _SIGNATURES = {
     "semiring_matmul_launch": (_I, _P, _P, _P, _I, _I, _I, _P),
     "semiring_matmul_tf32_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsr_pairlist_launch": (_I, _P, _P, _P, _P, _P, _P, _I, _P),
-    "bsr_pairlist_reduce_launch": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "bsr_pairlist_tf32_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "bsr_pairlist_reduce_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _P),
+    "bsr_pairlist_reduce_tf32_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _P),
     "bsr_spgemm_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsr_spgemm_reduce_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bsr_spgemm_reduce_tf32_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -22,10 +22,12 @@ BM, BN, BK = 128, 128, 32
 
 def route(sr: Semiring) -> str:
     """The card's route for a semiring: ``"tf32x3"`` (three TF32 wgmma
-    passes) for the multiply-accumulate (+, ×), which the TPU kernel sends
-    to its matrix unit, and ``"ring"`` (the CUDA-core cp.async ring) for
-    the other five.  There is no switch: the semiring decides."""
-    return "tf32x3" if sr.mxu else "ring"
+    passes) for a multiply-accumulate (``mxu=True``: (+, ×)), which the
+    TPU kernel sends to its matrix unit, and ``"ring"`` (the CUDA-core
+    cp.async ring) for the registry's other five.  There is no switch: the
+    semiring decides, and one with no kernel raises ``ValueError``
+    (:func:`cuda_lib.kernel_semiring_id`)."""
+    return "tf32x3" if cuda_lib.kernel_semiring_id(sr) == 0 else "ring"
 
 
 def tf32_scratch(m: int, n: int, k: int, device):
@@ -49,6 +51,7 @@ def semiring_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     """The kernel on padded operands: a [M,K], b [K,N] fp32, M and N
     multiples of 128, K a multiple of 32 → [M,N] fp32."""
     cuda_lib.check_cuda(a, b)
+    sid = cuda_lib.kernel_semiring_id(sr)
     m, k = a.shape
     k2, n = b.shape
     if k != k2 or m % BM or n % BN or k % BK:
@@ -60,7 +63,7 @@ def semiring_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     a, b = a.contiguous(), b.contiguous()
     if m == 0 or n == 0:          # no grid to launch: nothing to count
         return torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if route(sr) == "tf32x3":
+    if sid == 0:                  # (+, ×): the TF32 route
         if k == 0:                # the empty sum, with no product to run
             return torch.zeros((m, n), dtype=torch.float32, device=a.device)
         c = torch.empty((m, n), dtype=torch.float32, device=a.device)
@@ -71,9 +74,8 @@ def semiring_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                         counts=("semiring_matmul", "semiring_matmul_tf32"))
         return c
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    cuda_lib.launch("semiring_matmul", cuda_lib.SEMIRING_IDS[sr.name],
-                    a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                    cuda_lib.stream_ptr(a))
+    cuda_lib.launch("semiring_matmul", sid, a.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), m, n, k, cuda_lib.stream_ptr(a))
     return c
 
 

@@ -49,9 +49,9 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _vals(gen, shape, sr, card):
+def _vals(gen, shape, sr, card, zeros=0.3):
     v = torch.randint(1, 9, shape, generator=gen).float() / 4
-    v[torch.rand(shape, generator=gen) < 0.3] = REGISTRY[sr].zero
+    v[torch.rand(shape, generator=gen) < zeros] = REGISTRY[sr].zero
     return v.to(card)
 
 
@@ -134,29 +134,187 @@ def _pairs(gen, card, n_a=3, n_b=4, n_pairs=9, n_out=4):
     return [t.to(card) for t in (pa, pb, po)]
 
 
+def _pair_counts():
+    return {k: LAUNCHES[k] for k in ("bsr_pairlist", "bsr_pairlist_tf32",
+                                     "bsr_pairlist_reduce",
+                                     "bsr_pairlist_reduce_tf32")}
+
+
+def _run_pairs(gen, card, lengths, n_a=5, n_b=6):
+    """Pairs for outputs with runs of the given lengths (0: an empty run)."""
+    n = sum(lengths)
+    pa = torch.randint(0, n_a, (n,), generator=gen, dtype=torch.int32)
+    pb = torch.randint(0, n_b, (n,), generator=gen, dtype=torch.int32)
+    po = torch.repeat_interleave(torch.arange(len(lengths)),
+                                 torch.tensor(lengths)).int()
+    return [t.to(card) for t in (pa, pb, po)]
+
+
+# runs of the pair kernels: one pair; the n=18 product's 1-4; a run longer
+# than the reduce's chunk (95 pairs: six chunks) beside an empty run
+PAIR_RUNS = {"one": [1], "short": [1, 4, 2, 3], "long": [95, 0, 17, 1]}
+
+
+def _pair_tiles(gen, card, sr, runs):
+    """Quarter-value tiles; the long runs' with 60% zeros, so that even the
+    fused reduce's sums (95 · 128^3 products) stay below 2^20 and exact in
+    any order."""
+    z = 0.6 if runs == "long" else 0.3
+    return (_vals(gen, (5, 128, 128), sr, card, z),
+            _vals(gen, (6, 128, 128), sr, card, z))
+
+
+@pytest.mark.parametrize("runs", list(PAIR_RUNS))
 @pytest.mark.parametrize("sr", SEMIRINGS)
-def test_bsr_pairlist_kernel(card, sr):
+def test_bsr_pairlist_kernel(card, sr, runs):
     gen = torch.Generator().manual_seed(2)
-    at = _vals(gen, (3, 128, 128), sr, card)
-    bt = _vals(gen, (4, 128, 128), sr, card)
-    pa, pb, pc = _pairs(gen, card)
-    got = bsr_ops.bsr_pairlist(at, bt, pa, pb, pc, n_c=4, semiring=sr)
-    want = bsr_ref.bsr_pairlist_ref(at, bt, pa, pb, pc, n_c=4, semiring=sr)
+    at, bt = _pair_tiles(gen, card, sr, runs)
+    pa, pb, pc = _run_pairs(gen, card, PAIR_RUNS[runs])
+    n_c = len(PAIR_RUNS[runs])
+    reset_launch_counts()
+    got = bsr_ops.bsr_pairlist(at, bt, pa, pb, pc, n_c=n_c, semiring=sr)
+    tf32 = int(sr == "plus_times")
+    assert _pair_counts() == {"bsr_pairlist": 1, "bsr_pairlist_tf32": tf32,
+                              "bsr_pairlist_reduce": 0,
+                              "bsr_pairlist_reduce_tf32": 0}
+    want = bsr_ref.bsr_pairlist_ref(at, bt, pa, pb, pc, n_c=n_c, semiring=sr)
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("runs", list(PAIR_RUNS))
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("sr", SEMIRINGS)
-def test_bsr_pairlist_reduce_kernel(card, sr, axis):
+def test_bsr_pairlist_reduce_kernel(card, sr, axis, runs):
     gen = torch.Generator().manual_seed(3)
+    at, bt = _pair_tiles(gen, card, sr, runs)
+    pa, pb, po = _run_pairs(gen, card, PAIR_RUNS[runs])
+    n_o = len(PAIR_RUNS[runs])
+    reset_launch_counts()
+    got = bsr_ops.bsr_pairlist_reduce(at, bt, pa, pb, po, n_o=n_o, axis=axis,
+                                      semiring=sr)
+    tf32 = int(sr == "plus_times")
+    assert _pair_counts() == {"bsr_pairlist": 0, "bsr_pairlist_tf32": 0,
+                              "bsr_pairlist_reduce": 1,
+                              "bsr_pairlist_reduce_tf32": tf32}
+    want = bsr_ref.bsr_pairlist_reduce_ref(at, bt, pa, pb, po, n_o=n_o,
+                                           axis=axis, semiring=sr)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+def test_bsr_pairlist_random_pairs(card, sr):
+    """Pairs drawn at random, every output covered, both kernels."""
+    gen = torch.Generator().manual_seed(9)
     at = _vals(gen, (3, 128, 128), sr, card)
     bt = _vals(gen, (4, 128, 128), sr, card)
     pa, pb, po = _pairs(gen, card)
-    got = bsr_ops.bsr_pairlist_reduce(at, bt, pa, pb, po, n_o=4, axis=axis,
-                                      semiring=sr)
-    want = bsr_ref.bsr_pairlist_reduce_ref(at, bt, pa, pb, po, n_o=4,
-                                           axis=axis, semiring=sr)
-    assert torch.equal(got, want)
+    assert torch.equal(
+        bsr_ops.bsr_pairlist(at, bt, pa, pb, po, n_c=4, semiring=sr),
+        bsr_ref.bsr_pairlist_ref(at, bt, pa, pb, po, n_c=4, semiring=sr))
+    for axis in (0, 1):
+        assert torch.equal(
+            bsr_ops.bsr_pairlist_reduce(at, bt, pa, pb, po, n_o=4, axis=axis,
+                                        semiring=sr),
+            bsr_ref.bsr_pairlist_reduce_ref(at, bt, pa, pb, po, n_o=4,
+                                            axis=axis, semiring=sr))
+
+
+def _pair_bound(at, bt, pa, pb, po, n_out):
+    """The TF32 route's bound per output tile (the run as one product of
+    its A tiles side by side and its B tiles stacked: K = 128 x pairs), and
+    Σ_p |A_p|·|B_p| per output."""
+    bound, mag = [], []
+    for o in range(n_out):
+        sel = (po == o).nonzero().flatten()
+        if sel.numel() == 0:
+            z = torch.zeros((128, 128), dtype=torch.float64, device=at.device)
+            bound.append(z)
+            mag.append(z)
+            continue
+        a = torch.cat([at[i] for i in pa[sel].tolist()], dim=1)
+        b = torch.cat([bt[i] for i in pb[sel].tolist()], dim=0)
+        bound.append(tf32x3_error_bound(a, b))
+        mag.append(a.double().abs() @ b.double().abs())
+    return torch.stack(bound), torch.stack(mag)
+
+
+@pytest.mark.parametrize("runs", list(PAIR_RUNS))
+def test_bsr_pairlist_tf32_within_bound(card, runs):
+    """Normal values: each C tile within the stated bound of the fp64
+    product, and a relative L2 error below 2^-16; each fused reduce within
+    the bound plus its fp32 folds (2^-23 per term of the folded 128
+    outputs, 2^-24 per chunk partial, each term at most Σ_j |A|·|B|)."""
+    gen = torch.Generator().manual_seed(15)
+    at, bt = _normal(gen, (5, 128, 128), card), _normal(gen, (6, 128, 128), card)
+    pa, pb, po = _run_pairs(gen, card, PAIR_RUNS[runs])
+    n = len(PAIR_RUNS[runs])
+    got = bsr_ops.bsr_pairlist(at, bt, pa, pb, po, n_c=n).double()
+    want = torch.zeros((n, 128, 128), dtype=torch.float64, device=card)
+    want.index_add_(0, po.long(), torch.bmm(at[pa.long()].double(),
+                                            bt[pb.long()].double()))
+    bound, mag = _pair_bound(at, bt, pa, pb, po, n)
+    assert bool(((got - want).abs() <= bound).all())
+    assert float((got - want).norm() / want.norm()) < 2 ** -16
+    chunks = torch.tensor([max(1, -(-r // bsr_ops.REDUCE_CHUNK))
+                           for r in PAIR_RUNS[runs]], device=card)
+    for axis in (0, 1):
+        red = 2 if axis == 1 else 1
+        got = bsr_ops.bsr_pairlist_reduce(at, bt, pa, pb, po, n_o=n,
+                                          axis=axis).double()
+        tol = bound.sum(red) + (128 * 2.0 ** -23 + (chunks[:, None] - 1)
+                                * 2.0 ** -24) * mag.sum(red)
+        assert bool(((got - want.sum(red)).abs() <= tol).all())
+
+
+def _nonfinite_pairs(card, n_pairs=3):
+    """nonfinite_operands cut into 128 x 128 tiles: one output tile from a
+    run of n_pairs pairs (A's k tiles against B's)."""
+    a, b = nonfinite_operands(128, 128 * n_pairs, 128,
+                              torch.Generator().manual_seed(16), card)
+    at = a.view(128, n_pairs, 128).transpose(0, 1).contiguous()
+    bt = b.view(n_pairs, 128, 128).contiguous()
+    idx = torch.arange(n_pairs, dtype=torch.int32, device=card)
+    return a, b, at, bt, idx, torch.zeros_like(idx)
+
+
+def test_bsr_pairlist_tf32_nonfinite(card):
+    """±inf, NaN and overflow through the exact path, as in the plain
+    version (the same sums in any order: nonfinite_operands)."""
+    a, b, at, bt, idx, po = _nonfinite_pairs(card)
+    want = semiring_matmul_ref(a, b)
+    assert bool(torch.isinf(want).any()) and bool(torch.isnan(want).any())
+    got = bsr_ops.bsr_pairlist(at, bt, idx, idx, po, n_c=1)
+    torch.testing.assert_close(got[0], want, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, bsr_ref.bsr_pairlist_ref(
+        at, bt, idx, idx, po, n_c=1), rtol=0, atol=0, equal_nan=True)
+    for axis in (0, 1):
+        got = bsr_ops.bsr_pairlist_reduce(at, bt, idx, idx, po, n_o=1,
+                                          axis=axis)
+        torch.testing.assert_close(got, bsr_ref.bsr_pairlist_reduce_ref(
+            at, bt, idx, idx, po, n_o=1, axis=axis), rtol=0, atol=0,
+            equal_nan=True)
+
+
+def test_off_registry_semiring_raises_on_the_card(card):
+    """A semiring that is not the registry's object has no kernel: the card
+    routes raise before any launch; an mxu=True one takes the TF32 route."""
+    import dataclasses
+    t = torch.ones((1, 128, 128), device=card)
+    i = torch.zeros(1, dtype=torch.int32, device=card)
+    odd = dataclasses.replace(REGISTRY["min_plus"], mul=torch.mul)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="max_plus, min_plus"):
+        bsr_ops.bsr_pairlist(t, t, i, i, i, n_c=1, semiring=odd)
+    with pytest.raises(ValueError, match="max_plus, min_plus"):
+        bsr_ops.bsr_pairlist_reduce(t, t, i, i, i, n_o=1, axis=1,
+                                    semiring=odd)
+    with pytest.raises(ValueError, match="max_plus, min_plus"):
+        semiring_matmul(t[0], t[0], semiring=odd, impl="cuda")
+    assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
+    dot = dataclasses.replace(REGISTRY["plus_times"], name="dot")
+    got = bsr_ops.bsr_pairlist(t, t, i, i, i, n_c=1, semiring=dot)
+    assert LAUNCHES["bsr_pairlist_tf32"] == 1
+    assert bool((got == 128).all())
 
 
 def _masked(gen, card, sr, m=256, k=384, n=256):
@@ -329,6 +487,8 @@ def test_main_path_on_card_launches_every_kernel(card):
     assert LAUNCHES["semiring_matmul_tf32"] >= 1, LAUNCHES
     assert LAUNCHES["semiring_matmul"] > LAUNCHES["semiring_matmul_tf32"]
     assert LAUNCHES["bsr_spgemm_reduce_tf32"] >= 1, LAUNCHES
+    assert LAUNCHES["bsr_pairlist_tf32"] >= 1, LAUNCHES
+    assert LAUNCHES["bsr_pairlist_reduce_tf32"] >= 1, LAUNCHES
     for name, ok, detail in (main_path.check_clustered(c["raw"], res, True)
                              + main_path.check_uniform(u["raw"], res_u)):
         assert ok, (name, detail)

@@ -3,17 +3,20 @@ product of ``csrc/semiring_tf32_sm90.cu`` (hi and lo rounded to TF32 by bit
 operations, the kernel's pass order, each 32-deep slab summed afresh with
 every addition truncated to fp32 as the tensor cores may do, the slab sums
 added in fp32 round-to-nearest, the exact path for flagged rows and
-columns), held against fp64 and the plain version, and the wrappers'
-choice of route.
+columns), held against fp64 and the plain version; the same model over a
+run of tile pairs, as ``csrc/bsr_pairlist_tf32_sm90.cu`` splits each pair's
+tiles in the kernel; and the wrappers' choice of route.
 
-The kernel itself runs on the card only (``tests/test_torch_cuda.py``).
+The kernels themselves run on the card only (``tests/test_torch_cuda.py``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import REGISTRY
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, cuda_lib
 from repro_torch.kernels.bsr_spgemm import ops as t_bsr
 from repro_torch.kernels.semiring_matmul import ops as t_sm
 from repro_torch.kernels.semiring_matmul.ref import (nonfinite_operands,
@@ -211,3 +214,140 @@ def test_route_follows_the_semiring_and_never_falls_back():
     scratch, flags = t_sm.tf32_scratch(256, 128, 64, "cpu")
     assert scratch.shape == (2 * (256 + 128) * 64,)
     assert flags.shape == (384,) and not flags.any()
+
+
+# -- the pair-list kernels: a run of tile pairs ----------------------------------
+
+def run_model(a_tiles, b_tiles, pairs, **kw):
+    """The pair kernel's product over one run: for each pair its four
+    32-deep slabs, each split in the kernel and summed afresh into d, d
+    added to the accumulator rounded to nearest; then the exact path for a
+    row of any A tile or column of any B tile of the run that holds a value
+    the split cannot carry, in fp32 FMA in k order over the pairs.  A slab
+    never straddles two pairs (128 is a multiple of 32), so this is the
+    dense model of the run's A tiles side by side against its B tiles
+    stacked: K = 128 x pairs."""
+    a = np.concatenate([a_tiles[i] for i, _ in pairs], axis=1)
+    b = np.concatenate([b_tiles[j] for _, j in pairs], axis=0)
+    return model(a, b, **kw), a, b
+
+
+# runs of the pair kernels: one pair, the n=18 product's longest plain run
+# (4), the n=18 reduce's longest run (95); the tiles keep 128 k and cut
+# rows and columns (independent outputs) to keep the model quick
+RUN_LENGTHS = (1, 4, 95)
+
+
+def _run_tiles(rng, n_pairs, kind, rows=6, cols=5):
+    n_a, n_b = 7, 9
+    if kind == "integers":   # 1..30: 95 pairs of them stay below 2^24
+        at = rng.integers(1, 31, (n_a, rows, 128)).astype(np.float32)
+        bt = rng.integers(1, 31, (n_b, 128, cols)).astype(np.float32)
+    elif kind == "quarters":
+        at = (rng.integers(1, 9, (n_a, rows, 128)) / 4).astype(np.float32)
+        bt = (rng.integers(1, 9, (n_b, 128, cols)) / 4).astype(np.float32)
+    else:
+        at = rng.standard_normal((n_a, rows, 128)).astype(np.float32)
+        bt = rng.standard_normal((n_b, 128, cols)).astype(np.float32)
+    pairs = list(zip(rng.integers(0, n_a, n_pairs), rng.integers(0, n_b, n_pairs)))
+    return at, bt, pairs
+
+
+@pytest.mark.parametrize("n_pairs", RUN_LENGTHS)
+@pytest.mark.parametrize("kind", ["integers", "quarters"])
+def test_run_model_is_exact_on_tf32_values(kind, n_pairs):
+    """Integers (the main path's are 1.0) and the kernel checks' quarters:
+    lo = 0 and every partial sum below 2^24, so a run is exact, 95 pairs
+    (K = 12,160) included."""
+    rng = np.random.default_rng(100 + n_pairs)
+    at, bt, pairs = _run_tiles(rng, n_pairs, kind)
+    got, a, b = run_model(at, bt, pairs)
+    want = a.astype(np.float64) @ b
+    assert np.abs(want).max() < 2 ** 24
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_pairs", RUN_LENGTHS)
+def test_run_model_within_bound_on_normal_values(n_pairs):
+    """The dense route's bound (tf32x3_error_bound) with K = 128 x pairs
+    and |A|·|B| summed over the run."""
+    rng = np.random.default_rng(200 + n_pairs)
+    at, bt, pairs = _run_tiles(rng, n_pairs, "normal")
+    got, a, b = run_model(at, bt, pairs)
+    want = a.astype(np.float64) @ b
+    assert a.shape[1] == 128 * n_pairs
+    assert (np.abs(got - want) <= bound(a, b)).all()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 2 ** -16
+    # a fused reduce adds the fold of 128 outputs in fp32: (n - 1) · 2^-24
+    # of their magnitude sum, within the 128 · 2^-23 the card tests allow
+    fold = got.sum(axis=1, dtype=np.float32)
+    tol = bound(a, b).sum(axis=1) + 128 * 2.0 ** -23 * np.abs(want).sum(axis=1)
+    assert (np.abs(fold - want.sum(axis=1)) <= tol).all()
+
+
+@pytest.mark.parametrize("n_pairs", [1, 3])
+def test_run_model_nonfinite_follows_the_plain_version(n_pairs):
+    """±inf, NaN and overflow in any tile of the run: the exact path over
+    the run's pairs gives the plain version's values; the split alone would
+    not."""
+    ta, tb = nonfinite_operands(96, 128 * n_pairs, 90,
+                                torch.Generator().manual_seed(20 + n_pairs),
+                                "cpu")
+    a, b = ta.numpy(), tb.numpy()
+    at = a.reshape(96, n_pairs, 128).transpose(1, 0, 2)
+    bt = b.reshape(n_pairs, 128, 90)
+    pairs = [(i, i) for i in range(n_pairs)]
+    want = semiring_matmul_ref(ta, tb).numpy()
+    got, _, _ = run_model(at, bt, pairs)
+    np.testing.assert_array_equal(got, want)   # NaN == NaN here
+    alone, _, _ = run_model(at, bt, pairs, exact_path=False)
+    assert (np.isnan(alone) & np.isinf(want)).any()
+
+
+# -- which semiring has a kernel ------------------------------------------------
+
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_kernel_semiring_id_takes_the_registry(name):
+    sr = REGISTRY[name]
+    sid = cuda_lib.kernel_semiring_id(sr)
+    assert sid == cuda_lib.SEMIRING_IDS[name]
+    assert t_sm.route(sr) == ("tf32x3" if sid == 0 else "ring")
+
+
+@pytest.mark.parametrize("base", SEMIRINGS)
+def test_mxu_semiring_keeps_the_tf32_route(base):
+    """Any semiring with mxu=True is a multiply-accumulate that the JAX
+    kernels send to jnp.dot: it keeps the TF32 route, registered or not."""
+    sr = dataclasses.replace(REGISTRY[base], name=f"{base}_dot", mxu=True)
+    assert cuda_lib.kernel_semiring_id(sr) == 0
+    assert t_sm.route(sr) == "tf32x3"
+
+
+def _off_registry():
+    return {
+        "unregistered name": dataclasses.replace(REGISTRY["max_plus"],
+                                                 name="my_max_plus"),
+        "min_plus with another ⊗": dataclasses.replace(REGISTRY["min_plus"],
+                                                       mul=torch.mul),
+        "and_or copy": dataclasses.replace(REGISTRY["and_or"]),
+        "plus_times without mxu": dataclasses.replace(REGISTRY["plus_times"],
+                                                      mxu=False),
+    }
+
+
+@pytest.mark.parametrize("case", list(_off_registry()))
+def test_off_registry_semiring_has_no_kernel(case):
+    """A mxu=False semiring that is not the registry's own object raises
+    ValueError naming the five ring semirings, before any launch; the CPU
+    path still runs it through the plain versions."""
+    sr = _off_registry()[case]
+    with pytest.raises(ValueError, match="max_plus, min_plus, max_min, "
+                       "max_times, and_or"):
+        cuda_lib.kernel_semiring_id(sr)
+    with pytest.raises(ValueError, match="max_plus, min_plus"):
+        t_sm.route(sr)
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.integers(1, 9, (5, 7)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(1, 9, (7, 3)).astype(np.float32))
+    assert torch.equal(t_sm.semiring_matmul(a, b, semiring=sr),
+                       semiring_matmul_ref(a, b, semiring=sr))

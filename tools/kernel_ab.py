@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Time one of the port's kernels against another source of it, on one card.
+
+    # rank_count: another rank_count.cu
+    git show <commit>:src/repro_torch/csrc/rank_count.cu > build/rank_count_old.cu
+    python3 tools/kernel_ab.py rank_count build/rank_count_old.cu
+
+    # bsr_pairlist and bsr_pairlist_reduce: another bsr_pairlist.cu, with the
+    # headers it includes in its directory
+    mkdir -p build/old && for f in bsr_pairlist.cu tile_mma.cuh semiring.cuh; do
+        git show <commit>:src/repro_torch/csrc/$f > build/old/$f; done
+    python3 tools/kernel_ab.py bsr_pairlist build/old/bsr_pairlist.cu
+
+The other source is built with ``nvcc`` and the port's flags into
+``build/kernel_ab/`` and called through a copy of the port's host work
+around its launch.  It must export the C entries of the port's source
+before its redesign:
+
+* ``rank_count_launch(i, j, rank, hit, ni, nj, stream)``, writing every
+  entry of ``rank`` and ``hit``;
+* ``bsr_pairlist_launch(sr, a_tiles, b_tiles, pair_a, pair_b, runs,
+  c_tiles, n_c, stream)`` and ``bsr_pairlist_reduce_launch(sr, a_tiles,
+  b_tiles, pair_a, pair_b, runs, out, n_o, axis, stream)`` for the six
+  semirings (``cuda_lib.SEMIRING_IDS``), one block per output.
+
+``rank_count`` runs on the ingest path's inputs
+(``chip_smoke.rank_count_inputs``: the base's and the delta's keys at
+uniform n=15), must equal two ``torch.searchsorted`` on every entry, and is
+timed in turns (old, new, library, library, new, old) by chip_smoke's two
+clocks: ``cuda_ms`` (device time, L2 evicted before each call) and
+``host_ms`` (per call by the host's clock).
+
+``bsr_pairlist`` runs both pair kernels on the main path's inputs at
+clustered n=18 (``chip_smoke.pairlist_inputs``: ``A @ B`` and the
+``A.sqout(reduce=1)`` pairs, quarter values), under each of the six
+semirings: both sources must equal the plain version exactly, and are
+timed at their launch (no input check with its host read-back inside the
+timed call) by ``cuda_ms`` in turns (old, new, new, old).
+
+The last lines are the card's name and power limit and one JSON object of
+the times.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (puts src/ on the path)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRIES = {
+    "rank_count": {"rank_count_launch": [_P] * 4 + [_I] * 2 + [_P]},
+    "bsr_pairlist": {
+        "bsr_pairlist_launch": [_I] + [_P] * 6 + [_I, _P],
+        "bsr_pairlist_reduce_launch": [_I] + [_P] * 6 + [_I, _I, _P]},
+}
+
+
+def build_old(kernel: str, src: str) -> ctypes.CDLL:
+    from repro_torch.kernels import cuda_lib
+    out = os.path.join(ROOT, "build", "kernel_ab")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, f"{kernel}_old.so")
+    r = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared",
+                        "-o", so, src], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise SystemExit(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(so)
+    for name, argtypes in ENTRIES[kernel].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def turns(calls: dict, order, clock, repeats: int) -> dict:
+    """Each call's mean over its turns, and the turns themselves."""
+    got = {k: [] for k in calls}
+    for name in order:
+        got[name].append(clock(calls[name], repeats))
+    out = {k: sum(v) / len(v) for k, v in got.items()}
+    out["turns"] = got
+    return out
+
+
+def rank_count_ab(old, dev) -> dict:
+    import torch
+
+    from repro_torch import main_path
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.sorted_merge import ops as rc_ops
+    ing = main_path.build_ingest(chip_smoke.N_INGEST, dev)
+    i, j = chip_smoke.rank_count_inputs(ing["raw"], ing["bases"]["sum"])
+    del ing
+
+    def old_call(i, j):
+        # the port wrapper's host work, then the other source's launch
+        cuda_lib.check_cuda(i, j)
+        if i.dtype != torch.int32 or j.dtype != torch.int32:
+            raise TypeError("rank_count takes int32 i and j")
+        i, j = i.contiguous(), j.contiguous()
+        rank, hit = torch.empty((2, i.shape[0]), dtype=torch.int32,
+                                device=i.device).unbind(0)
+        err = old.rank_count_launch(i.data_ptr(), j.data_ptr(),
+                                    rank.data_ptr(), hit.data_ptr(),
+                                    i.shape[0], j.shape[0],
+                                    cuda_lib.stream_ptr(i))
+        if err != 0:
+            raise RuntimeError(f"the old rank_count failed: CUDA error {err}")
+        return rank, hit
+
+    calls = {"old": lambda: old_call(i, j),
+             "new": lambda: rc_ops.rank_count_cuda(i, j),
+             "library": lambda: (torch.searchsorted(j, i),
+                                 torch.searchsorted(j, i, right=True))}
+    for name in ("old", "new"):
+        for p, q in ((i, j), (j, i)):
+            want_lo = torch.searchsorted(q, p).int()
+            want_hit = torch.searchsorted(q, p, right=True).int() - want_lo
+            rank, hit = (old_call(p, q) if name == "old"
+                         else rc_ops.rank_count_cuda(p, q))
+            if not (torch.equal(rank, want_lo) and torch.equal(hit, want_hit)):
+                raise SystemExit(f"kernel_ab: the {name} rank_count "
+                                 "disagrees with torch.searchsorted")
+    order = ("old", "new", "library", "library", "new", "old")
+    times = {}
+    for clock, fn, repeats in (("cuda_ms", chip_smoke.cuda_ms, 50),
+                               ("host_ms", chip_smoke.host_ms, 200)):
+        t = times[clock] = turns(calls, order, fn, repeats)
+        print(f"[time] rank_count {clock}: old {t['old']:.4f}, new "
+              f"{t['new']:.4f}, library {t['library']:.4f}; new / old "
+              f"{t['new'] / t['old']:.3f}, new / library "
+              f"{t['new'] / t['library']:.3f}, old / library "
+              f"{t['old'] / t['library']:.3f}", flush=True)
+    print(f"[shape] {i.shape[0]} keys in {j.shape[0]} keys, exact both ways")
+    return times
+
+
+def bsr_pairlist_ab(old, dev) -> dict:
+    import torch
+
+    from repro_torch import main_path
+    from repro_torch.core import REGISTRY
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.bsr_spgemm import ops as bsr_ops
+    from repro_torch.kernels.bsr_spgemm import ref as bsr_ref
+    clus = main_path.build_clustered(18, dev)
+    a, b = clus["A"], clus["B"]
+    gen = torch.Generator().manual_seed(0)
+    _, mm_tiles, mm_pairs, n_c = chip_smoke.pairlist_inputs(a, b, None, gen)
+    _, rd_tiles, rd_pairs, n_o = chip_smoke.pairlist_inputs(
+        a, a.transpose(), 1, gen)
+    del clus, a, b
+
+    # both sources at their launch, as chip_smoke times them (the inputs
+    # are contiguous and valid; no host read-back inside a timed call)
+    def old_pairlist(at, bt, pa, pb, pc, sr):
+        runs = bsr_ops.run_offsets(pc, n_c)
+        c = torch.empty((n_c, 128, 128), dtype=torch.float32, device=dev)
+        err = old.bsr_pairlist_launch(
+            cuda_lib.SEMIRING_IDS[sr.name], at.data_ptr(), bt.data_ptr(),
+            pa.data_ptr(), pb.data_ptr(), runs.data_ptr(), c.data_ptr(), n_c,
+            cuda_lib.stream_ptr(at))
+        if err != 0:
+            raise RuntimeError(f"the old bsr_pairlist failed: CUDA error {err}")
+        return c
+
+    def old_reduce(at, bt, pa, pb, po, sr):
+        runs = bsr_ops.run_offsets(po, n_o)
+        out = torch.empty((n_o, 128), dtype=torch.float32, device=dev)
+        err = old.bsr_pairlist_reduce_launch(
+            cuda_lib.SEMIRING_IDS[sr.name], at.data_ptr(), bt.data_ptr(),
+            pa.data_ptr(), pb.data_ptr(), runs.data_ptr(), out.data_ptr(),
+            n_o, 1, cuda_lib.stream_ptr(at))
+        if err != 0:
+            raise RuntimeError("the old bsr_pairlist_reduce failed: CUDA "
+                               f"error {err}")
+        return out
+
+    times = {}
+    for name in chip_smoke.SEMIRINGS:
+        sr = REGISTRY[name]
+        sid = cuda_lib.kernel_semiring_id(sr)
+        at, bt = mm_tiles(sr)
+        ar, br = rd_tiles(sr)
+        want = bsr_ref.bsr_pairlist_ref(at, bt, *mm_pairs, n_c=n_c,
+                                        semiring=sr)
+        want_r = bsr_ref.bsr_pairlist_reduce_ref(ar, br, *rd_pairs, n_o=n_o,
+                                                 axis=1, semiring=sr)
+        calls = {
+            "bsr_pairlist": {
+                "old": lambda: old_pairlist(at, bt, *mm_pairs, sr),
+                "new": lambda: bsr_ops.pairlist_launch(
+                    at, bt, *mm_pairs, n_c=n_c, sid=sid)},
+            "bsr_pairlist_reduce": {
+                "old": lambda: old_reduce(ar, br, *rd_pairs, sr),
+                "new": lambda: bsr_ops.pairlist_reduce_launch(
+                    ar, br, *rd_pairs, n_o=n_o, axis=1, sid=sid)}}
+        for kernel, w in (("bsr_pairlist", want),
+                          ("bsr_pairlist_reduce", want_r)):
+            for src, fn in calls[kernel].items():
+                err = chip_smoke.max_err(fn(), w)
+                if err != 0.0:
+                    raise SystemExit(f"kernel_ab: the {src} {kernel} under "
+                                     f"{name} differs from the plain version "
+                                     f"by {err}")
+            t = turns(calls[kernel], ("old", "new", "new", "old"),
+                      chip_smoke.cuda_ms, 3)
+            t["new / old"] = t["new"] / t["old"]
+            times.setdefault(name, {})[kernel] = t
+            print(f"[time] {kernel} {name}: old {t['old']:.4f} ms, new "
+                  f"{t['new']:.4f} ms, new / old {t['new / old']:.3f} "
+                  f"(turns {json.dumps(t['turns'])})", flush=True)
+        del at, bt, ar, br, want, want_r
+    print(f"[shape] bsr_pairlist {int(mm_pairs[0].shape[0])} pairs -> {n_c} "
+          f"tiles; bsr_pairlist_reduce {int(rd_pairs[0].shape[0])} pairs -> "
+          f"{n_o} blocks; every result exact")
+    return times
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("kernel", choices=sorted(ENTRIES))
+    ap.add_argument("source", help="the other source (.cu)")
+    args = ap.parse_args()
+    import torch
+
+    from repro_torch.kernels import cuda_lib
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions
+    old = build_old(args.kernel, args.source)
+    cuda_lib.load()
+    dev = torch.device(chip_smoke.DEVICE)
+    ab = rank_count_ab if args.kernel == "rank_count" else bsr_pairlist_ab
+    times = ab(old, dev)
+    print(chip_smoke.nvidia_smi_line())
+    print(json.dumps(times))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""What the compiler made of the dense semiring kernels: ptxas's register
-and spill report, and each kernel's instruction mix from ``cuobjdump
--sass``.
+"""What the compiler made of the semiring kernels: ptxas's register and
+spill report, and each kernel's instruction mix from ``cuobjdump -sass``.
 
     python3 tools/sass_check.py [--json chiprun_out/sass.json]
 
@@ -9,14 +8,18 @@ Needs the CUDA toolkit (``nvcc``, ``cuobjdump``), not a card.  It builds
 the port's kernels afresh into a temporary directory with ``-Xptxas -v``
 and fails (exit 1) if
 
-* a kernel of ``csrc/semiring_matmul.cu``, ``csrc/bsr_spgemm.cu`` or
-  ``csrc/semiring_tf32_sm90.cu`` spills (spill stores or loads > 0);
-* a ring kernel of a max/min semiring (``semiring_matmul_kernel`` and
-  ``bsr_spgemm_reduce_kernel`` under MaxPlus, MinPlus, MaxMin, MaxTimes,
+* a kernel of ``csrc/semiring_matmul.cu``, ``csrc/bsr_spgemm.cu``,
+  ``csrc/semiring_tf32_sm90.cu``, ``csrc/bsr_pairlist.cu`` or
+  ``csrc/bsr_pairlist_tf32_sm90.cu`` spills (spill stores or loads > 0);
+* a ring kernel of a max/min semiring (``semiring_matmul_kernel``,
+  ``bsr_spgemm_reduce_kernel``, ``bsr_pairlist_kernel`` and
+  ``bsr_pairlist_reduce_kernel`` under MaxPlus, MinPlus, MaxMin, MaxTimes,
   AndOr) compiles ⊕ to a compare and select (``FSETP``/``FSEL``) instead
   of one ``FMNMX`` a MAC: it must hold at least 8·8·4 ``FMNMX`` (one
   unrolled k4 step's MACs), and ``FSETP`` + ``FSEL`` under 1/8 of them;
-* the TF32 kernels hold no ``HGMMA`` ... ``.TF32`` instruction.
+* the TF32 kernels (``tf32x3_kernel``, ``pair_tf32_kernel``) hold no
+  ``HGMMA`` ... ``.TF32`` instruction;
+* ptxas reports that it serialized a kernel's ``wgmma`` instructions.
 
 For each kernel it prints the counts of FMNMX, FADD, FMUL, FFMA,
 FSETP + FSEL, LDS, HGMMA and all instructions, and the LDS share per ALU
@@ -44,8 +47,11 @@ OPS = ("FMNMX", "FADD", "FMUL", "FFMA", "FSETP", "FSEL", "LDS", "HGMMA")
 SEMIRING_OF = {"MaxPlus": ("5OpMax", "6OpPlus"), "MinPlus": ("5OpMin", "6OpPlus"),
                "MaxMin": ("5OpMax", "5OpMin"), "MaxTimes": ("5OpMax", "7OpTimes"),
                "AndOr": ("5OpMax", "5OpMin"), "PlusTimes": ("6OpPlus", "7OpTimes")}
-RING_KERNELS = ("semiring_matmul_kernel", "bsr_spgemm_reduce_kernel")
-CHECKED_SOURCES = ("semiring_matmul.cu", "bsr_spgemm.cu", "semiring_tf32_sm90.cu")
+RING_KERNELS = ("semiring_matmul_kernel", "bsr_spgemm_reduce_kernel",
+                "bsr_pairlist_kernel", "bsr_pairlist_reduce_kernel")
+TF32_KERNELS = ("tf32x3_kernel", "pair_tf32_kernel")
+CHECKED_SOURCES = ("semiring_matmul.cu", "bsr_spgemm.cu", "semiring_tf32_sm90.cu",
+                   "bsr_pairlist.cu", "bsr_pairlist_tf32_sm90.cu")
 
 
 def cuobjdump() -> str:
@@ -135,6 +141,9 @@ def main() -> int:
             lib = cuda_lib.build(verbose=True)
         ptxas = ptxas_report(buf.getvalue())
         sass = sass_counts(lib)
+    serialized = [line for line in buf.getvalue().splitlines()
+                  if "wgmma" in line and "serialized" in line]
+    failures += [f"ptxas: {line.strip()}" for line in serialized]
     for src in CHECKED_SOURCES:
         for fn, r in ptxas.get(src, {}).items():
             if r.get("spill_stores", 0) or r.get("spill_loads", 0):
@@ -143,12 +152,12 @@ def main() -> int:
     rows = {}
     for fn, c in sass.items():
         ring = next((k for k in RING_KERNELS if k in fn), None)
-        tf32 = "tf32x3_kernel" in fn
+        tf32 = next((k for k in TF32_KERNELS if k in fn), None)
         if not (ring or tf32):
             continue
         sr = semiring_of(fn) if ring else "PlusTimes"
-        key = f"{ring or 'tf32x3_kernel'}<{sr}>" + (
-            "" if ring else ("<reduce>" if "Lb1E" in fn else "<matmul>"))
+        key = f"{ring or tf32}<{sr}>" + (
+            "" if ring else ("<reduce>" if "Lb1E" in fn else "<store>"))
         alu = c["FMNMX"] + c["FADD"] + c["FMUL"] + c["FFMA"]
         c = dict(c, lds_per_alu=c["LDS"] / alu if alu else None)
         rows[key] = c
