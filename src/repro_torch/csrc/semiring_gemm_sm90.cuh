@@ -1,7 +1,8 @@
-// The CUDA-core semiring contraction of semiring_matmul, bsr_spgemm_reduce,
-// bsr_pairlist and bsr_pairlist_reduce for the five semirings with no
-// tensor-core form (max_plus, min_plus, max_min, max_times, and_or); (+, ×)
-// takes the TF32 routes (semiring_tf32_sm90.cu, bsr_pairlist_tf32_sm90.cu).
+// The CUDA-core semiring contraction of semiring_matmul, bsr_spgemm,
+// bsr_spgemm_reduce, bsr_pairlist and bsr_pairlist_reduce for the five
+// semirings with no tensor-core form (max_plus, min_plus, max_min,
+// max_times, and_or); (+, ×) takes the TF32 routes (semiring_tf32_sm90.cu,
+// bsr_pairlist_tf32_sm90.cu).
 //
 // Bound on an H100: instruction issue.  ⊕ is one FMNMX, which issues on the
 // 64-wide ALU pipe (64 a clock per SM on cc 9.0, FFMA 128), and ⊗ is one
@@ -12,7 +13,7 @@
 //
 // A block of 256 threads owns one 128 x 128 ⊕-accumulator in registers:
 // thread (ty, tx) = (tid / 16, tid % 16) holds rows {ty*4 + i, 64 + ty*4 + i}
-// and columns {tx*4 + j, 64 + tx*4 + j} (i, j < 4), as tile_mma.cuh does.
+// and columns {tx*4 + j, 64 + tx*4 + j} (i, j < 4).
 // A and B stream through a 3-stage ring of 32-deep slabs in dynamic shared
 // memory, loaded with cp.async.cg 16-byte copies, so the next two slabs are
 // in flight while one is contracted; one barrier a slab.  cp.async cannot

@@ -1,11 +1,13 @@
-// (+, ×) on the tensor cores: semiring_matmul and bsr_spgemm_reduce under
-// PLUS_TIMES as three TF32 wgmma passes ("3xTF32"), for Hopper.
+// (+, ×) on the tensor cores: semiring_matmul, bsr_spgemm and
+// bsr_spgemm_reduce under PLUS_TIMES as three TF32 wgmma passes ("3xTF32"),
+// for Hopper.
 //
 // Replace the (+, ×) branch of semiring_matmul_pallas
 // (src/repro/kernels/semiring_matmul/semiring_matmul.py) and of
-// bsr_spgemm_reduce_pallas (src/repro/kernels/bsr_spgemm/bsr_spgemm.py),
-// which send (+, ×) to the TPU's matrix unit (jnp.dot when sr.mxu).  The
-// other five semirings take the CUDA-core ring (semiring_gemm_sm90.cuh).
+// bsr_spgemm_pallas and bsr_spgemm_reduce_pallas
+// (src/repro/kernels/bsr_spgemm/bsr_spgemm.py), which send (+, ×) to the
+// TPU's matrix unit (jnp.dot when sr.mxu).  The other five semirings take
+// the CUDA-core ring (semiring_gemm_sm90.cuh).
 //
 // Bound on an H100: operations.  Three TF32 products, 3 · 2MNK over 495
 // TFLOP/s (0.833 ms at 4096^3), against 2MNK over 67 TFLOP/s (2.05 ms)
@@ -19,10 +21,12 @@
 // wgmma takes .tf32 operands K-major only (the transpose bits exist for
 // 16-bit types alone).  The same pass flags every row of A and column of B
 // that holds an entry that is not finite or exceeds 2^62 in magnitude.
+// For a block-masked A (int32 [M/128, K/128]) the pass skips A's absent
+// tiles: they are never read again.
 //
 // Mainloop.  One 384-thread block owns one 128 x 128 output tile.
 // Warpgroup 2's first thread is the producer: it walks the k slabs (32
-// deep; for the masked reduce only the present 128-wide k tiles of the
+// deep; under a block mask only the present 128-wide k tiles of the
 // block-row, a skip that is uniform across the block) and TMA-loads
 // A_hi, A_lo, B_hi^T and B_lo^T (16 KB each, 128-byte swizzle: a 32-column
 // fp32 box is one 128-byte swizzle row) into a 3-stage ring with a full
@@ -40,11 +44,12 @@
 // recomputed exactly in fp32 FMA over its k (its present k tiles), in k
 // order, so ±inf, NaN and overflow follow IEEE as in the plain version:
 // an inf times a lo part of 0 would give NaN in the split product.
-// semiring_matmul stores the tile; bsr_spgemm_reduce folds it over columns
-// (axis 1: within the thread, then across the quad) or rows (axis 0:
-// within the thread, across the warp's lanes by shuffles, then across the
-// 8 warps through shared memory) and writes the partials [N/128, M] or
-// [M/128, N], one per block, as the CUDA-core kernel does.
+// The caller picks the epilogue, the mask pointer the walk: semiring_matmul
+// (no mask) and bsr_spgemm (masked) store the tile; bsr_spgemm_reduce
+// folds it over columns (axis 1: within the thread, then across the quad)
+// or rows (axis 0: within the thread, across the warp's lanes by shuffles,
+// then across the 8 warps through shared memory) and writes the partials
+// [N/128, M] or [M/128, N], one per block, as the CUDA-core kernel does.
 //
 // Accuracy (derivation in PERF.md § Findings).  With u = 2^-11, |x - hi| <= u|x|
 // and the part that lo drops, e = x - hi - lo, |e| <= u^2 |x|; the dropped
@@ -54,7 +59,9 @@
 // truncating (2^-23 of at most Σ|terms| <= (1 + 4u)|A_s|·|B_s|): 48.1 ·
 // 2^-22 |A_s|·|B_s|.  The ceil(K/32) slab sums add in round-to-nearest
 // (2^-24 each).  Element-wise:
-//   |C - A·B| <= (52 · 2^-22 + ceil(K/32) · 2^-24) · (|A|·|B|).
+//   |C - A·B| <= (52 · 2^-22 + ceil(K/32) · 2^-24) · (|A|·|B|),
+// with K = 128 x (the block-row's present k tiles) and A's absent tiles
+// zeroed under a block mask (an empty block-row gives exactly 0).
 // The result is exact wherever every input is a TF32 value (lo = 0) and
 // every partial sum fits in 24 bits: the D4M workloads' integers 1..100 and
 // the kernel checks' multiples of 1/4 in [1/4, 2].
@@ -297,10 +304,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// split A and B into the scratch, then the product.  scratch: A_hi, A_lo
-// [M, K], B_hi^T, B_lo^T [N, K]; flags: int32 [M + N], zeroed by the caller.
+// split A and B into the scratch, then the product: the tile stored
+// (reduce false) or folded along axis; mask null walks every k slab.
+// scratch: A_hi, A_lo [M, K], B_hi^T, B_lo^T [N, K]; flags: int32 [M + N],
+// zeroed by the caller.
 int run(const float* a, const int* mask, const float* b, float* scratch, int* flags, float* out,
-        int m, int n, int k, int axis, cudaStream_t stream) {
+        int m, int n, int k, bool reduce, int axis, cudaStream_t stream) {
   float* a_hi = scratch;
   float* a_lo = a_hi + (long long)m * k;
   float* b_hi = a_lo + (long long)m * k;
@@ -319,7 +328,7 @@ int run(const float* a, const int* mask, const float* b, float* scratch, int* fl
     return (int)cudaErrorInvalidValue;
   Args p{a, b, mask, flags, flags + m, out, m, n, k, axis};
   const dim3 grid(n / BN, m / BM);
-  if (mask == nullptr) {
+  if (!reduce) {
     e = cudaFuncSetAttribute(tf32x3_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
@@ -343,7 +352,19 @@ extern "C" int semiring_matmul_tf32_launch(const void* a, const void* b, void* s
   if (m <= 0 || n <= 0) return 0;
   if (m % BM || n % BN || k % BK || k <= 0) return (int)cudaErrorInvalidValue;
   return run((const float*)a, nullptr, (const float*)b, (float*)scratch, (int*)flags, (float*)c,
-             m, n, k, 1, (cudaStream_t)stream);
+             m, n, k, false, 1, (cudaStream_t)stream);
+}
+
+// As bsr_spgemm_launch under PLUS_TIMES: C [M, N] of the block-masked A
+// (mask int32 [M/128, K/128]; M, N, K multiples of 128), with the scratch
+// and flags above.  A block-row with no present tile gives 0.
+extern "C" int bsr_spgemm_tf32_launch(const void* a, const void* mask, const void* b,
+                                      void* scratch, void* flags, void* c, int m, int n, int k,
+                                      void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (m % BM || n % BN || k % KTILE || k <= 0) return (int)cudaErrorInvalidValue;
+  return run((const float*)a, (const int*)mask, (const float*)b, (float*)scratch, (int*)flags,
+             (float*)c, m, n, k, false, 1, (cudaStream_t)stream);
 }
 
 // As bsr_spgemm_reduce_launch under PLUS_TIMES (mask int32 [M/128, K/128];
@@ -356,5 +377,5 @@ extern "C" int bsr_spgemm_reduce_tf32_launch(const void* a, const void* mask, co
   if (m % BM || n % BN || k % KTILE || k <= 0 || (axis != 0 && axis != 1))
     return (int)cudaErrorInvalidValue;
   return run((const float*)a, (const int*)mask, (const float*)b, (float*)scratch, (int*)flags,
-             (float*)part, m, n, k, axis, (cudaStream_t)stream);
+             (float*)part, m, n, k, true, axis, (cudaStream_t)stream);
 }

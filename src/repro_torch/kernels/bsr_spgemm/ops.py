@@ -2,15 +2,16 @@
 
 The pair-list kernels back the ``bsr`` strategy; the block-masked dense
 kernels (``csrc/bsr_spgemm.cu``) back the ``dense`` strategy's fused
-reduce.  Both route by semiring (``route``): (+, ×) on the TF32 tensor
-cores (``csrc/bsr_pairlist_tf32_sm90.cu``, ``csrc/semiring_tf32_sm90.cu``),
-the other five on the CUDA-core ring (``csrc/bsr_pairlist.cu``,
-``csrc/bsr_spgemm.cu``).  The pair lists come from the planner
-(:func:`repro_torch.core.spgemm.plan_matmul`) and MUST arrive grouped
-(sorted) by ``pair_c`` / ``pair_o``: the wrapper turns the sorted output
-ids into run offsets, and the kernels give each run (the fused reduce:
-each chunk of at most ``REDUCE_CHUNK`` pairs of a run, :func:`reduce_chunks`)
-to one work item.  ``impl="auto"`` launches the kernel on CUDA tensors and
+reduce (``bsr_spgemm`` itself has no caller, as in the JAX package).  All
+four route by semiring (``semiring_matmul.ops.route``): (+, ×) on the
+TF32 tensor cores (``csrc/bsr_pairlist_tf32_sm90.cu``,
+``csrc/semiring_tf32_sm90.cu``), the other five on the CUDA-core ring
+(``csrc/bsr_pairlist.cu``, ``csrc/bsr_spgemm.cu``).  The pair lists
+come from the planner (:func:`repro_torch.core.spgemm.plan_matmul`) and
+MUST arrive grouped (sorted) by ``pair_c`` / ``pair_o``: the wrapper
+turns the sorted output ids into run offsets, and the kernels give each
+run (the fused reduce: each chunk of at most ``REDUCE_CHUNK`` pairs of a
+run, :func:`reduce_chunks`) to one work item.  ``impl="auto"`` launches the kernel on CUDA tensors and
 the plain version on CPU tensors.
 """
 from __future__ import annotations
@@ -218,13 +219,24 @@ def _check_masked(a, block_mask, b):
 
 
 def bsr_spgemm_cuda(a, block_mask, b, *, sr: Semiring) -> torch.Tensor:
-    """The kernel: dense C [M, N] of the block-masked product (all six
-    semirings on ``tile_mma.cuh``'s CUDA-core mainloop)."""
+    """The kernel: dense C [M, N] of the block-masked product; (+, ×) on
+    the TF32 route (its store epilogue, walking each block-row's present k
+    tiles), the other five on the ring."""
     sid = cuda_lib.kernel_semiring_id(sr)
     a, block_mask, b, m, k, n = _check_masked(a, block_mask, b)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:          # no grid to launch: nothing to count
+        return torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if sid == 0:                  # (+, ×): the TF32 route
+        if k == 0:                # the empty sum, with no product to run
+            return torch.zeros((m, n), dtype=torch.float32, device=a.device)
+        c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        scratch, flags = tf32_scratch(m, n, k, a.device)
+        cuda_lib.launch("bsr_spgemm_tf32", a.data_ptr(), block_mask.data_ptr(),
+                        b.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+                        c.data_ptr(), m, n, k, cuda_lib.stream_ptr(a),
+                        counts=("bsr_spgemm", "bsr_spgemm_tf32"))
         return c
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     cuda_lib.launch("bsr_spgemm", sid, a.data_ptr(), block_mask.data_ptr(),
                     b.data_ptr(), c.data_ptr(), m, n, k, cuda_lib.stream_ptr(a))
     return c

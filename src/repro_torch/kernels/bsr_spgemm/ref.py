@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.semiring import get_semiring
+from repro_torch.kernels.semiring_matmul.ref import (TF32X3_C1, TF32X3_SLAB,
+                                                     nonfinite_operands)
 
 # tile pairs contracted per chunk: the (+,×) bmm gathers chunk·(bm·bk +
 # bk·bn + bm·bn) floats, the broadcast path adds a [chunk, bm, 32, bn] slab
@@ -38,6 +40,46 @@ def bsr_spgemm_ref(a, block_mask, b, *, semiring="plus_times",
     a_masked = torch.where(mask_full, a.to(torch.float32),
                            torch.tensor(sr.zero, device=a.device))
     return sr.matmul_dense(a_masked, b.to(torch.float32))
+
+
+def bsr_spgemm_tf32x3_error_bound(a, block_mask, b, *, bm: int = 128,
+                                  bk: int = 128) -> torch.Tensor:
+    """Element-wise bound on |C − A·B| (A's absent tiles zeroed) for the
+    TF32 route of ``bsr_spgemm`` (``csrc/semiring_tf32_sm90.cu``): the
+    dense route's bound (``semiring_matmul.ref.tf32x3_error_bound``) with
+    K = bk × (the block-row's present k tiles), as the kernel walks only
+    those slabs, ``(52·2^-22 + ceil(K/32)·2^-24)·(|A|·|B|)``, in fp64.  An
+    empty block-row's bound is 0: its output is exactly 0."""
+    keep = block_mask != 0
+    full = torch.repeat_interleave(torch.repeat_interleave(keep, bm, dim=0),
+                                   bk, dim=1)
+    mag = torch.where(full, a.double().abs(), 0.0) @ b.double().abs()
+    slabs = keep.sum(dim=1).double() * -(-bk // TF32X3_SLAB)
+    scale = TF32X3_C1 * 2.0 ** -22 + slabs * 2.0 ** -24
+    return torch.repeat_interleave(scale, bm)[:, None] * mag
+
+
+def masked_nonfinite_operands(m: int, k: int, n: int, gen: torch.Generator,
+                              device) -> tuple:
+    """(a, block_mask, b) for the TF32 route's exact path under a block
+    mask: ``nonfinite_operands`` (±inf, NaN-making and near-FLT_MAX entries
+    in A's block-row 0 and in k tile 0 of B), a seeded mask keeping about
+    half of A's tiles, and more entries in block-row 1: +inf, NaN and 2^100
+    in an absent tile (the kernels skip it, the plain version zeroes it),
+    NaN, +inf and 2^63 (above the split's 2^62) in a present one, each
+    row's term of B's near-FLT_MAX entry kept finite as
+    ``nonfinite_operands`` keeps it.  k tile 0 is present in every
+    block-row, so no absent tile meets B's non-finite rows: there the
+    plain version's 0·inf gives NaN, while the kernels skip the tile, as
+    the Pallas kernel does.  m >= 256, k >= 384, both multiples of 128."""
+    a, b = nonfinite_operands(m, k, n, gen, "cpu")
+    mask = (torch.rand((m // 128, k // 128), generator=gen) < 0.5).int()
+    mask[:, 0], mask[1, 1], mask[1, 2] = 1, 0, 1
+    inf, nan = float("inf"), float("nan")
+    a[133, 137], a[134, 138], a[135, 139] = inf, nan, 2.0 ** 100    # absent
+    a[148, 259], a[149, 260], a[150, 261] = nan, inf, 2.0 ** 63     # present
+    a[148:151, 70] = 0.25
+    return a.to(device), mask.to(device), b.to(device)
 
 
 def bsr_spgemm_reduce_ref(a, block_mask, b, *, axis: int,

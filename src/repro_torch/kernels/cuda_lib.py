@@ -39,8 +39,8 @@ SOURCES = ("range_mask.cu", "semiring_matmul.cu", "bsr_pairlist.cu",
            "bsr_spgemm.cu", "rank_count.cu", "segment_scan.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
            "semiring_tf32_sm90.cu", "bsr_pairlist_tf32_sm90.cu")
-HEADERS = ("semiring.cuh", "tile_mma.cuh", "semiring_gemm_sm90.cuh",
-           "tf32_sm90.cuh", "pairlist_items.cuh")
+HEADERS = ("semiring.cuh", "semiring_gemm_sm90.cuh", "tf32_sm90.cuh",
+           "pairlist_items.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -78,7 +78,8 @@ LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
                             "bsr_pairlist": 0, "bsr_pairlist_tf32": 0,
                             "bsr_pairlist_reduce": 0,
                             "bsr_pairlist_reduce_tf32": 0,
-                            "bsr_spgemm": 0, "bsr_spgemm_reduce": 0,
+                            "bsr_spgemm": 0, "bsr_spgemm_tf32": 0,
+                            "bsr_spgemm_reduce": 0,
                             "bsr_spgemm_reduce_tf32": 0,
                             "rank_count": 0, "segment_scan": 0,
                             "flash_attention": 0, "flash_attention_wgmma": 0}
@@ -96,6 +97,7 @@ _SIGNATURES = {
     "bsr_pairlist_reduce_tf32_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                         _I, _I, _I, _I, _P),
     "bsr_spgemm_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "bsr_spgemm_tf32_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsr_spgemm_reduce_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bsr_spgemm_reduce_tf32_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _P),

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sorted_ops import INT_SENTINEL
 from repro_torch.kernels import cuda_lib
 from .ref import range_mask_ref
 
@@ -24,6 +25,16 @@ def _bounds(bounds):
     if len(b) != 4:
         raise ValueError(f"bounds must hold 4 entries, got {len(b)}")
     return b
+
+
+def range_mask_bytes(rows: torch.Tensor, bounds) -> int:
+    """The least bytes the function moves, the kernel's bound: rows read
+    and keep written (4 bytes an entry each), and cols read only where the
+    row lies in ``[row_lo, row_hi)`` (elsewhere the row alone decides):
+    ``8N + 4·|rows inside|``, counted on the rows' device."""
+    rlo, rhi, _, _ = _bounds(bounds)
+    inside = (rows != int(INT_SENTINEL)) & (rows >= rlo) & (rows < rhi)
+    return 8 * rows.shape[0] + 4 * int(inside.sum())
 
 
 def range_mask_cuda(rows: torch.Tensor, cols: torch.Tensor,

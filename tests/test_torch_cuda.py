@@ -20,7 +20,8 @@ from repro_torch.core import REGISTRY, spgemm
 from repro_torch.kernels import LAUNCHES, reset_launch_counts
 from repro_torch.kernels.bsr_spgemm import ops as bsr_ops
 from repro_torch.kernels.bsr_spgemm import ref as bsr_ref
-from repro_torch.kernels.range_extract.ops import range_mask_cuda
+from repro_torch.kernels.range_extract.ops import (range_mask_bytes,
+                                                   range_mask_cuda)
 from repro_torch.kernels.range_extract.ref import range_mask_ref
 from repro_torch.kernels.semiring_matmul.ops import semiring_matmul
 from repro_torch.kernels.semiring_matmul.ref import (nonfinite_operands,
@@ -66,6 +67,69 @@ def test_range_mask_kernel(card, n):
         for b in [(0, 500, 0, 500), (10, 300, 50, 60), (7, 7, 0, 500)]:
             assert torch.equal(range_mask_cuda(r, c, b),
                                range_mask_ref(r, c, b))
+
+
+SENT = 2 ** 31 - 1
+
+
+def _sorted_coo(gen, n, n_rows=4000, n_cols=900, n_sent=0):
+    """A canonical COO's (rows, cols): rows sorted, a sentinel tail."""
+    rows = torch.sort(torch.randint(0, n_rows, (n,), generator=gen,
+                                    dtype=torch.int32)).values
+    cols = torch.randint(0, n_cols, (n,), generator=gen, dtype=torch.int32)
+    if n_sent:
+        rows[n - n_sent:] = SENT
+    return rows, cols
+
+
+def _one_warp_row(rows):
+    """A row value of sorted rows whose run starts after and ends before a
+    128-entry boundary (inside one warp's entries)."""
+    v = torch.unique(rows[rows != SENT])
+    start = torch.searchsorted(rows, v)
+    end = torch.searchsorted(rows, v, right=True)
+    ok = (end > start) & (start % 128 > 0) & (start // 128 == end // 128)
+    return int(v[ok][0])
+
+
+@pytest.mark.parametrize("case", ["run inside one warp", "run across warps",
+                                  "no row inside", "every row inside",
+                                  "sentinel tail", "unsorted",
+                                  "n % 4 tails", "unaligned views"])
+def test_range_mask_kernel_row_gated(card, case):
+    """The row-gated kernel: cols are read only where an int4's rows meet
+    the box, yet every entry equals the plain version, the box's run of a
+    sorted COO starting and ending inside one warp's 128 entries or
+    spanning many, no row or every row inside, sentinels, unsorted rows,
+    tails of 1-3 entries and views that are not 16-byte aligned."""
+    gen = torch.Generator().manual_seed(40)
+    rows, cols = _sorted_coo(gen, 300000, n_sent=1000 if case ==
+                             "sentinel tail" else 0)
+    w = _one_warp_row(rows)
+    boxes = {"run inside one warp": [(rows, cols, (w, w + 1, 0, 900)),
+                                     (rows, cols, (w, w + 1, 300, 600))],
+             "run across warps": [(rows, cols, (1000, 3000, 100, 800))],
+             "no row inside": [(rows, cols, (4000, 5000, 0, 900)),
+                               (rows, cols, (7, 7, 0, 900))],
+             "every row inside": [(rows, cols, (0, 4000, 0, 900)),
+                                  (rows, cols, (0, 4000, 450, 451))],
+             "sentinel tail": [(rows, cols, (0, SENT, 0, 900)),
+                               (rows, cols, (3990, SENT, 0, 900))],
+             "unsorted": [(rows[p], cols[p], (1000, 3000, 0, 900))
+                          for p in [torch.randperm(300000, generator=gen)]],
+             "n % 4 tails": [(rows[:m], cols[:m], (int(rows[m // 2]), 4000,
+                                                   0, 900))
+                             for m in (1, 2, 3, 5, 6, 7, 299999)],
+             "unaligned views": [(rows[o:], cols[o:], (500, 2500, 0, 900))
+                                 for o in (1, 2, 3)]}[case]
+    for r, c, b in boxes:
+        r, c = r.to(card), c.to(card)
+        reset_launch_counts()
+        got = range_mask_cuda(r, c, b)
+        assert LAUNCHES["range_mask"] == 1
+        assert torch.equal(got, range_mask_ref(r, c, b)), (case, b)
+    if case == "every row inside":
+        assert range_mask_bytes(r, b) == 12 * r.shape[0]
 
 
 # (M, K, N): the ring's and the TF32 route's edges — one 32-deep slab, one
@@ -310,10 +374,18 @@ def test_off_registry_semiring_raises_on_the_card(card):
                                     semiring=odd)
     with pytest.raises(ValueError, match="max_plus, min_plus"):
         semiring_matmul(t[0], t[0], semiring=odd, impl="cuda")
+    one = torch.ones((1, 1), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="max_plus, min_plus"):
+        bsr_ops.bsr_spgemm(t[0], one, t[0], semiring=odd)
+    with pytest.raises(ValueError, match="max_plus, min_plus"):
+        bsr_ops.bsr_spgemm_reduce(t[0], one, t[0], axis=1, semiring=odd)
     assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
     dot = dataclasses.replace(REGISTRY["plus_times"], name="dot")
     got = bsr_ops.bsr_pairlist(t, t, i, i, i, n_c=1, semiring=dot)
     assert LAUNCHES["bsr_pairlist_tf32"] == 1
+    assert bool((got == 128).all())
+    got = bsr_ops.bsr_spgemm(t[0], one, t[0], semiring=dot)
+    assert LAUNCHES["bsr_spgemm_tf32"] == 1
     assert bool((got == 128).all())
 
 
@@ -327,11 +399,75 @@ def _masked(gen, card, sr, m=256, k=384, n=256):
     return a, mask.to(card), b
 
 
+def _spgemm_counts():
+    return {k: LAUNCHES[k] for k in ("bsr_spgemm", "bsr_spgemm_tf32",
+                                     "bsr_spgemm_reduce",
+                                     "bsr_spgemm_reduce_tf32")}
+
+
 @pytest.mark.parametrize("sr", SEMIRINGS)
 def test_bsr_spgemm_kernel(card, sr):
+    """Exact under every semiring with an empty block-row; (+, ×) on the
+    TF32 route (one bsr_spgemm_tf32 launch), the other five on the ring
+    (none)."""
     a, mask, b = _masked(torch.Generator().manual_seed(4), card, sr)
+    reset_launch_counts()
     got = bsr_ops.bsr_spgemm(a, mask, b, semiring=sr)
+    assert _spgemm_counts() == {"bsr_spgemm": 1,
+                                "bsr_spgemm_tf32": int(sr == "plus_times"),
+                                "bsr_spgemm_reduce": 0,
+                                "bsr_spgemm_reduce_tf32": 0}
     assert torch.equal(got, bsr_ref.bsr_spgemm_ref(a, mask, b, semiring=sr))
+
+
+@pytest.mark.parametrize("shape", [(384, 4096, 256), (256, 384, 384)])
+def test_bsr_spgemm_tf32_within_bound(card, shape):
+    """Normal values under a mask with an empty block-row: within the
+    stated bound with K = 128 x the block-row's present k tiles (the empty
+    block-row exactly 0), and a relative L2 error below 2^-16."""
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(17)
+    a, b = _normal(gen, (m, k), card), _normal(gen, (k, n), card)
+    mask = (torch.rand((m // 128, k // 128), generator=gen) < 0.5).int()
+    mask[0, 0], mask[1] = 1, 0
+    mask = mask.to(card)
+    got = bsr_ops.bsr_spgemm(a, mask, b).double()
+    full = torch.repeat_interleave(torch.repeat_interleave(mask, 128, 0),
+                                   128, 1) != 0
+    want = torch.where(full, a, 0.0).double() @ b.double()
+    bound = bsr_ref.bsr_spgemm_tf32x3_error_bound(a, mask, b)
+    assert bool(((got - want).abs() <= bound).all())
+    assert not bool(got[128:256].any())
+    assert float((got - want).norm() / want.norm()) < 2 ** -16
+
+
+def test_bsr_spgemm_tf32_nonfinite(card):
+    """±inf, NaN and entries above 2^62 in present and in absent tiles of
+    A: the exact path over the present tiles gives the plain version's
+    values (bsr_ref.masked_nonfinite_operands)."""
+    a, mask, b = bsr_ref.masked_nonfinite_operands(
+        256, 512, 256, torch.Generator().manual_seed(18), card)
+    want = bsr_ref.bsr_spgemm_ref(a, mask, b)
+    assert bool(torch.isinf(want).any()) and bool(torch.isnan(want).any())
+    reset_launch_counts()
+    got = bsr_ops.bsr_spgemm(a, mask, b)
+    assert LAUNCHES["bsr_spgemm_tf32"] == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_bsr_spgemm_k0_is_the_empty_sum(card):
+    """K = 0: (+, ×) gives zeros with no launch (the TF32 route has no
+    product to run); a ring semiring launches and gives its zero."""
+    a = torch.zeros((256, 0), device=card)
+    b = torch.zeros((0, 128), device=card)
+    mask = torch.zeros((2, 0), dtype=torch.int32, device=card)
+    reset_launch_counts()
+    got = bsr_ops.bsr_spgemm(a, mask, b)
+    assert got.shape == (256, 128) and not bool(got.any())
+    assert LAUNCHES["bsr_spgemm"] == 0
+    got = bsr_ops.bsr_spgemm(a, mask, b, semiring="min_plus")
+    assert bool((got == float("inf")).all())
+    assert _spgemm_counts()["bsr_spgemm"] == 1
 
 
 def _masked_case(gen, card, sr, case):

@@ -69,6 +69,29 @@ def test_range_mask_ref_matches(n):
                     want)
 
 
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "sentinel-padded"])
+def test_range_mask_gated_bytes(case):
+    """The kernel's bound counts rows and keep for every entry and cols
+    only where the row lies in the box: 8N + 4·(rows inside), whatever the
+    order; sentinels are never inside (not even a box up to 2^31 - 1)."""
+    rng = np.random.default_rng(7)
+    n = 5003
+    rows = np.sort(rng.integers(0, 900, n)).astype(np.int32)
+    if case == "unsorted":
+        rows = rng.permutation(rows)
+    if case == "sentinel-padded":
+        rows[n - 700:] = SENT
+    t_rows = torch.from_numpy(rows)
+    for b in [(100, 300, 0, 5), (0, 900, 0, 900), (400, SENT, 7, 8),
+              (5, 5, 0, 900)]:
+        inside = int(((rows >= b[0]) & (rows < b[1]) & (rows != SENT)).sum())
+        want = 8 * n + 4 * inside
+        assert t_rm.range_mask_bytes(t_rows, b) == want
+        assert t_rm.range_mask_bytes(t_rows, torch.tensor(b)) == want
+    assert t_rm.range_mask_bytes(t_rows, (0, 900, 0, 1)) == (
+        12 * n if case != "sentinel-padded" else 12 * n - 4 * 700)
+
+
 # -- semiring_matmul ---------------------------------------------------------------
 
 @pytest.mark.parametrize("sr", SEMIRINGS)
@@ -184,7 +207,12 @@ def test_bsr_spgemm_ref_matches(sr):
     assert_same(got, j_bsr_ref.bsr_spgemm_ref(*j_args, semiring=sr), sr)
     assert_same(got, j_bsr.bsr_spgemm(*j_args, semiring=sr,
                                       impl="interpret"), sr)
-    assert_same(t_bsr.bsr_spgemm(*t_args, semiring=sr), got, sr)
+    # impl="auto" on CPU tensors: the plain version under every semiring
+    # (the card's routes, TF32 for (+, ×) and the ring for the rest, are
+    # never asked for), with no launch counted
+    before = dict(LAUNCHES)
+    assert_same(t_bsr.bsr_spgemm(*t_args, semiring=sr, impl="auto"), got, sr)
+    assert dict(LAUNCHES) == before
     # the empty block-row is the semiring zero
     assert bool((got[128:] == REGISTRY[sr].zero).all())
 

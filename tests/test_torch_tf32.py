@@ -4,8 +4,10 @@ operations, the kernel's pass order, each 32-deep slab summed afresh with
 every addition truncated to fp32 as the tensor cores may do, the slab sums
 added in fp32 round-to-nearest, the exact path for flagged rows and
 columns), held against fp64 and the plain version; the same model over a
-run of tile pairs, as ``csrc/bsr_pairlist_tf32_sm90.cu`` splits each pair's
-tiles in the kernel; and the wrappers' choice of route.
+block-masked A, as the kernel walks each block-row's present k tiles for
+``bsr_spgemm``; over a run of tile pairs, as
+``csrc/bsr_pairlist_tf32_sm90.cu`` splits each pair's tiles in the kernel;
+and the wrappers' choice of route.
 
 The kernels themselves run on the card only (``tests/test_torch_cuda.py``).
 """
@@ -18,6 +20,9 @@ import torch
 from repro_torch.core import REGISTRY
 from repro_torch.kernels import LAUNCHES, cuda_lib
 from repro_torch.kernels.bsr_spgemm import ops as t_bsr
+from repro_torch.kernels.bsr_spgemm.ref import (bsr_spgemm_ref,
+                                                bsr_spgemm_tf32x3_error_bound,
+                                                masked_nonfinite_operands)
 from repro_torch.kernels.semiring_matmul import ops as t_sm
 from repro_torch.kernels.semiring_matmul.ref import (nonfinite_operands,
                                                      semiring_matmul_ref,
@@ -55,13 +60,14 @@ def add_truncated(acc: np.ndarray, t: np.ndarray) -> np.ndarray:
 
 
 def model(a: np.ndarray, b: np.ndarray, passes: int = 3,
-          exact_path: bool = True, slab: int = 32) -> np.ndarray:
+          exact_path: bool = True, slab: int = 32,
+          col_flags=None) -> np.ndarray:
     """The kernel's product: per k8 step A_lo·B_hi, A_hi·B_lo, then
     A_hi·B_hi (``passes=1``: A_hi·B_hi alone), each tf32 x tf32 product
     exact, each addition into the slab's sum truncated; the slab sums
     (``slab`` deep; ``slab=K``: one long sum) added rounded to nearest;
-    then outputs on a flagged row of A or column of B recomputed in fp32
-    FMA in k order."""
+    then outputs on a flagged row of A or column of B (``col_flags``: the
+    columns flagged elsewhere) recomputed in fp32 FMA in k order."""
     a = np.asarray(a, np.float32)
     b = np.asarray(b, np.float32)
     (ah, al), (bh, bl) = split(a), split(b)
@@ -80,7 +86,8 @@ def model(a: np.ndarray, b: np.ndarray, passes: int = 3,
             acc = (acc + d).astype(np.float32)
         if exact_path:
             rows = ~(np.abs(a) <= HUGE_ABS).all(axis=1)
-            cols = ~(np.abs(b) <= HUGE_ABS).all(axis=0)
+            cols = (~(np.abs(b) <= HUGE_ABS).all(axis=0) if col_flags is None
+                    else col_flags)
             for i, j in zip(*np.nonzero(rows[:, None] | cols[None, :])):
                 s = np.float32(0)
                 for k in range(a.shape[1]):   # fmaf: one rounding
@@ -209,11 +216,68 @@ def test_route_follows_the_semiring_and_never_falls_back():
         with pytest.raises(ValueError, match="CUDA tensors"):
             t_bsr.bsr_spgemm_reduce(d, mask, d, axis=1, semiring=s,
                                     impl="cuda")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            t_bsr.bsr_spgemm(d, mask, d, semiring=s, impl="cuda")
     assert dict(LAUNCHES) == before
     # the route's scratch: split operands and zeroed flags
     scratch, flags = t_sm.tf32_scratch(256, 128, 64, "cpu")
     assert scratch.shape == (2 * (256 + 128) * 64,)
     assert flags.shape == (384,) and not flags.any()
+
+
+# -- bsr_spgemm: a block-masked A ------------------------------------------------
+
+def masked_model(a, mask, b, bm=128):
+    """The store kernel under a block mask: each block-row (``bm`` rows)
+    against only its present 128-wide k tiles (the split pass skips the
+    absent ones), so the dense model with K = 128 x present tiles; B's
+    columns flagged over all of B, as the split pass flags them; a
+    block-row with no present tile stays 0."""
+    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    col_flags = ~(np.abs(b) <= HUGE_ABS).all(axis=0)
+    for i, row in enumerate(mask):
+        ks = np.concatenate([np.arange(128 * t, 128 * t + 128)
+                             for t in np.nonzero(row)[0]] + [[]]).astype(int)
+        if len(ks):
+            out[i * bm:(i + 1) * bm] = model(a[i * bm:(i + 1) * bm][:, ks],
+                                             b[ks], col_flags=col_flags)
+    return out
+
+
+def test_masked_model_within_bound_with_present_k():
+    """Normal values: within the dense bound with K = 128 x the
+    block-row's present k tiles (``bsr_spgemm_tf32x3_error_bound``), and
+    an empty block-row exactly 0 (its bound is 0)."""
+    rng = np.random.default_rng(30)
+    bm = 4   # rows per block-row: only the k tiles shape the error
+    mask = np.array([[1, 0, 1, 1], [0, 0, 0, 0], [0, 1, 0, 0]], np.int32)
+    a = rng.standard_normal((3 * bm, 512)).astype(np.float32)
+    b = rng.standard_normal((512, 6)).astype(np.float32)
+    got = masked_model(a, mask, b, bm=bm)
+    full = np.repeat(np.repeat(mask, bm, 0), 128, 1) != 0
+    want = np.where(full, a, 0).astype(np.float64) @ b
+    tol = bsr_spgemm_tf32x3_error_bound(torch.from_numpy(a),
+                                        torch.from_numpy(mask),
+                                        torch.from_numpy(b), bm=bm).numpy()
+    assert (np.abs(got - want) <= tol).all()
+    assert not got[bm:2 * bm].any() and not tol[bm:2 * bm].any()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 2 ** -16
+    # K = 128 x present: block-row 2's one tile is 4 slabs, not 16
+    mag = np.abs(np.where(full, a, 0)).astype(np.float64) @ np.abs(b)
+    assert np.allclose(tol[2 * bm:] / mag[2 * bm:],
+                       52 * 2.0 ** -22 + 4 * 2.0 ** -24)
+
+
+def test_masked_model_nonfinite_follows_the_plain_version():
+    """±inf, NaN and entries above 2^62 in present and in absent tiles
+    (``masked_nonfinite_operands``): the exact path over the present k
+    tiles gives the plain version's values, NaN where it has NaN."""
+    ta, tm, tb = masked_nonfinite_operands(
+        256, 384, 90, torch.Generator().manual_seed(31), "cpu")
+    want = bsr_spgemm_ref(ta, tm, tb).numpy()
+    assert np.isinf(want).any() and np.isnan(want).any()
+    got = masked_model(ta.numpy(), tm.numpy(), tb.numpy())
+    np.testing.assert_array_equal(got, want)   # NaN == NaN here
 
 
 # -- the pair-list kernels: a run of tile pairs ----------------------------------

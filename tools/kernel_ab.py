@@ -5,11 +5,17 @@
     git show <commit>:src/repro_torch/csrc/rank_count.cu > build/rank_count_old.cu
     python3 tools/kernel_ab.py rank_count build/rank_count_old.cu
 
-    # bsr_pairlist and bsr_pairlist_reduce: another bsr_pairlist.cu, with the
-    # headers it includes in its directory
-    mkdir -p build/old && for f in bsr_pairlist.cu tile_mma.cuh semiring.cuh; do
-        git show <commit>:src/repro_torch/csrc/$f > build/old/$f; done
+    # bsr_pairlist and bsr_pairlist_reduce, or bsr_spgemm: another source,
+    # with the headers it includes in its directory (here: all of a
+    # commit's csrc/)
+    mkdir -p build/old && git archive <commit> src/repro_torch/csrc \
+        | tar -x -C build/old --strip-components=3
+    python3 tools/kernel_ab.py bsr_spgemm build/old/bsr_spgemm.cu
     python3 tools/kernel_ab.py bsr_pairlist build/old/bsr_pairlist.cu
+
+    # range_mask: another range_mask.cu
+    git show <commit>:src/repro_torch/csrc/range_mask.cu > build/range_mask_old.cu
+    python3 tools/kernel_ab.py range_mask build/range_mask_old.cu
 
 The other source is built with ``nvcc`` and the port's flags into
 ``build/kernel_ab/`` and called through a copy of the port's host work
@@ -21,7 +27,10 @@ before its redesign:
 * ``bsr_pairlist_launch(sr, a_tiles, b_tiles, pair_a, pair_b, runs,
   c_tiles, n_c, stream)`` and ``bsr_pairlist_reduce_launch(sr, a_tiles,
   b_tiles, pair_a, pair_b, runs, out, n_o, axis, stream)`` for the six
-  semirings (``cuda_lib.SEMIRING_IDS``), one block per output.
+  semirings (``cuda_lib.SEMIRING_IDS``), one block per output;
+* ``bsr_spgemm_launch(sr, a, mask, b, c, m, n, k, stream)`` for the six
+  semirings, writing every entry of C;
+* ``range_mask_launch(rows, cols, keep, n, rlo, rhi, clo, chi, stream)``.
 
 ``rank_count`` runs on the ingest path's inputs
 (``chip_smoke.rank_count_inputs``: the base's and the delta's keys at
@@ -36,6 +45,21 @@ clustered n=18 (``chip_smoke.pairlist_inputs``: ``A @ B`` and the
 semirings: both sources must equal the plain version exactly, and are
 timed at their launch (no input check with its host read-back inside the
 timed call) by ``cuda_ms`` in turns (old, new, new, old).
+
+``bsr_spgemm`` runs on chip_smoke's masked inputs at 4096^3 (the seeded
+mask keeping about 1/4 of A's tiles, and the all-present mask of uniform
+n=12; quarter values), under each of the six semirings: both sources must
+equal the plain version exactly and are timed by ``cuda_ms`` in turns
+(old, new, new, old).  Under ``plus_times`` the port's route is TF32.
+
+``range_mask`` runs on the main path's selection (clustered n=18, the
+row box of ``main_path.row_range``, every column): both sources must
+equal the plain version on it, on its entries in a random order and on a
+box with no row and one with every row inside.  Each is timed on the
+sorted and the unsorted entries, and on the first 4096 (the cost of a
+call beyond its bytes), in turns (old, new, new, old) by
+``cuda_ms`` (L2 left dirty by the eviction write) and by
+``cuda_ms_clean_l2`` (L2 evicted by a read).
 
 The last lines are the card's name and power limit and one JSON object of
 the times.
@@ -60,6 +84,9 @@ ENTRIES = {
     "bsr_pairlist": {
         "bsr_pairlist_launch": [_I] + [_P] * 6 + [_I, _P],
         "bsr_pairlist_reduce_launch": [_I] + [_P] * 6 + [_I, _I, _P]},
+    "bsr_spgemm": {"bsr_spgemm_launch": [_I] + [_P] * 4 + [_I] * 3 + [_P]},
+    "range_mask": {"range_mask_launch": [_P] * 3 + [ctypes.c_longlong]
+                   + [_I] * 4 + [_P]},
 }
 
 
@@ -225,6 +252,125 @@ def bsr_pairlist_ab(old, dev) -> dict:
     return times
 
 
+def bsr_spgemm_ab(old, dev) -> dict:
+    import torch
+
+    from repro_torch import main_path
+    from repro_torch.core import REGISTRY
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.bsr_spgemm import ops as bsr_ops
+    from repro_torch.kernels.bsr_spgemm import ref as bsr_ref
+    gen = torch.Generator().manual_seed(0)
+    uni = main_path.build_uniform(chip_smoke.N_UNIFORM, dev)
+    dn_ops, uni_mask, _ = chip_smoke.dense_inputs(uni["A"], uni["B"], gen)
+    mk_ops, mk_mask = chip_smoke.masked_inputs(gen, dev)
+    del uni
+
+    def old_call(a, mask, b, sr):
+        # the port wrapper's checks and allocation, then the other source
+        a, mask, b, m, k, n = bsr_ops._check_masked(a, mask, b)
+        c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        err = old.bsr_spgemm_launch(
+            cuda_lib.SEMIRING_IDS[sr.name], a.data_ptr(), mask.data_ptr(),
+            b.data_ptr(), c.data_ptr(), m, n, k, cuda_lib.stream_ptr(a))
+        if err != 0:
+            raise RuntimeError(f"the old bsr_spgemm failed: CUDA error {err}")
+        return c
+
+    times = {}
+    for name in chip_smoke.SEMIRINGS:
+        sr = REGISTRY[name]
+        for label, make, mask in (("1/4 mask", mk_ops, mk_mask),
+                                  ("n=12 mask", dn_ops, uni_mask)):
+            x, y = make(sr)
+            want = bsr_ref.bsr_spgemm_ref(x, mask, y, semiring=sr)
+            calls = {"old": lambda: old_call(x, mask, y, sr),
+                     "new": lambda: bsr_ops.bsr_spgemm_cuda(x, mask, y, sr=sr)}
+            for src, fn in calls.items():
+                err = chip_smoke.max_err(fn(), want)
+                if err != 0.0:
+                    raise SystemExit(f"kernel_ab: the {src} bsr_spgemm under "
+                                     f"{name}, {label}, differs from the "
+                                     f"plain version by {err}")
+            t = turns(calls, ("old", "new", "new", "old"), chip_smoke.cuda_ms,
+                      3)
+            t["new / old"] = t["new"] / t["old"]
+            times.setdefault(name, {})[label] = t
+            print(f"[time] bsr_spgemm {name} {label}: old {t['old']:.4f} ms, "
+                  f"new {t['new']:.4f} ms, new / old {t['new / old']:.3f} "
+                  f"(turns {json.dumps(t['turns'])})", flush=True)
+            del x, y, want
+    print(f"[shape] bsr_spgemm {128 * mk_mask.shape[0]}^3, "
+          f"{int(mk_mask.sum())} and {int(uni_mask.sum())} of "
+          f"{mk_mask.numel()} A tiles present; every result exact")
+    return times
+
+
+def range_mask_ab(old, dev) -> dict:
+    import torch
+
+    from repro_torch import main_path
+    from repro_torch.core.select import compile_selector
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.range_extract import ops as rm_ops
+    from repro_torch.kernels.range_extract.ref import range_mask_ref
+    a = main_path.build_clustered(18, dev)["A"]
+    rc = compile_selector(main_path.row_range(a), a.row_space)
+    n_rows, n_cols = len(a.row_space), len(a.col_space)
+    bounds = (rc.lo, rc.hi, 0, n_cols)
+    perm = torch.randperm(a.capacity,
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+    # the first 4096 entries: what a call costs beyond its bytes
+    inputs = {"sorted": (a.rows, a.cols),
+              "unsorted": (a.rows[perm], a.cols[perm]),
+              "first 4096": (a.rows[:4096], a.cols[:4096])}
+    del perm
+
+    def old_call(rows, cols, b):
+        keep = torch.empty_like(rows)
+        err = old.range_mask_launch(rows.data_ptr(), cols.data_ptr(),
+                                    keep.data_ptr(), rows.shape[0], *b,
+                                    cuda_lib.stream_ptr(rows))
+        if err != 0:
+            raise RuntimeError(f"the old range_mask failed: CUDA error {err}")
+        return keep
+
+    boxes = {"main path box": bounds, "no row inside": (n_rows, n_rows + 7, 0,
+                                                        n_cols),
+             "every row inside": (0, n_rows, 0, n_cols)}
+    for label, (rows, cols) in inputs.items():
+        for box, b in boxes.items():
+            want = range_mask_ref(rows, cols, b)
+            for src, got in (("old", old_call(rows, cols, b)),
+                             ("new", rm_ops.range_mask_cuda(rows, cols, b))):
+                if not torch.equal(got, want):
+                    raise SystemExit(f"kernel_ab: the {src} range_mask "
+                                     f"differs from the plain version "
+                                     f"({label}, {box})")
+    times = {}
+    for label, (rows, cols) in inputs.items():
+        calls = {"old": lambda: old_call(rows, cols, bounds),
+                 "new": lambda: rm_ops.range_mask_cuda(rows, cols, bounds)}
+        for clock, fn in (("cuda_ms", chip_smoke.cuda_ms),
+                          ("cuda_ms_clean_l2", chip_smoke.cuda_ms_clean_l2)):
+            t = turns(calls, ("old", "new", "new", "old"), fn, 50)
+            t["new / old"] = t["new"] / t["old"]
+            times.setdefault(label, {})[clock] = t
+            print(f"[time] range_mask {label} {clock}: old {t['old']:.4f} ms, "
+                  f"new {t['new']:.4f} ms, new / old {t['new / old']:.3f} "
+                  f"(turns {json.dumps(t['turns'])})", flush=True)
+    times["bytes"] = {"gated": rm_ops.range_mask_bytes(a.rows, bounds),
+                      "all": 12 * a.capacity}
+    print(f"[shape] range_mask N={a.capacity}, rows [{rc.lo}, {rc.hi}) of "
+          f"{n_rows}, every column; {json.dumps(times['bytes'])} bytes; every "
+          "result exact")
+    return times
+
+
+AB = {"rank_count": rank_count_ab, "bsr_pairlist": bsr_pairlist_ab,
+      "bsr_spgemm": bsr_spgemm_ab, "range_mask": range_mask_ab}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=sorted(ENTRIES))
@@ -240,8 +386,7 @@ def main() -> int:
     old = build_old(args.kernel, args.source)
     cuda_lib.load()
     dev = torch.device(chip_smoke.DEVICE)
-    ab = rank_count_ab if args.kernel == "rank_count" else bsr_pairlist_ab
-    times = ab(old, dev)
+    times = AB[args.kernel](old, dev)
     print(chip_smoke.nvidia_smi_line())
     print(json.dumps(times))
     return 0

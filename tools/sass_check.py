@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""What the compiler made of the semiring kernels: ptxas's register and
-spill report, and each kernel's instruction mix from ``cuobjdump -sass``.
+"""What the compiler made of the semiring kernels and ``range_mask``:
+ptxas's register and spill report, and each kernel's instruction mix from
+``cuobjdump -sass``.
 
     python3 tools/sass_check.py [--json chiprun_out/sass.json]
 
@@ -9,16 +10,23 @@ the port's kernels afresh into a temporary directory with ``-Xptxas -v``
 and fails (exit 1) if
 
 * a kernel of ``csrc/semiring_matmul.cu``, ``csrc/bsr_spgemm.cu``,
-  ``csrc/semiring_tf32_sm90.cu``, ``csrc/bsr_pairlist.cu`` or
-  ``csrc/bsr_pairlist_tf32_sm90.cu`` spills (spill stores or loads > 0);
+  ``csrc/semiring_tf32_sm90.cu``, ``csrc/bsr_pairlist.cu``,
+  ``csrc/bsr_pairlist_tf32_sm90.cu`` or ``csrc/range_mask.cu`` spills
+  (spill stores or loads > 0);
 * a ring kernel of a max/min semiring (``semiring_matmul_kernel``,
-  ``bsr_spgemm_reduce_kernel``, ``bsr_pairlist_kernel`` and
-  ``bsr_pairlist_reduce_kernel`` under MaxPlus, MinPlus, MaxMin, MaxTimes,
-  AndOr) compiles ⊕ to a compare and select (``FSETP``/``FSEL``) instead
-  of one ``FMNMX`` a MAC: it must hold at least 8·8·4 ``FMNMX`` (one
-  unrolled k4 step's MACs), and ``FSETP`` + ``FSEL`` under 1/8 of them;
+  ``bsr_spgemm_kernel``, ``bsr_spgemm_reduce_kernel``,
+  ``bsr_pairlist_kernel`` and ``bsr_pairlist_reduce_kernel`` under
+  MaxPlus, MinPlus, MaxMin, MaxTimes, AndOr) compiles ⊕ to a compare and
+  select (``FSETP``/``FSEL``) instead of one ``FMNMX`` a MAC: it must hold
+  at least 8·8·4 ``FMNMX`` (one unrolled k4 step's MACs), and ``FSETP`` +
+  ``FSEL`` under 1/8 of them;
 * the TF32 kernels (``tf32x3_kernel``, ``pair_tf32_kernel``) hold no
-  ``HGMMA`` ... ``.TF32`` instruction;
+  ``HGMMA`` ... ``.TF32`` instruction, or the store instance of
+  ``tf32x3_kernel`` (``semiring_matmul`` and, under a block mask,
+  ``bsr_spgemm``) holds other than 12 ``HGMMA.64x128x8.F32.TF32`` (one
+  32-deep slab: four k8 steps of three passes);
+* ``range_mask_kernel`` or the masked ring store ``bsr_spgemm_kernel``
+  uses local memory (a stack frame, ``LDL`` or ``STL``);
 * ptxas reports that it serialized a kernel's ``wgmma`` instructions.
 
 For each kernel it prints the counts of FMNMX, FADD, FMUL, FFMA,
@@ -42,16 +50,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-OPS = ("FMNMX", "FADD", "FMUL", "FFMA", "FSETP", "FSEL", "LDS", "HGMMA")
+OPS = ("FMNMX", "FADD", "FMUL", "FFMA", "FSETP", "FSEL", "LDS", "HGMMA", "LDL",
+       "STL")
 # mangled names hold the template arguments' identifiers as substrings
 SEMIRING_OF = {"MaxPlus": ("5OpMax", "6OpPlus"), "MinPlus": ("5OpMin", "6OpPlus"),
                "MaxMin": ("5OpMax", "5OpMin"), "MaxTimes": ("5OpMax", "7OpTimes"),
                "AndOr": ("5OpMax", "5OpMin"), "PlusTimes": ("6OpPlus", "7OpTimes")}
-RING_KERNELS = ("semiring_matmul_kernel", "bsr_spgemm_reduce_kernel",
-                "bsr_pairlist_kernel", "bsr_pairlist_reduce_kernel")
+RING_KERNELS = ("semiring_matmul_kernel", "bsr_spgemm_kernel",
+                "bsr_spgemm_reduce_kernel", "bsr_pairlist_kernel",
+                "bsr_pairlist_reduce_kernel")
 TF32_KERNELS = ("tf32x3_kernel", "pair_tf32_kernel")
+NO_LOCAL_KERNELS = ("range_mask_kernel", "bsr_spgemm_kernel")
+TF32_SLAB_HGMMA = "HGMMA.64x128x8.F32.TF32"
 CHECKED_SOURCES = ("semiring_matmul.cu", "bsr_spgemm.cu", "semiring_tf32_sm90.cu",
-                   "bsr_pairlist.cu", "bsr_pairlist_tf32_sm90.cu")
+                   "bsr_pairlist.cu", "bsr_pairlist_tf32_sm90.cu", "range_mask.cu")
 
 
 def cuobjdump() -> str:
@@ -63,8 +75,9 @@ def cuobjdump() -> str:
 
 
 def ptxas_report(text: str) -> dict:
-    """{source: {mangled function: {"registers", "spill_stores",
-    "spill_loads"}}} from the build's ``-Xptxas -v`` output."""
+    """{source: {mangled function: {"registers", "stack_frame",
+    "spill_stores", "spill_loads"}}} from the build's ``-Xptxas -v``
+    output."""
     out, src, fn = {}, None, None
     for line in text.splitlines():
         m = re.match(r"\[nvcc (\S+)\]", line)
@@ -77,10 +90,12 @@ def ptxas_report(text: str) -> dict:
             fn = m.group(1)
             out.setdefault(src, {}).setdefault(fn, {})
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and fn:
-            out[src][fn].update(spill_stores=int(m.group(1)),
-                                spill_loads=int(m.group(2)))
+            out[src][fn].update(stack_frame=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
             continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -102,7 +117,8 @@ def sass_counts(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = {op: 0 for op in OPS} | {"total": 0, "tf32_hgmma": 0}
+            out[fn] = {op: 0 for op in OPS} | {"total": 0, "tf32_hgmma": 0,
+                                               "slab_hgmma": 0}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\S*)", line)
         if m and fn:
@@ -113,6 +129,8 @@ def sass_counts(lib: Path) -> dict:
                 out[fn][base] += 1
             if base == "HGMMA" and "TF32" in op:
                 out[fn]["tf32_hgmma"] += 1
+            if op.startswith(TF32_SLAB_HGMMA):
+                out[fn]["slab_hgmma"] += 1
     return out
 
 
@@ -148,16 +166,23 @@ def main() -> int:
         for fn, r in ptxas.get(src, {}).items():
             if r.get("spill_stores", 0) or r.get("spill_loads", 0):
                 failures.append(f"{src} {fn} spills: {r}")
+            if (any(k in fn for k in NO_LOCAL_KERNELS)
+                    and r.get("stack_frame", 0)):
+                failures.append(f"{src} {fn} has a stack frame: {r}")
     report["ptxas"] = {s: ptxas.get(s, {}) for s in CHECKED_SOURCES}
     rows = {}
     for fn, c in sass.items():
         ring = next((k for k in RING_KERNELS if k in fn), None)
         tf32 = next((k for k in TF32_KERNELS if k in fn), None)
-        if not (ring or tf32):
+        local = next((k for k in NO_LOCAL_KERNELS if k in fn), None)
+        if not (ring or tf32 or local):
             continue
-        sr = semiring_of(fn) if ring else "PlusTimes"
-        key = f"{ring or tf32}<{sr}>" + (
-            "" if ring else ("<reduce>" if "Lb1E" in fn else "<store>"))
+        if ring or tf32:
+            sr = semiring_of(fn) if ring else "PlusTimes"
+            key = f"{ring or tf32}<{sr}>" + (
+                "" if ring else ("<reduce>" if "Lb1E" in fn else "<store>"))
+        else:
+            key = local
         alu = c["FMNMX"] + c["FADD"] + c["FMUL"] + c["FFMA"]
         c = dict(c, lds_per_alu=c["LDS"] / alu if alu else None)
         rows[key] = c
@@ -169,6 +194,12 @@ def main() -> int:
                 failures.append(f"{key}: ⊕ is not one FMNMX a MAC ({c})")
         if tf32 and c["tf32_hgmma"] == 0:
             failures.append(f"{key}: no HGMMA .TF32 instruction")
+        if key == "tf32x3_kernel<PlusTimes><store>" and c["slab_hgmma"] != 12:
+            failures.append(f"{key}: {c['slab_hgmma']} {TF32_SLAB_HGMMA}, not "
+                            "12 (a slab's four k8 steps of three passes)")
+        if local and c["LDL"] + c["STL"]:
+            failures.append(f"{key}: local memory ({c['LDL']} LDL, "
+                            f"{c['STL']} STL)")
     for src, fns in report["ptxas"].items():
         for fn, r in fns.items():
             print(f"[ptxas] {src} {fn}: {r}", flush=True)
