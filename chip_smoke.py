@@ -61,12 +61,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``bsr_spgemm`` in present and in absent tiles of A), where it must
    equal the plain version; the pair kernels' TF32 route on normal values
    at the n=18 pairs, within that bound with K = 128 x the run's pairs
-   (the reduce: plus its folds).  ``segment_scan`` (no caller on any path,
-   as in the JAX package) is held against its plain version under sum,
-   min and max at the size a dedup of the clustered n=18 array scans
-   (2^21 sorted pair ids); ``range_mask`` on the main path's box, on the
-   same entries in a random order, and on a box with no row and one with
-   every row inside;
+   (the reduce: plus its folds).  The five ring semirings (max or min ⊕)
+   on NaN and opposite infinities: ``semiring_matmul``, ``bsr_spgemm``,
+   ``bsr_spgemm_reduce`` and both pair kernels equal to their plain
+   versions, NaN where they have NaN.  ``segment_scan`` (no caller on any
+   path, as in the JAX package) is held against its plain version under
+   sum, min and max at the size a dedup of the clustered n=18 array scans
+   (2^21 sorted pair ids; normal sums within the kernel's and the plain
+   version's depth bounds), and in every bit against its order model
+   (``segment_scan_tiled_ref``) on 4096 and 2^21 pair ids, 2^21 equal keys
+   and 2^24 keys of the same run lengths, with NaN and ±inf among normal
+   values; ``range_mask`` on the main path's box, on the same entries in a
+   random order, and on a box with no row and one with every row inside;
 5. CUDA-event device times (plus_times, L2 evicted before each call) of
    each kernel, its plain version and one PyTorch library yardstick (the
    pair kernels at their launch, ``pairlist_launch``: the wrappers' input
@@ -75,7 +81,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    could take for the kernel's route (a kernel time below it fails the
    run; ``rank_count`` is also timed by the host's clock, launch overhead
    included; ``range_mask``, whose bound counts cols only where the row
-   is inside the box, also with L2 left clean, ``cuda_ms_clean_l2``); the
+   is inside the box, also with L2 left clean, ``cuda_ms_clean_l2``;
+   ``segment_scan`` so at each of its four inputs, with ``torch.cumsum``
+   of the 2^21 values beside it); the
    dense kernels' times under every semiring beside each route's bound
    (FMA pipe, ALU pipe and issue rates of the CUDA cores; three TF32
    products), the pair kernels' times under every semiring beside the
@@ -633,6 +641,30 @@ def segment_inputs(raw, a, gen):
             torch.randn(keys.shape[0], generator=gen).to(a.device))
 
 
+def segment_scan_inputs(pair_ids, gen) -> dict:
+    """The keys ``segment_scan`` is checked and timed on: the first 4096
+    pair ids (a call's floor), the 2^21 pair ids of the clustered n=18
+    array, 2^21 keys all equal (one run over every tile: the look-back's
+    longest walk) and 2^24 keys whose run lengths are drawn, seeded, from
+    the pair ids' own run lengths."""
+    import torch
+    lengths = torch.bincount(pair_ids.long())
+    lengths = lengths[lengths > 0].cpu()
+    n = 2 ** 24
+    draw = lengths[torch.randint(0, lengths.shape[0],
+                                 (2 * n // int(lengths.float().mean()) + 64,),
+                                 generator=gen)]
+    while int(draw.sum()) < n:
+        draw = torch.cat([draw, lengths[torch.randint(
+            0, lengths.shape[0], (4096,), generator=gen)]])
+    big = torch.repeat_interleave(torch.arange(draw.shape[0],
+                                               dtype=torch.int32), draw)[:n]
+    dev = pair_ids.device
+    return {"4096": pair_ids[:4096].contiguous(), "2^21 pair ids": pair_ids,
+            "2^21 all equal": torch.zeros_like(pair_ids),
+            "2^24": big.to(dev)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-clustered", type=int, default=18,
@@ -660,15 +692,17 @@ def main() -> int:
         from repro_torch.kernels.bsr_spgemm import ops as bsr_ops
         from repro_torch.kernels.bsr_spgemm import ref as bsr_ref
         from repro_torch.kernels.bsr_spgemm.ref import (
-            bsr_spgemm_tf32x3_error_bound, masked_nonfinite_operands)
+            bsr_spgemm_tf32x3_error_bound, masked_nonfinite_operands,
+            masked_ring_nonfinite_operands)
         from repro_torch.kernels.range_extract import ops as rm_ops
         from repro_torch.kernels.segment_reduce import ops as ss_ops
-        from repro_torch.kernels.segment_reduce.ref import segment_scan_ref
+        from repro_torch.kernels.segment_reduce.ref import (
+            segment_scan_ref, segment_scan_sum_bound, segment_scan_tiled_ref)
         from repro_torch.kernels.range_extract.ref import range_mask_ref
         from repro_torch.kernels.semiring_matmul import ops as sm_ops
         from repro_torch.kernels.semiring_matmul.ref import (
-            TF32X3_C1, nonfinite_operands, semiring_matmul_ref,
-            tf32x3_error_bound)
+            TF32X3_C1, nonfinite_operands, ring_nonfinite_operands,
+            semiring_matmul_ref, tf32x3_error_bound)
         from repro_torch.kernels.sorted_merge import ops as rc_ops
         from repro_torch.kernels.sorted_merge.ref import rank_count_ref
     except ImportError as exc:
@@ -840,19 +874,52 @@ def main() -> int:
                                                combine=comb),
                       segment_scan_ref(sk_keys, sk_quarter, combine=comb))
         for comb in ("sum", "min", "max")}
-    # normal values: the sums differ by summation order only, each by at
-    # most (its depth, below 32) · 2^-24 · Σ|v| over the run so far
+    # normal values: the sums differ by summation order only, each side by
+    # at most γ_d(i) · Σ|v| over the run so far, d(i) its depth (the
+    # kernel's from its order model, the plain doubling's from the run
+    # position): segment_scan_sum_bound
     got = ss_ops.segment_scan_cuda(sk_keys, sk_normal)
     want = segment_scan_ref(sk_keys, sk_normal)
     sum_err = max_err(got, want)
-    sum_tol = 64 * 2 ** -24 * segment_scan_ref(sk_keys, sk_normal.abs())
-    sum_ok = bool(((got - want).abs() <= sum_tol).all())
+    sum_tol = segment_scan_sum_bound(sk_keys, sk_normal)
+    sum_ok = bool(((got.double() - want.double()).abs() <= sum_tol).all())
     log(f"[kernel check] {'ok  ' if sum_ok else 'FAIL'} segment_scan sum of "
-        f"normal values: max |err| {sum_err:.3e} (tolerance 64 · 2^-24 · "
-        f"the scan of |v|, at most {float(sum_tol.max()):.3e})")
+        f"normal values: max |err| {sum_err:.3e} (tolerance (γ_d(i) of the "
+        f"kernel + of the plain version) · the scan of |v|, at most "
+        f"{float(sum_tol.max()):.3e})")
     if not sum_ok:
         failures.append(f"segment_scan sum of normal values: {sum_err}")
     report["segment_scan_normal_sum_err"] = sum_err
+    del got, want, sum_tol
+    # every bit against the kernel's order model, on each input the timing
+    # below uses: normal values, NaN and ±inf among them, sum, min and max
+    scan_in = segment_scan_inputs(sk_keys, gen)
+    scan_model = {}
+    for label, keys in scan_in.items():
+        normal = torch.randn(keys.shape[0], generator=gen).to(dev)
+        special = normal.clone()
+        at = torch.randint(0, keys.shape[0], (8,), generator=gen).to(dev)
+        special[at] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf"), float("nan")] * 2,
+                                   device=dev)
+        for comb in ("sum", "min", "max"):
+            for vlabel, v in (("normal", normal), ("NaN/inf", special)):
+                got = ss_ops.segment_scan_cuda(keys, v, combine=comb)
+                want = segment_scan_tiled_ref(keys, v, combine=comb)
+                nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+                bad = int((nan_g != nan_w).sum()) + int(
+                    (got[~nan_w] != want[~nan_w]).sum())
+                scan_model[f"{label} {comb} {vlabel}"] = bad
+        del normal, special, got, want
+    ok = not any(scan_model.values())
+    log(f"[kernel check] {'ok  ' if ok else 'FAIL'} segment_scan against its "
+        f"order model (segment_scan_tiled_ref), elements that differ in any "
+        f"bit (tolerance 0) " + json.dumps(scan_model))
+    if not ok:
+        failures.append(f"segment_scan differs from its order model: "
+                        f"{scan_model}")
+    report["segment_scan_model_mismatches"] = scan_model
+    torch.cuda.empty_cache()      # the 2^24 model's blocks leave the cache
     spgemm_routes = {}
     for name in SEMIRINGS:
         sr = REGISTRY[name]
@@ -1019,6 +1086,63 @@ def main() -> int:
                             f"{tf32_checks[f'{label} nonfinite']}")
     del ia, ib, inf_cases
     report["tf32_checks"] = tf32_checks
+    # NaN and opposite infinities under the five ring semirings (max or
+    # min ⊕, PTX max.NaN / min.NaN): every ring kernel equal to its plain
+    # version, NaN where it has NaN; for the masked kernels B's non-finite
+    # rows lie in a k tile present in every block-row
+    ring_nan = {}
+    ra, rb = ring_nonfinite_operands(512, 1024, 512, gen, dev)
+    ma, mmask, mb = masked_ring_nonfinite_operands(512, 1024, 512, gen, dev)
+    rat = ra.view(4, 128, 8, 128).permute(0, 2, 1, 3).reshape(-1, 128, 128)
+    rbt = rb.view(8, 128, 4, 128).permute(0, 2, 1, 3).reshape(-1, 128, 128)
+    rat, rbt = rat.contiguous(), rbt.contiguous()
+    ii, jj, kk = torch.meshgrid(torch.arange(4), torch.arange(4),
+                                torch.arange(8), indexing="ij")
+    rpa, rpb, rpc = (x.reshape(-1).int().to(dev) for x in
+                     (ii * 8 + kk, kk * 4 + jj, ii * 4 + jj))
+    rpo = ii.reshape(-1).int().to(dev)
+    for name in SEMIRINGS[1:]:
+        sr = REGISTRY[name]
+        cases = {
+            "semiring_matmul": (
+                sm_ops.semiring_matmul(ra, rb, semiring=sr, impl="cuda"),
+                semiring_matmul_ref(ra, rb, semiring=sr)),
+            "bsr_spgemm": (
+                bsr_ops.bsr_spgemm_cuda(ma, mmask, mb, sr=sr),
+                bsr_ref.bsr_spgemm_ref(ma, mmask, mb, semiring=sr)),
+            "bsr_pairlist": (
+                bsr_ops.bsr_pairlist_cuda(rat, rbt, rpa, rpb, rpc, n_c=16,
+                                          sr=sr),
+                bsr_ref.bsr_pairlist_ref(rat, rbt, rpa, rpb, rpc, n_c=16,
+                                         semiring=sr))}
+        for axis in (0, 1):
+            cases[f"bsr_spgemm_reduce axis={axis}"] = (
+                bsr_ops.bsr_spgemm_reduce(ma, mmask, mb, axis=axis,
+                                          semiring=sr, impl="cuda"),
+                bsr_ref.bsr_spgemm_reduce_ref(ma, mmask, mb, axis=axis,
+                                              semiring=sr))
+            cases[f"bsr_pairlist_reduce axis={axis}"] = (
+                bsr_ops.bsr_pairlist_reduce_cuda(rat, rbt, rpa, rpb, rpo,
+                                                 n_o=4, axis=axis, sr=sr),
+                bsr_ref.bsr_pairlist_reduce_ref(rat, rbt, rpa, rpb, rpo,
+                                                n_o=4, axis=axis,
+                                                semiring=sr))
+        for label, (got, want) in cases.items():
+            same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+            ring_nan[f"{label} {name}"] = {
+                "mismatches": int((~same).sum()),
+                "nan": int(torch.isnan(want).sum()),
+                "inf": int(torch.isinf(want).sum())}
+        del cases
+    bad = {k: v for k, v in ring_nan.items()
+           if v["mismatches"] or not v["nan"]}
+    log(f"[kernel check] {'ok  ' if not bad else 'FAIL'} the ring kernels on "
+        f"NaN and opposite infinities (tolerance 0, NaN where the plain "
+        f"version has NaN) " + json.dumps(ring_nan))
+    if bad:
+        failures.append(f"ring kernels on NaN and infinities: {bad}")
+    report["ring_nan_checks"] = ring_nan
+    del ra, rb, ma, mmask, mb, rat, rbt
     # the pair lists' runs: pairs per output tile (A @ B) and per output
     # block (the fused reduce), and the reduce's work items (chunks)
     runs_stats = {}
@@ -1156,7 +1280,8 @@ def main() -> int:
              replaces="src/repro/kernels/segment_reduce/segment_reduce.py:65",
              kernel=lambda: ss_ops.segment_scan_cuda(sk_keys, sk_quarter),
              plain=lambda: segment_scan_ref(sk_keys, sk_quarter),
-             library=None, bytes=12 * sk_keys.shape[0], ops=0, repeats=50),
+             library=None, bytes=12 * sk_keys.shape[0], ops=0, repeats=50,
+             clean_l2=True),
     ]
     kernels = []
     for r in rows:
@@ -1195,6 +1320,33 @@ def main() -> int:
             f"({kernels[-1]['bound_by']}){fp32}")
         del r["kernel"], r["plain"], r["library"]
     kernels.append(flash_row)
+    # segment_scan at each of its inputs (quarter values, sum): device ms
+    # with L2 evicted by a write (the table's reading) and by a read, each
+    # beside its 12-bytes-an-element bound; torch.cumsum of the 2^21 values
+    # (CUB's one-pass scan without keys: not the same function) as a
+    # reference for a one-pass scan on this card
+    scan_times = {}
+    for label, keys in scan_in.items():
+        q = quarter_values(keys.shape[0], gen, dev)
+        fn = (lambda k=keys, v=q: ss_ops.segment_scan_cuda(k, v))
+        scan_times[label] = {
+            "n": keys.shape[0],
+            "ms": cuda_ms(fn, 50), "ms_clean_l2": cuda_ms_clean_l2(fn, 50),
+            "bound_ms": 12 * keys.shape[0] / HBM_BYTES_PER_S * 1e3}
+        if label == "2^21 pair ids":
+            scan_times[label]["torch_cumsum_ms"] = cuda_ms(
+                lambda v=q: torch.cumsum(v, 0), 50)
+        del q
+    log("[time] segment_scan by input (sum, quarter values) "
+        + json.dumps(scan_times))
+    report["segment_scan_times"] = scan_times
+    for label, t in scan_times.items():
+        for key in ("ms", "ms_clean_l2"):
+            if t[key] < t["bound_ms"]:
+                failures.append(f"segment_scan {label}: {key} {t[key]} is "
+                                f"below its bound {t['bound_ms']} ms")
+    del scan_in
+    torch.cuda.empty_cache()
     # device memory one call of each TF32 product takes beyond its inputs
     # (the output and the split operands' scratch, 2(M + N)K fp32)
     call_mb = {}

@@ -14,11 +14,25 @@ struct OpPlus {
 struct OpTimes {
   __device__ __forceinline__ static float apply(float a, float b) { return a * b; }
 };
+// max and min propagate NaN, as jnp.maximum / jnp.minimum and torch.maximum /
+// torch.minimum do (fmaxf / fminf return the other operand and drop it):
+// PTX max.NaN / min.NaN (sm_80 and up), one FMNMX.NAN in SASS.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 struct OpMax {
-  __device__ __forceinline__ static float apply(float a, float b) { return fmaxf(a, b); }
+  __device__ __forceinline__ static float apply(float a, float b) { return max_nan(a, b); }
 };
 struct OpMin {
-  __device__ __forceinline__ static float apply(float a, float b) { return fminf(a, b); }
+  __device__ __forceinline__ static float apply(float a, float b) { return min_nan(a, b); }
 };
 
 // Zero of ⊕ (annihilator of ⊗): 0, -inf or +inf.

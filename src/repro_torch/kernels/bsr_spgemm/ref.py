@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.core.semiring import get_semiring
 from repro_torch.kernels.semiring_matmul.ref import (TF32X3_C1, TF32X3_SLAB,
-                                                     nonfinite_operands)
+                                                     nonfinite_operands,
+                                                     ring_nonfinite_operands)
 
 # tile pairs contracted per chunk: the (+,×) bmm gathers chunk·(bm·bk +
 # bk·bn + bm·bn) floats, the broadcast path adds a [chunk, bm, 32, bn] slab
@@ -79,6 +80,26 @@ def masked_nonfinite_operands(m: int, k: int, n: int, gen: torch.Generator,
     a[133, 137], a[134, 138], a[135, 139] = inf, nan, 2.0 ** 100    # absent
     a[148, 259], a[149, 260], a[150, 261] = nan, inf, 2.0 ** 63     # present
     a[148:151, 70] = 0.25
+    return a.to(device), mask.to(device), b.to(device)
+
+
+def masked_ring_nonfinite_operands(m: int, k: int, n: int,
+                                   gen: torch.Generator, device) -> tuple:
+    """(a, block_mask, b) for the ring semirings under a block mask:
+    ``ring_nonfinite_operands`` (NaN and opposite infinities, B's in k tile
+    0), a seeded mask keeping about half of A's tiles with k tile 0 present
+    in every block-row, and NaN, +inf and −inf in an absent tile of A
+    (block (m/128 - 1, 1)), which the kernels skip and the plain version
+    replaces by the semiring zero.  No absent tile meets B's non-finite
+    rows: there the plain version's zero ⊗ ±inf or NaN would give NaN where
+    the kernels, like the Pallas kernel, skip the tile.  m >= 128, k >= 256,
+    both multiples of 128; n >= 34."""
+    a, b = ring_nonfinite_operands(m, k, n, gen, "cpu")
+    mask = (torch.rand((m // 128, k // 128), generator=gen) < 0.5).int()
+    mask[:, 0], mask[-1, 1] = 1, 0
+    r = m - 128
+    a[r + 5, 133], a[r + 6, 140], a[r + 7, 150] = (float("nan"), float("inf"),
+                                                   -float("inf"))
     return a.to(device), mask.to(device), b.to(device)
 
 

@@ -7,19 +7,69 @@ multiple of 256 with the key ``2^31 - 1`` and the value 0 (the pads come
 after every real element, so they change no output that is kept), and no
 caller in ``core/`` uses it yet: the dedup of ``core/coo.py`` aggregates
 with its own torch ops.
+
+A call is one launch: a persistent grid that scans tiles of 4096 elements
+and finds each tile's carry by a decoupled look-back over 64-bit status
+words, each tagged with the call's epoch.  The words are this module's own,
+one buffer per (device, stream), zeroed when it is allocated or grown and
+when its epochs wrap, and written by no one else: so every word there is 0
+or an earlier call's, neither of which carries the current epoch, and no
+memset comes before a call.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import cuda_lib
-from .ref import COMBINE, segment_scan_ref
+from .ref import COMBINE, KERNEL_TILE, segment_scan_ref
 
 COMBINE_IDS = {"sum": 0, "min": 1, "max": 2}
 PAD = 256
-BLOCK = 1024      # elements per block of the kernel's first pass
+TILE = KERNEL_TILE  # elements per tile of the kernel
 PAD_KEY = 2 ** 31 - 1
+_WARP = 32
+
+EPOCH_MAX = 2 ** 31 - 1
+
+_STATUS_LOCK = threading.Lock()
+# (device, stream) -> (status words, the epoch of the last call on them)
+_status: dict = {}
+
+
+def status_words(n: int, device, stream: int) -> tuple[torch.Tensor, int]:
+    """The status words of ``stream`` on ``device``, with room for a call
+    on ``n`` elements, and that call's epoch (1 .. 2^31 - 1).  A new or
+    grown buffer is zeroed and starts again at epoch 1, and so does one
+    whose epochs are spent: no word there can carry the epoch returned."""
+    words = scratch_words(n)
+    with _STATUS_LOCK:
+        buf, epoch = _status.get((device, stream), (None, 0))
+        if buf is None or buf.numel() < words:
+            buf, epoch = torch.zeros(words, dtype=torch.int64,
+                                     device=device), 0
+        elif epoch == EPOCH_MAX:
+            buf.zero_()
+            epoch = 0
+        epoch += 1
+        _status[(device, stream)] = (buf, epoch)
+    return buf, epoch
+
+
+def scratch_words(n: int) -> int:
+    """uint64 status words a call on ``n`` elements needs: every tile's,
+    then one level of group summaries for each factor of 32 tiles beyond
+    the first (as ``segment_scan_scratch_words`` in the source)."""
+    if n <= 0:
+        return 0
+    size = -(-n // TILE)
+    words = size
+    while size > _WARP:
+        size = -(-size // _WARP)
+        words += size
+    return words
 
 
 def pad_for_kernel(keys: torch.Tensor, vals: torch.Tensor):
@@ -32,8 +82,8 @@ def pad_for_kernel(keys: torch.Tensor, vals: torch.Tensor):
 
 def segment_scan_cuda(keys: torch.Tensor, vals: torch.Tensor, *,
                       combine: str = "sum") -> torch.Tensor:
-    """The kernel: int32 sorted ``keys`` and fp32 ``vals`` [N] on one sm_90
-    card → fp32 [N].  Unsorted keys give runs of adjacent equal keys."""
+    """The kernel: int32 ``keys`` and fp32 ``vals`` [N] on one sm_90 card →
+    fp32 [N], the scan over runs of adjacent equal keys."""
     cuda_lib.check_cuda(keys, vals)
     if combine not in COMBINE_IDS:
         raise ValueError(f"unknown combine {combine!r}; expected "
@@ -50,11 +100,11 @@ def segment_scan_cuda(keys: torch.Tensor, vals: torch.Tensor, *,
     out = torch.empty_like(vals)
     if n == 0:                    # no grid to launch: nothing to scan
         return out
-    nb = -(-n // BLOCK)
-    scratch = torch.empty(4 * nb, dtype=torch.int32, device=keys.device)
+    stream = cuda_lib.stream_ptr(keys)
+    status, epoch = status_words(n, keys.device, stream)
     cuda_lib.launch("segment_scan", COMBINE_IDS[combine], keys.data_ptr(),
-                    vals.data_ptr(), out.data_ptr(), n, scratch.data_ptr(),
-                    cuda_lib.stream_ptr(keys))
+                    vals.data_ptr(), out.data_ptr(), n, status.data_ptr(),
+                    status.numel(), epoch, stream)
     return out
 
 
@@ -75,14 +125,18 @@ def aggregate_runs(keys: torch.Tensor, vals: torch.Tensor, *,
                    combine: str = "sum", impl: str = "auto"):
     """(keys, aggregated value at each run head, head mask)."""
     scanned = segment_scan(keys, vals, combine=combine, impl=impl)
-    if keys.shape[0] == 0:
+    n = keys.shape[0]
+    if n == 0:
         return keys, scanned, torch.zeros(0, dtype=torch.bool,
                                           device=keys.device)
     one = torch.ones(1, dtype=torch.bool, device=keys.device)
-    differs = keys[1:] != keys[:-1]
-    run_last = torch.cat([differs, one])
-    is_head = torch.cat([one, differs])
+    is_head = torch.cat([one, keys[1:] != keys[:-1]])
+    # each head's run ends before the next head: a reverse running minimum
+    # of the head positions (n where none), all on the device
+    idx = torch.arange(n, device=keys.device)
+    nxt = torch.where(is_head, idx, torch.full_like(idx, n))
+    nxt = nxt.flip(0).cummin(0).values.flip(0)
+    end = torch.cat([nxt[1:], nxt.new_full((1,), n)]) - 1
     # value for each head = scanned value at its run's last position
-    head_vals = torch.zeros_like(scanned)
-    head_vals[is_head] = scanned[run_last]
+    head_vals = torch.where(is_head, scanned[end], scanned.new_zeros(()))
     return keys, head_vals, is_head

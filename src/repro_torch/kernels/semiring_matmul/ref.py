@@ -52,3 +52,27 @@ def nonfinite_operands(m: int, k: int, n: int, gen: torch.Generator,
     b[50, 60] = inf
     b[70, 80] = -3 * 2.0 ** 126
     return a.to(device), b.to(device)
+
+
+def ring_nonfinite_operands(m: int, k: int, n: int, gen: torch.Generator,
+                            device) -> tuple:
+    """Operands for the five ring semirings (max/min ⊕) with NaN and
+    opposite infinities: positive multiples of 1/4 in [1/4, 2], NaN in row
+    3 of A and column 5 of B (a NaN row and column of C under every ring
+    semiring), +inf·−inf pairs that meet in one term, (10, 30) and (11, 31)
+    (NaN under max_plus and min_plus, −inf under max_times, max_min and
+    and_or), and an inf against a 0, (12, 32) and (13, 33) (NaN under
+    max_times).  Every other output also has a positive finite term, so
+    the kernels' start at the semiring zero changes nothing, and each
+    output is a max or min of products or sums that are the same in any
+    order.  B's non-finite rows all lie below 64 (the first 128-wide k
+    tile).  m >= 14, k >= 64, n >= 34."""
+    a = torch.randint(1, 9, (m, k), generator=gen).float() / 4
+    b = torch.randint(1, 9, (k, n), generator=gen).float() / 4
+    inf, nan = float("inf"), float("nan")
+    a[3, 7], b[9, 5] = nan, nan
+    a[10, 20], b[20, 30] = inf, -inf
+    a[11, 40], b[40, 31] = -inf, inf
+    a[12, 50], b[50, 32] = inf, 0.0
+    a[13, 60], b[60, 33] = 0.0, -inf
+    return a.to(device), b.to(device)

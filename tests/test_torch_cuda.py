@@ -34,7 +34,10 @@ from repro_torch.kernels.flash_attention.ref import (bf16_error_bound,
                                                      flash_attention_ref)
 from repro_torch.models.attention import chunked_attention
 from repro_torch.kernels.segment_reduce import ops as ss_ops
-from repro_torch.kernels.segment_reduce.ref import segment_scan_ref
+from repro_torch.kernels.segment_reduce.ref import (segment_scan_ref,
+                                                    segment_scan_sum_bound,
+                                                    segment_scan_tiled_ref)
+from repro_torch.kernels.semiring_matmul.ref import ring_nonfinite_operands
 
 from _torch_helpers import SEMIRINGS, _reset_port_stats  # noqa: F401
 
@@ -824,9 +827,10 @@ def _runs(gen, n, max_run, card, quarters):
 def test_segment_scan_kernel(card, n, max_run, combine):
     """min/max exact; sums exact on quarter values (every partial sum is
     a multiple of 1/4 below 2^20).  On normal values each version's
-    rounding error is at most (its summation depth) · 2^-24 · Σ|v| over the
-    run so far; both depths are below 32 here, so they agree to
-    64 · 2^-24 · (the segmented scan of |v|)."""
+    rounding error is at most γ_d(i) · Σ|v| over the run so far, d(i) its
+    summation depth (the kernel's from its order model, the plain
+    version's from its doubling): ``segment_scan_sum_bound``.  The kernel
+    equals its order model in every bit."""
     gen = torch.Generator().manual_seed(n)
     for quarters in (True, False):
         keys, vals = _runs(gen, n, max_run, card, quarters)
@@ -837,8 +841,11 @@ def test_segment_scan_kernel(card, n, max_run, combine):
         if combine != "sum" or quarters:
             assert torch.equal(got, want)
         else:
-            tol = 64 * 2 ** -24 * segment_scan_ref(keys, vals.abs())
-            assert bool(((got - want).abs() <= tol).all())
+            tol = segment_scan_sum_bound(keys, vals)
+            assert bool(((got.double() - want.double()).abs() <= tol).all())
+        kp, vp = ss_ops.pad_for_kernel(keys, vals)
+        assert torch.equal(got, segment_scan_tiled_ref(
+            kp, vp, combine=combine)[:n])
 
 
 def test_segment_scan_empty_and_aggregate(card):
@@ -855,3 +862,182 @@ def test_segment_scan_empty_and_aggregate(card):
     assert heads.tolist() == [True, False, True, True, False, False]
     with pytest.raises(ValueError, match="CUDA tensors"):
         ss_ops.segment_scan(keys.cpu(), vals.cpu(), impl="cuda")
+
+
+def _few_runs(gen, n, max_run, card):
+    """Sorted keys in runs of 1..max_run (drawn only as many as n needs)
+    and normal values."""
+    count = 2 * n // (max_run + 1) + 10
+    lengths = torch.randint(1, max_run + 1, (count,), generator=gen)
+    while int(lengths.sum()) < n:
+        lengths = torch.cat([lengths, torch.randint(1, max_run + 1, (10,),
+                                                    generator=gen)])
+    keys = torch.repeat_interleave(torch.arange(lengths.shape[0]),
+                                   lengths)[:n] * 5 - 7
+    return keys.to(card, torch.int32), torch.randn(n, generator=gen).to(card)
+
+
+def _assert_same_bits(got, want):
+    """Equal values (−0 = +0), NaN exactly where NaN."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    assert torch.equal(got[keep], want[keep])
+
+
+# (n, max_run): the clustered pair ids' short runs, runs of thousands
+# across tiles, one run over every tile (beyond 32 and 1024 tiles: the
+# look-back's second and third levels), and 2^24 elements
+SCAN_MODEL_CASES = [(4096, 3), (2 ** 21, 4), (300000, 5000),
+                    (33 * 4096 + 5, 33 * 4096 + 5), (2 ** 21, 2 ** 21),
+                    (1025 * 4096, 1025 * 4096), (2 ** 24, 6)]
+
+
+@pytest.mark.parametrize("n,max_run", SCAN_MODEL_CASES)
+def test_segment_scan_equals_its_order_model(card, n, max_run):
+    """Every bit of the kernel equals segment_scan_tiled_ref under sum, min
+    and max, on normal values with NaN, +inf and -inf among them; sums of
+    normal values within γ_d(i)·Σ|v| of the fp64 scan."""
+    gen = torch.Generator().manual_seed(n + max_run)
+    keys, vals = _few_runs(gen, n, max_run, card)
+    specials = vals.clone()
+    at = torch.randint(0, n, (6,), generator=gen).to(card)
+    specials[at] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                 float("nan"), float("inf"), 1.0],
+                                device=card)
+    for combine in ("sum", "min", "max"):
+        for v in (vals, specials):
+            got = ss_ops.segment_scan_cuda(keys, v, combine=combine)
+            _assert_same_bits(got, segment_scan_tiled_ref(keys, v,
+                                                          combine=combine))
+    got = ss_ops.segment_scan_cuda(keys, vals).double()
+    bound = segment_scan_sum_bound(keys, vals, against="exact")
+    # the scan in fp64 (the plain doubling); its own rounding, about
+    # 2^-48·Σ|v|, is far below 2^-20 of the bound wherever d(i) >= 1, and
+    # an element with d(i) = 0 is its own value in both
+    exact = vals.double()
+    step = 1
+    while step < n:
+        same = keys[step:] == keys[:-step]
+        exact[step:] = torch.where(same, exact[:-step] + exact[step:],
+                                   exact[step:])
+        step *= 2
+    assert bool(((got - exact).abs() <= bound * (1 + 2 ** -20)).all())
+
+
+def test_segment_scan_reuses_its_scratch(card):
+    """Calls with different data on one stream share one buffer of status
+    words: the second reads no word of the first (each word carries its
+    call's epoch), and a call on the same data gives the same bits."""
+    gen = torch.Generator().manual_seed(5)
+    n = 300 * 4096 + 17
+    k1, v1 = _few_runs(gen, n, n, card)     # one run
+    k2, v2 = _few_runs(gen, n, 3, card)     # short runs
+    first = ss_ops.segment_scan_cuda(k1, v1)
+    key = (k1.device, torch.cuda.current_stream(card).cuda_stream)
+    status, epoch = ss_ops._status[key]
+    again = ss_ops.segment_scan_cuda(k2, v2)
+    assert torch.equal(again, segment_scan_tiled_ref(k2, v2))
+    third = ss_ops.segment_scan_cuda(k1, v1)
+    assert ss_ops._status[key][0] is status
+    assert ss_ops._status[key][1] == epoch + 2
+    assert torch.equal(first, third)
+    assert torch.equal(first, segment_scan_tiled_ref(k1, v1))
+
+
+def test_segment_scan_status_words_start_clean(card):
+    """A new stream's status words take memory that held forged words: the
+    epochs of its first calls with the head bit set (the int32 pairs 2·epoch
+    + 1 and a huge value).  The buffer is zeroed when it is made, so one run
+    over 1025 tiles (every tile looks back, three levels) comes out equal
+    to its order model in both calls."""
+    gen = torch.Generator().manual_seed(8)
+    n = 1025 * 4096
+    keys, vals = _few_runs(gen, n, n, card)
+    want = segment_scan_tiled_ref(keys, vals)
+    words = ss_ops.scratch_words(n)
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):
+        forged = torch.empty((words, 2), dtype=torch.int32, device=card)
+        forged[:, 0] = torch.tensor([1e30]).view(torch.int32).item()
+        forged[0::2, 1] = 2 * 1 + 1     # epoch 1, a head
+        forged[1::2, 1] = 2 * 2 + 1     # epoch 2, a head
+        where = forged.data_ptr()
+        del forged
+        got = [ss_ops.segment_scan_cuda(keys, vals) for _ in range(2)]
+        status = ss_ops._status[(keys.device, stream.cuda_stream)][0]
+    torch.cuda.synchronize()
+    assert status.data_ptr() == where   # the forged words' memory
+    for g in got:
+        assert torch.equal(g, want)
+    del ss_ops._status[(keys.device, stream.cuda_stream)]
+
+
+def test_segment_scan_is_one_kernel(card):
+    """One call runs exactly one device kernel (no memset, no second
+    pass), counted by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(6)
+    keys, vals = _few_runs(gen, 2 ** 21, 4, card)
+    ss_ops.segment_scan_cuda(keys, vals)   # built, loaded, status words made
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ss_ops.segment_scan_cuda(keys, vals, combine="max")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in kernels]
+    assert len(kernels) == 1 and "segment_scan" in names[0], names
+
+
+# -- NaN and opposite infinities under the ring semirings -----------------------------
+
+RING = [s for s in SEMIRINGS if s != "plus_times"]
+
+
+@pytest.mark.parametrize("sr", RING)
+def test_ring_kernels_propagate_nan(card, sr):
+    """semiring_matmul, bsr_spgemm, bsr_spgemm_reduce and both pair
+    kernels on NaN and opposite infinities (ring_nonfinite_operands; for
+    the masked kernels B's non-finite rows in a k tile present in every
+    block-row): equal to the plain versions, NaN where they have NaN."""
+    gen = torch.Generator().manual_seed(19)
+    a, b = ring_nonfinite_operands(256, 512, 256, gen, card)
+    got = semiring_matmul(a, b, semiring=sr, impl="cuda")
+    want = semiring_matmul_ref(a, b, semiring=sr)
+    assert bool(torch.isnan(want[3]).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    ma, mask, mb = bsr_ref.masked_ring_nonfinite_operands(256, 512, 256, gen,
+                                                         card)
+    torch.testing.assert_close(
+        bsr_ops.bsr_spgemm(ma, mask, mb, semiring=sr),
+        bsr_ref.bsr_spgemm_ref(ma, mask, mb, semiring=sr),
+        rtol=0, atol=0, equal_nan=True)
+    for axis in (0, 1):
+        torch.testing.assert_close(
+            bsr_ops.bsr_spgemm_reduce(ma, mask, mb, axis=axis, semiring=sr),
+            bsr_ref.bsr_spgemm_reduce_ref(ma, mask, mb, axis=axis,
+                                          semiring=sr),
+            rtol=0, atol=0, equal_nan=True)
+    # the pair kernels: A @ B as a pair list of 128 x 128 tiles
+    at = a.view(2, 128, 4, 128).permute(0, 2, 1, 3).reshape(-1, 128, 128)
+    bt = b.view(4, 128, 2, 128).permute(0, 2, 1, 3).reshape(-1, 128, 128)
+    i, j, kk = torch.meshgrid(torch.arange(2), torch.arange(2),
+                              torch.arange(4), indexing="ij")
+    pa, pb, pc = ((x.reshape(-1).int()).to(card) for x in
+                  (i * 4 + kk, kk * 2 + j, i * 2 + j))
+    at, bt = at.contiguous(), bt.contiguous()
+    got = bsr_ops.bsr_pairlist(at, bt, pa, pb, pc, n_c=4, semiring=sr)
+    torch.testing.assert_close(got, bsr_ref.bsr_pairlist_ref(
+        at, bt, pa, pb, pc, n_c=4, semiring=sr), rtol=0, atol=0,
+        equal_nan=True)
+    tiles = want.view(2, 128, 2, 128).permute(0, 2, 1, 3).reshape(4, 128, 128)
+    torch.testing.assert_close(got, tiles, rtol=0, atol=0, equal_nan=True)
+    po = (i.reshape(-1).int()).to(card)        # block-row i: one output each
+    for axis in (0, 1):
+        torch.testing.assert_close(
+            bsr_ops.bsr_pairlist_reduce(at, bt, pa, pb, po, n_o=2,
+                                        axis=axis, semiring=sr),
+            bsr_ref.bsr_pairlist_reduce_ref(at, bt, pa, pb, po, n_o=2,
+                                            axis=axis, semiring=sr),
+            rtol=0, atol=0, equal_nan=True)

@@ -17,20 +17,28 @@
     git show <commit>:src/repro_torch/csrc/range_mask.cu > build/range_mask_old.cu
     python3 tools/kernel_ab.py range_mask build/range_mask_old.cu
 
+    # segment_scan: another segment_scan.cu, with its headers beside it
+    python3 tools/kernel_ab.py segment_scan build/old/segment_scan.cu
+
 The other source is built with ``nvcc`` and the port's flags into
 ``build/kernel_ab/`` and called through a copy of the port's host work
-around its launch.  It must export the C entries of the port's source
-before its redesign:
+around its launch.  It must export these C entries:
 
 * ``rank_count_launch(i, j, rank, hit, ni, nj, stream)``, writing every
   entry of ``rank`` and ``hit``;
-* ``bsr_pairlist_launch(sr, a_tiles, b_tiles, pair_a, pair_b, runs,
-  c_tiles, n_c, stream)`` and ``bsr_pairlist_reduce_launch(sr, a_tiles,
-  b_tiles, pair_a, pair_b, runs, out, n_o, axis, stream)`` for the six
-  semirings (``cuda_lib.SEMIRING_IDS``), one block per output;
-* ``bsr_spgemm_launch(sr, a, mask, b, c, m, n, k, stream)`` for the six
-  semirings, writing every entry of C;
-* ``range_mask_launch(rows, cols, keep, n, rlo, rhi, clo, chi, stream)``.
+* the ring entries of the pair kernels, as the port has them since its
+  two routes: ``bsr_pairlist_launch(sr, a_tiles, b_tiles, pair_a, pair_b,
+  runs, c_tiles, n_c, stream)`` and ``bsr_pairlist_reduce_launch(sr,
+  a_tiles, b_tiles, pair_a, pair_b, runs, chunk_off, part, out, n_o,
+  items, chunk, axis, stream)`` over runs cut into chunks, for the five
+  ring semirings (``cuda_lib.SEMIRING_IDS``; plus_times has its TF32
+  entries, which this tool does not time);
+* ``bsr_spgemm_launch(sr, a, mask, b, c, m, n, k, stream)``, the ring's,
+  for the same five semirings, writing every entry of C;
+* ``range_mask_launch(rows, cols, keep, n, rlo, rhi, clo, chi, stream)``;
+* ``segment_scan_launch(combine, keys, vals, out, n, scratch, stream)``
+  with 4·ceil(n/1024) int32 of scratch: the three-pass source the port had
+  before its one-pass kernel.
 
 ``rank_count`` runs on the ingest path's inputs
 (``chip_smoke.rank_count_inputs``: the base's and the delta's keys at
@@ -41,16 +49,16 @@ clocks: ``cuda_ms`` (device time, L2 evicted before each call) and
 
 ``bsr_pairlist`` runs both pair kernels on the main path's inputs at
 clustered n=18 (``chip_smoke.pairlist_inputs``: ``A @ B`` and the
-``A.sqout(reduce=1)`` pairs, quarter values), under each of the six
+``A.sqout(reduce=1)`` pairs, quarter values), under each of the five ring
 semirings: both sources must equal the plain version exactly, and are
 timed at their launch (no input check with its host read-back inside the
 timed call) by ``cuda_ms`` in turns (old, new, new, old).
 
 ``bsr_spgemm`` runs on chip_smoke's masked inputs at 4096^3 (the seeded
 mask keeping about 1/4 of A's tiles, and the all-present mask of uniform
-n=12; quarter values), under each of the six semirings: both sources must
-equal the plain version exactly and are timed by ``cuda_ms`` in turns
-(old, new, new, old).  Under ``plus_times`` the port's route is TF32.
+n=12; quarter values), under each of the five ring semirings: both
+sources must equal the plain version exactly and are timed by ``cuda_ms``
+in turns (old, new, new, old).
 
 ``range_mask`` runs on the main path's selection (clustered n=18, the
 row box of ``main_path.row_range``, every column): both sources must
@@ -60,6 +68,14 @@ sorted and the unsorted entries, and on the first 4096 (the cost of a
 call beyond its bytes), in turns (old, new, new, old) by
 ``cuda_ms`` (L2 left dirty by the eviction write) and by
 ``cuda_ms_clean_l2`` (L2 evicted by a read).
+
+``segment_scan`` runs on chip_smoke's four inputs
+(``chip_smoke.segment_scan_inputs``: the first 4096 and all 2^21 pair ids
+of the clustered n=18 array, 2^21 equal keys, 2^24 keys of the pair ids'
+run lengths; quarter values, sum): both sources must equal the plain
+version (and the port's its order model) under sum, min and max, and each
+is timed in turns (old, new, new, old) by ``cuda_ms`` and by
+``cuda_ms_clean_l2``, beside the 12-bytes-an-element bound.
 
 The last lines are the card's name and power limit and one JSON object of
 the times.
@@ -78,15 +94,21 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (puts src/ on the path)
 
+# the semirings of the CUDA-core ring, the ones bsr_pairlist and
+# bsr_spgemm compare (plus_times goes to the TF32 kernels)
+RING = chip_smoke.SEMIRINGS[1:]
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "rank_count": {"rank_count_launch": [_P] * 4 + [_I] * 2 + [_P]},
     "bsr_pairlist": {
         "bsr_pairlist_launch": [_I] + [_P] * 6 + [_I, _P],
-        "bsr_pairlist_reduce_launch": [_I] + [_P] * 6 + [_I, _I, _P]},
+        "bsr_pairlist_reduce_launch": [_I] + [_P] * 8 + [_I] * 4 + [_P]},
     "bsr_spgemm": {"bsr_spgemm_launch": [_I] + [_P] * 4 + [_I] * 3 + [_P]},
     "range_mask": {"range_mask_launch": [_P] * 3 + [ctypes.c_longlong]
                    + [_I] * 4 + [_P]},
+    "segment_scan": {"segment_scan_launch": [_I] + [_P] * 3
+                     + [ctypes.c_longlong, _P, _P]},
 }
 
 
@@ -202,17 +224,20 @@ def bsr_pairlist_ab(old, dev) -> dict:
     def old_reduce(at, bt, pa, pb, po, sr):
         runs = bsr_ops.run_offsets(po, n_o)
         out = torch.empty((n_o, 128), dtype=torch.float32, device=dev)
+        chunk_off, items = bsr_ops.reduce_chunks(runs, pa.shape[0])
+        part = torch.empty((items, 128), dtype=torch.float32, device=dev)
         err = old.bsr_pairlist_reduce_launch(
             cuda_lib.SEMIRING_IDS[sr.name], at.data_ptr(), bt.data_ptr(),
-            pa.data_ptr(), pb.data_ptr(), runs.data_ptr(), out.data_ptr(),
-            n_o, 1, cuda_lib.stream_ptr(at))
+            pa.data_ptr(), pb.data_ptr(), runs.data_ptr(),
+            chunk_off.data_ptr(), part.data_ptr(), out.data_ptr(), n_o,
+            items, bsr_ops.REDUCE_CHUNK, 1, cuda_lib.stream_ptr(at))
         if err != 0:
             raise RuntimeError("the old bsr_pairlist_reduce failed: CUDA "
                                f"error {err}")
         return out
 
     times = {}
-    for name in chip_smoke.SEMIRINGS:
+    for name in RING:
         sr = REGISTRY[name]
         sid = cuda_lib.kernel_semiring_id(sr)
         at, bt = mm_tiles(sr)
@@ -278,7 +303,7 @@ def bsr_spgemm_ab(old, dev) -> dict:
         return c
 
     times = {}
-    for name in chip_smoke.SEMIRINGS:
+    for name in RING:
         sr = REGISTRY[name]
         for label, make, mask in (("1/4 mask", mk_ops, mk_mask),
                                   ("n=12 mask", dn_ops, uni_mask)):
@@ -367,8 +392,81 @@ def range_mask_ab(old, dev) -> dict:
     return times
 
 
+def segment_scan_ab(old, dev) -> dict:
+    import torch
+
+    from repro_torch import main_path
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.segment_reduce import ops as ss_ops
+    from repro_torch.kernels.segment_reduce.ref import (
+        segment_scan_ref, segment_scan_tiled_ref)
+    clus = main_path.build_clustered(18, dev)
+    gen = torch.Generator().manual_seed(0)
+    pair_ids = chip_smoke.segment_inputs(clus["raw"], clus["A"], gen)[0]
+    del clus
+    inputs = chip_smoke.segment_scan_inputs(pair_ids, gen)
+
+    def old_call(keys, vals, combine=0):
+        n = keys.shape[0]
+        out = torch.empty_like(vals)
+        scratch = torch.empty(4 * -(-n // 1024), dtype=torch.int32,
+                              device=keys.device)
+        err = old.segment_scan_launch(combine, keys.data_ptr(),
+                                      vals.data_ptr(), out.data_ptr(), n,
+                                      scratch.data_ptr(),
+                                      cuda_lib.stream_ptr(keys))
+        if err != 0:
+            raise RuntimeError(f"the old segment_scan failed: CUDA error {err}")
+        return out
+
+    times = {}
+    for label, keys in inputs.items():
+        vals = chip_smoke.quarter_values(keys.shape[0], gen, dev)
+        for comb, cid in ss_ops.COMBINE_IDS.items():
+            want = segment_scan_ref(keys, vals, combine=comb)
+            for src, got in (("old", old_call(keys, vals, cid)),
+                             ("new", ss_ops.segment_scan_cuda(
+                                 keys, vals, combine=comb))):
+                if not torch.equal(got, want):
+                    raise SystemExit(f"kernel_ab: the {src} segment_scan "
+                                     f"differs from the plain version "
+                                     f"({label}, {comb})")
+            if not torch.equal(ss_ops.segment_scan_cuda(keys, vals,
+                                                        combine=comb),
+                               segment_scan_tiled_ref(keys, vals,
+                                                      combine=comb)):
+                raise SystemExit(f"kernel_ab: segment_scan differs from its "
+                                 f"order model ({label}, {comb})")
+        calls = {"old": lambda k=keys, v=vals: old_call(k, v),
+                 "new": lambda k=keys, v=vals: ss_ops.segment_scan_cuda(k, v)}
+        bound = 12 * keys.shape[0] / chip_smoke.HBM_BYTES_PER_S * 1e3
+        times[label] = {"n": keys.shape[0], "bound_ms": bound}
+        for clock, fn in (("cuda_ms", chip_smoke.cuda_ms),
+                          ("cuda_ms_clean_l2", chip_smoke.cuda_ms_clean_l2)):
+            t = turns(calls, ("old", "new", "new", "old"), fn, 50)
+            t["new / old"] = t["new"] / t["old"]
+            times[label][clock] = t
+            print(f"[time] segment_scan {label} {clock}: old {t['old']:.4f} "
+                  f"ms, new {t['new']:.4f} ms, new / old "
+                  f"{t['new / old']:.3f}, bound {bound:.4f} ms (turns "
+                  f"{json.dumps(t['turns'])})", flush=True)
+        del vals
+    # the timing's floor: an empty kernel between the same events
+    times["empty kernel"] = {
+        clock: fn(lambda: torch.cuda._sleep(0), 50)
+        for clock, fn in (("cuda_ms", chip_smoke.cuda_ms),
+                          ("cuda_ms_clean_l2", chip_smoke.cuda_ms_clean_l2))}
+    print(f"[time] an empty kernel: {json.dumps(times['empty kernel'])} ms",
+          flush=True)
+    print("[shape] segment_scan " + ", ".join(
+        f"{k} {v.shape[0]}" for k, v in inputs.items())
+        + "; sum of quarter values, every result exact")
+    return times
+
+
 AB = {"rank_count": rank_count_ab, "bsr_pairlist": bsr_pairlist_ab,
-      "bsr_spgemm": bsr_spgemm_ab, "range_mask": range_mask_ab}
+      "bsr_spgemm": bsr_spgemm_ab, "range_mask": range_mask_ab,
+      "segment_scan": segment_scan_ab}
 
 
 def main() -> int:

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""What the compiler made of the semiring kernels and ``range_mask``:
+"""What the compiler made of the semiring kernels, ``range_mask`` and
+``segment_scan``:
 ptxas's register and spill report, and each kernel's instruction mix from
 ``cuobjdump -sass``.
 
@@ -11,8 +12,8 @@ and fails (exit 1) if
 
 * a kernel of ``csrc/semiring_matmul.cu``, ``csrc/bsr_spgemm.cu``,
   ``csrc/semiring_tf32_sm90.cu``, ``csrc/bsr_pairlist.cu``,
-  ``csrc/bsr_pairlist_tf32_sm90.cu`` or ``csrc/range_mask.cu`` spills
-  (spill stores or loads > 0);
+  ``csrc/bsr_pairlist_tf32_sm90.cu``, ``csrc/range_mask.cu`` or
+  ``csrc/segment_scan.cu`` spills (spill stores or loads > 0);
 * a ring kernel of a max/min semiring (``semiring_matmul_kernel``,
   ``bsr_spgemm_kernel``, ``bsr_spgemm_reduce_kernel``,
   ``bsr_pairlist_kernel`` and ``bsr_pairlist_reduce_kernel`` under
@@ -25,13 +26,17 @@ and fails (exit 1) if
   ``tf32x3_kernel`` (``semiring_matmul`` and, under a block mask,
   ``bsr_spgemm``) holds other than 12 ``HGMMA.64x128x8.F32.TF32`` (one
   32-deep slab: four k8 steps of three passes);
-* ``range_mask_kernel`` or the masked ring store ``bsr_spgemm_kernel``
-  uses local memory (a stack frame, ``LDL`` or ``STL``);
+* a max/min ring kernel above, or any instance of
+  ``segment_scan_kernel``, holds an ``FMNMX`` without ``.NAN``: ⊕ must
+  propagate NaN as ``jnp.maximum`` does (PTX ``max.NaN`` / ``min.NaN``);
+* ``range_mask_kernel``, the masked ring store ``bsr_spgemm_kernel`` or
+  ``segment_scan_kernel`` uses local memory (a stack frame, ``LDL`` or
+  ``STL``);
 * ptxas reports that it serialized a kernel's ``wgmma`` instructions.
 
-For each kernel it prints the counts of FMNMX, FADD, FMUL, FFMA,
-FSETP + FSEL, LDS, HGMMA and all instructions, and the LDS share per ALU
-instruction of the contraction.
+For each kernel it prints the counts of FMNMX (and of them FMNMX.NAN),
+FADD, FMUL, FFMA, FSETP + FSEL, LDS, HGMMA and all instructions, and the
+LDS share per ALU instruction of the contraction.
 """
 from __future__ import annotations
 
@@ -60,10 +65,15 @@ RING_KERNELS = ("semiring_matmul_kernel", "bsr_spgemm_kernel",
                 "bsr_spgemm_reduce_kernel", "bsr_pairlist_kernel",
                 "bsr_pairlist_reduce_kernel")
 TF32_KERNELS = ("tf32x3_kernel", "pair_tf32_kernel")
-NO_LOCAL_KERNELS = ("range_mask_kernel", "bsr_spgemm_kernel")
+NO_LOCAL_KERNELS = ("range_mask_kernel", "bsr_spgemm_kernel",
+                    "segment_scan_kernel")
+SCAN_KERNEL = "segment_scan_kernel"
+# segment_scan's combine functors (csrc/segment_scan.cu), as mangled
+SCAN_OPS = ("3Sum", "3Min", "3Max")
 TF32_SLAB_HGMMA = "HGMMA.64x128x8.F32.TF32"
 CHECKED_SOURCES = ("semiring_matmul.cu", "bsr_spgemm.cu", "semiring_tf32_sm90.cu",
-                   "bsr_pairlist.cu", "bsr_pairlist_tf32_sm90.cu", "range_mask.cu")
+                   "bsr_pairlist.cu", "bsr_pairlist_tf32_sm90.cu", "range_mask.cu",
+                   "segment_scan.cu")
 
 
 def cuobjdump() -> str:
@@ -118,7 +128,7 @@ def sass_counts(lib: Path) -> dict:
         if m:
             fn = m.group(1)
             out[fn] = {op: 0 for op in OPS} | {"total": 0, "tf32_hgmma": 0,
-                                               "slab_hgmma": 0}
+                                               "slab_hgmma": 0, "fmnmx_nan": 0}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\S*)", line)
         if m and fn:
@@ -127,6 +137,8 @@ def sass_counts(lib: Path) -> dict:
             out[fn]["total"] += 1
             if base in out[fn]:
                 out[fn][base] += 1
+            if base == "FMNMX" and ".NAN" in op:
+                out[fn]["fmnmx_nan"] += 1
             if base == "HGMMA" and "TF32" in op:
                 out[fn]["tf32_hgmma"] += 1
             if op.startswith(TF32_SLAB_HGMMA):
@@ -181,6 +193,9 @@ def main() -> int:
             sr = semiring_of(fn) if ring else "PlusTimes"
             key = f"{ring or tf32}<{sr}>" + (
                 "" if ring else ("<reduce>" if "Lb1E" in fn else "<store>"))
+        elif local == SCAN_KERNEL:
+            op = next((o[1:] for o in SCAN_OPS if o in fn), "?")
+            key = f"{SCAN_KERNEL}<{op}>"
         else:
             key = local
         alu = c["FMNMX"] + c["FADD"] + c["FMUL"] + c["FFMA"]
@@ -192,6 +207,10 @@ def main() -> int:
             if (c["FMNMX"] < 8 * 8 * 4
                     or (c["FSEL"] + c["FSETP"]) * 8 > c["FMNMX"]):
                 failures.append(f"{key}: ⊕ is not one FMNMX a MAC ({c})")
+        if ((ring and sr != "PlusTimes") or local == SCAN_KERNEL) \
+                and c["fmnmx_nan"] != c["FMNMX"]:
+            failures.append(f"{key}: {c['FMNMX'] - c['fmnmx_nan']} FMNMX "
+                            f"without .NAN (drops NaN)")
         if tf32 and c["tf32_hgmma"] == 0:
             failures.append(f"{key}: no HGMMA .TF32 instruction")
         if key == "tf32x3_kernel<PlusTimes><store>" and c["slab_hgmma"] != 12:
