@@ -41,9 +41,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    * the ingest fallback: the clustered n=18 A as a base takes B's first
      65,536 triples; its keyspace is too large to linearize into int32,
      so the merge is concat + dedup and ``rank_count`` must not launch;
+   * the dist path, on a one-rank NCCL mesh on the card
+     (``make_mesh``): the clustered n=18 triples of the main path as
+     ``DistAssoc`` A and B on their union keyspaces, then the row
+     ``Range`` selection, ``A + B``, ``A.mul(B)``, ``A[sel, :] = 2.0`` on
+     a copy, ``col_reduce`` and ``row_reduce`` under ``PLUS_TIMES`` and
+     ``MAX_PLUS``, ``col_degree``, ``matmul_dense_vec`` of a ones vector,
+     ``(A.lazy()[sel, :] + B.lazy()[sel, :]).collect()``,
+     ``(A.lazy() + B.lazy()).sum(axis=1).collect()``,
+     ``gather_replicated()`` and ``to_assoc()``, each beside the same
+     operation on the main path's ``AssocTensor``s (the ``[dist path]``
+     line); ``range_mask`` must launch in the dist selection and in the
+     assignment, and each dist operation must make the collectives its
+     JAX ``@contract`` declares (0 shard-local, 1 a reduction); then the
+     ingest workload at n=15 over ``DistAssoc`` bases, with no collective;
 3. the results held against the host ``Assoc`` (numpy/scipy): counts,
    checksums and reduced vectors at n=18, every entry at n=12, on a
-   clustered n=14 run and of every ingest snapshot;
+   clustered n=14 run and of every ingest snapshot; every dist result
+   entry by entry against the host and against the device result beside
+   it;
 4. each kernel against its plain torch version on the card, on inputs of
    the main path's shapes, under all six semirings where a semiring
    applies.  The matmul inputs are multiples of 1/4 in [1/4, 2], so every
@@ -684,8 +700,9 @@ def main() -> int:
         import numpy as np
 
         from repro_torch.core import (DISPATCH_STATS, PLAN_STATS, REGISTRY,
-                                      clear_union_cache, reset_all_stats,
-                                      spgemm)
+                                      clear_union_cache, make_mesh,
+                                      reset_all_stats, spgemm)
+        from repro_torch.core.collectives import collective_count
         from repro_torch.ingest import IngestTable
         from repro_torch.core.select import compile_selector
         from repro_torch.kernels import LAUNCHES, cuda_lib, reset_launch_counts
@@ -817,12 +834,61 @@ def main() -> int:
     if fb_launches["rank_count"] != 0:
         failures.append("rank_count launched on the concat fallback")
 
+    # the dist path: a one-rank NCCL mesh on the card, the clustered n=18
+    # triples of the main path and the ingest workload at n=15
+    t0 = time.perf_counter()
+    mesh = make_mesh(dev)
+    report["make_mesh_s"] = time.perf_counter() - t0
+    reset_all_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    dist = main_path.build_dist(clus["raw"], mesh, dev)
+    res_d = main_path.drive_dist(dist["A"], dist["B"], clus["A"], clus["B"],
+                                 res["selector"])
+    ing_d = main_path.build_ingest(N_INGEST, dev, mesh=mesh)
+    n_coll = collective_count()
+    res_di = main_path.drive_ingest(ing_d)
+    ingest_coll = collective_count() - n_coll
+    torch.cuda.synchronize()
+    dist_launches = dict(LAUNCHES)
+    report["dist_path_s"] = time.perf_counter() - t0
+    report["launches"]["dist"] = dist_launches
+    report["dist_ms"] = {name: {"dist": d * 1e3, "assoc_tensor":
+                                None if t is None else t * 1e3}
+                         for name, (d, t) in res_d["seconds"].items()}
+    report["dist_ms"]["from_triples"] = {
+        "dist": dist["seconds"]["dist from_triples"] * 1e3,
+        "assoc_tensor": clus["seconds"]["from_triples"] * 1e3}
+    report["dist_collectives"] = res_d["collectives"]
+    report["dist_range_mask"] = res_d["range_mask"]
+    report["dist_ingest_step_s"] = {agg: r["seconds"] for agg, r in
+                                    res_di["per_aggregate"].items()}
+    log(f"[dist path] one-rank {mesh.backend} mesh on {mesh.device} "
+        f"(made in {report['make_mesh_s']:.3f} s), clustered n={gen_n} and "
+        f"ingest n={N_INGEST}: {report['dist_path_s']:.1f} s on "
+        f"{nvidia_smi_line()}")
+    log("[dist path] ms, DistAssoc beside AssocTensor "
+        + json.dumps(report["dist_ms"]))
+    log(f"[dist path] collectives {res_d['collectives']}, ingest "
+        f"{ingest_coll}; range_mask launches {res_d['range_mask']}")
+    log("[dist path] ingest step seconds "
+        + json.dumps(report["dist_ingest_step_s"]))
+    for name in ("select", "setitem"):
+        if res_d["range_mask"][name] < 1:
+            failures.append(f"range_mask was not launched in the dist {name}")
+    if ingest_coll != 0:
+        failures.append(f"the dist ingest made {ingest_coll} collectives")
+
     # -- phase 3: host checks --------------------------------------------------
     t0 = time.perf_counter()
     checks = main_path.check_clustered(clus["raw"], res, full=False)
     checks += main_path.check_uniform(uni["raw"], res_u, full=True)
     checks += main_path.check_ingest(ing["raw"], res_i)
     checks += main_path.check_ingest_fallback(clus["raw"], res_f)
+    checks += main_path.check_dist(clus["raw"], res_d)
+    checks += [(f"dist {name}", ok, det) for name, ok, det in
+               main_path.check_ingest(ing_d["raw"], res_di)]
+    checks += main_path.check_dist_ingest(res_di, res_i)
     small = main_path.build_clustered(N_FULL, dev)
     res_s = main_path.drive_clustered(small["A"], small["B"])
     checks += [(f"n={N_FULL} {name}", ok, det) for name, ok, det in
@@ -832,7 +898,8 @@ def main() -> int:
         if not ok:
             failures.append(f"host check {name}: {detail}")
     report["host_check_s"] = time.perf_counter() - t0
-    del small, res_s
+    del small, res_s, dist, res_d, ing_d, res_di
+    mesh.close()
 
     # -- phase 4: each kernel against its plain version ------------------------
     gen = torch.Generator().manual_seed(0)

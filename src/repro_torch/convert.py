@@ -6,6 +6,12 @@ the JAX one (``np.asarray`` of each field and ``KeySpace.keys``) and
 :func:`to_numpy_state` gives the same form back, so arrays move between
 the packages without either importing the other.
 
+A JAX ``DistAssoc`` holds every shard as one row of stacked ``[P, cap]``
+arrays; a port ``DistAssoc`` holds one shard per rank.
+:func:`from_jax_dist_state` takes the stacked numpy arrays, the keyspaces
+and ``row_bounds`` and gives a rank its own shard;
+:func:`to_numpy_dist_state` gives one rank's shard back as numpy.
+
 Model parameters and decode caches move the same way
 (:func:`from_jax_params`/:func:`to_numpy_params`,
 :func:`from_jax_cache`/:func:`to_numpy_cache`).  Both packages keep the
@@ -22,10 +28,13 @@ import numpy as np
 import torch
 
 from .core.assoc_tensor import AssocTensor, resolve_device
+from .core.dist_assoc import DistAssoc
 from .core.keyspace import KeySpace
+from .core.mesh import Mesh
 
-__all__ = ["from_jax_cache", "from_jax_params", "from_jax_state",
-           "to_numpy_cache", "to_numpy_params", "to_numpy_state"]
+__all__ = ["from_jax_cache", "from_jax_dist_state", "from_jax_params",
+           "from_jax_state", "to_numpy_cache", "to_numpy_dist_state",
+           "to_numpy_params", "to_numpy_state"]
 
 
 def from_jax_state(rows, cols, vals, nnz, row_keys, col_keys,
@@ -63,6 +72,32 @@ def to_numpy_state(t: AssocTensor) -> dict:
         "col_keys": t.col_space.keys,
         "val_keys": None if t.val_space is None else t.val_space.keys,
     }
+
+
+def from_jax_dist_state(rows, cols, vals, nnz, row_keys, col_keys,
+                        row_bounds, mesh: Mesh,
+                        val_keys: Optional[np.ndarray] = None) -> DistAssoc:
+    """This rank's ``DistAssoc`` from the numpy form of a JAX one: stacked
+    ``[P, cap]`` ``rows``/``cols``/``vals``, ``[P]`` ``nnz`` (P the mesh's
+    size), the keyspaces' keys and ``row_bounds``.  The shard lands on
+    ``mesh.device``."""
+    rows = np.asarray(rows)
+    if rows.shape[0] != mesh.size:
+        raise ValueError(f"{rows.shape[0]} shards for a mesh of "
+                         f"{mesh.size} ranks")
+    s = mesh.rank
+    local = from_jax_state(rows[s], np.asarray(cols)[s],
+                           np.asarray(vals)[s], np.asarray(nnz)[s],
+                           row_keys, col_keys, val_keys, device=mesh.device)
+    return DistAssoc(local, mesh,
+                     row_bounds=np.asarray(row_bounds, np.int64))
+
+
+def to_numpy_dist_state(d: DistAssoc) -> dict:
+    """This rank's shard as numpy: :func:`to_numpy_state` of ``d.local``
+    plus ``row_bounds`` and ``rank``."""
+    return {**to_numpy_state(d.local),
+            "row_bounds": np.asarray(d.row_bounds), "rank": d.mesh.rank}
 
 
 # -- model parameters and decode caches ------------------------------------------

@@ -128,12 +128,13 @@ class AssocTensor:
                      capacity: Optional[int] = None,
                      row_space: Optional[KeySpace] = None,
                      col_space: Optional[KeySpace] = None,
+                     val_space: Optional[KeySpace] = None,
                      device="cuda") -> "AssocTensor":
         """Host-side constructor (the D4M ``Assoc(row, col, val)`` analogue).
 
         Builds keyspaces (or ranks into provided ones), uploads rank triples
         to ``device``, and canonicalizes there with the ``aggregate``
-        collision op.
+        collision op.  ``val_space`` is used for string values only.
         """
         dev = resolve_device(device)
         row_keys = np.asarray(row_keys)
@@ -142,12 +143,12 @@ class AssocTensor:
         if values.ndim == 0:
             values = np.broadcast_to(values, row_keys.shape).copy()
 
-        val_space = None
         if values.dtype.kind in ("U", "S", "O"):
-            val_space = KeySpace(values)
+            val_space = val_space or KeySpace(values)
             vals_num, _ = val_space.rank(values)
             vals_num = vals_num.astype(np.float32)
         else:
+            val_space = None
             vals_num = values.astype(np.float32)
 
         row_space = row_space or KeySpace(row_keys)

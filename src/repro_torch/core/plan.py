@@ -28,8 +28,8 @@ before anything executes:
   the rewrites, mirroring ``UNION_STATS``/``DISPATCH_STATS``.
 
 The executor then evaluates the optimized graph on whichever layer the
-sources live on — host ``Assoc`` or device ``AssocTensor`` — by
-dispatching to the layers' *physical* methods.  Eager
+sources live on — host ``Assoc``, device ``AssocTensor`` or sharded
+``DistAssoc`` — by dispatching to the layers' *physical* methods.  Eager
 operators are thin wrappers that build a one-node graph and collect it, so
 lazy and eager share this single execution path.
 
@@ -156,10 +156,13 @@ def invalidate_plan_for(array_ids) -> int:
 def _layer(x) -> str:
     from .assoc import Assoc
     from .assoc_tensor import AssocTensor
+    from .dist_assoc import DistAssoc
     if isinstance(x, Assoc):
         return "host"
     if isinstance(x, AssocTensor):
         return "device"
+    if isinstance(x, DistAssoc):
+        return "dist"
     raise TypeError(f"not an associative array: {type(x)!r}")
 
 
@@ -340,6 +343,8 @@ def _single_node_fast(node: LazyExpr):
             and isinstance(node.a, Source) and isinstance(node.b, Source):
         a, b = node.a.array, node.b.array
         if isinstance(node, MatMul):
+            if _layer(a) != "dist" and _layer(b) == "dist":
+                b = b.gather_replicated()  # same rule as _eval_matmul
             return a.matmul(b, node.semiring)
         _require_same_layer(a, b, "⊕" if isinstance(node, EwiseAdd) else "⊗")
         if isinstance(node, EwiseAdd):
@@ -409,7 +414,10 @@ def _eval_inner(node: LazyExpr, memo: dict):
         return arr._select_eager((node.row_sel, node.col_sel))
     if isinstance(node, Transpose):
         arr = _eval(node.child, memo)
-        _layer(arr)  # clean TypeError when the child is not an array
+        if _layer(arr) == "dist":
+            # the transpose breaks the row partition: gather to a
+            # replicated device tensor (the rule a dist sqin follows)
+            return arr.gather_replicated().transpose()
         return arr.transpose()
     if isinstance(node, EwiseAdd):
         a_node, asels = _strip_select(node.a)
@@ -471,6 +479,10 @@ def _eval_matmul(a_node, b_node, sr, axis, memo):
     b_node, bsels = _strip_select(b_node)
     a = _eval(a_node, memo)
     b = _eval(b_node, memo)
+    if _layer(a) != "dist" and _layer(b) == "dist":
+        # a transposed (hence gathered) A against a still-sharded B: pull
+        # B to a replicated device tensor
+        b = b.gather_replicated()
     if asels is None and bsels is None:
         if axis is None:
             return a.matmul(b, sr)
@@ -479,7 +491,9 @@ def _eval_matmul(a_node, b_node, sr, axis, memo):
     layer = _layer(a)
     if layer == "host":
         return host_matmul(a, asels, b, bsels, sr, axis)
-    return _device_fused_matmul(a, asels, b, bsels, sr, axis)
+    if layer == "device":
+        return _device_fused_matmul(a, asels, b, bsels, sr, axis)
+    return a.matmul(b, sr)   # the dist product: module step 6b, raises
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +648,8 @@ def _device_fused_matmul(a, asels, b, bsels, sr, axis=None):
 def _fused_select_add(a, asels, b, bsels, sr):
     sr = get_semiring(sr)
     layer = _layer(a)
-    numeric = a.numeric and b.numeric
+    numeric = (a.local.numeric and b.local.numeric if layer == "dist"
+               else a.numeric and b.numeric)
     if not numeric:
         # string ⊕ concatenates (order-sensitive, no zero to drop): keep
         # the materializing path rather than re-deriving its semantics
@@ -644,7 +659,9 @@ def _fused_select_add(a, asels, b, bsels, sr):
     _bump("fused_select_ewise")
     if layer == "host":
         return _host_fused_select_add(a, asels, b, bsels, sr)
-    return _device_fused_select_add(a, asels, b, bsels, sr)
+    if layer == "device":
+        return _device_fused_select_add(a, asels, b, bsels, sr)
+    return _dist_fused_select_add(a, asels, b, bsels, sr)
 
 
 def _host_fused_select_add(a, asels, b, bsels, sr):
@@ -709,6 +726,36 @@ def _device_fused_select_add(a, asels, b, bsels, sr):
     return AssocTensor(r, c, v, nnz, rs_space, cs_space, a.val_space)
 
 
+def _dist_masked_local(d, sels):
+    """This rank's shard with the deselected entries' rows sentinel-masked:
+    the keep mask comes from the rank's own entries."""
+    from .assoc_tensor import AssocTensor
+
+    loc = d.local
+    if sels is None:
+        return loc
+    rc = compile_selector(sels[0], loc.row_space)
+    cc = compile_selector(sels[1], loc.col_space)
+    rows_h = loc.rows.cpu().numpy().astype(np.int64)
+    cols_h = loc.cols.cpu().numpy().astype(np.int64)
+    keep = _entry_keep(rc, cc, rows_h, cols_h)
+    if keep is None:
+        return loc
+    keep &= rows_h != int(SENT)
+    keep_dev = torch.from_numpy(keep).to(loc.device)
+    return AssocTensor(torch.where(keep_dev, loc.rows, SENT), loc.cols,
+                       loc.vals, loc.nnz, loc.row_space, loc.col_space,
+                       loc.val_space)
+
+
+def _dist_fused_select_add(a, asels, b, bsels, sr):
+    from .dist_assoc import DistAssoc, _ewise_prog
+
+    out = _ewise_prog(_dist_masked_local(a, asels),
+                      _dist_masked_local(b, bsels), sr, "add")
+    return DistAssoc(out, a.mesh, row_bounds=a.row_bounds)
+
+
 # ---------------------------------------------------------------------------
 # Shared axis reductions (the one reduce path: eager sum/reduce_rows and
 # the Reduce node all land here — dtype/zero rules from the combine helpers)
@@ -760,7 +807,17 @@ def _axis_reduce(arr, axis: Optional[int], sr):
     layer = _layer(arr)
     if layer == "host":
         return host_axis_reduce(arr, axis, sr)
-    return device_axis_reduce(arr, axis, sr)
+    if layer == "device":
+        return device_axis_reduce(arr, axis, sr)
+    if axis == 0:
+        return arr.col_reduce(sr)
+    if axis == 1:
+        return arr.row_reduce(sr)
+    srr = get_semiring(sr)
+    vec = arr.col_reduce(sr)
+    if vec.shape[0] == 0:
+        return torch.tensor(srr.zero, dtype=torch.float32, device=vec.device)
+    return srr.add_reduce(vec)
 
 
 # ---------------------------------------------------------------------------
@@ -776,14 +833,17 @@ def _reduce_add_n(terms, axis, sr, ewise_sr):
     if len(layers) != 1:
         raise TypeError(f"⊕ chain mixes layers: {sorted(layers)}")
     layer = layers.pop()
-    numeric = all(t.numeric for t in terms)
+    numeric = all((t.local.numeric if layer == "dist" else t.numeric)
+                  for t in terms)
     if not numeric:
         # string ⊕ concatenates before logical() flattens — per-entry
         # scatter would count overlaps twice; materialize the chain
         return _axis_reduce(_add_n(terms, ewise_sr), axis, sr)
     if layer == "host":
         return _host_reduce_add_n(terms, axis, sr)
-    return _device_reduce_add_n(terms, axis, sr)
+    if layer == "device":
+        return _device_reduce_add_n(terms, axis, sr)
+    return _dist_reduce_add_n(terms, axis, sr)
 
 
 def _host_reduce_add_n(terms, axis, sr):
@@ -827,6 +887,15 @@ def _device_reduce_add_n(terms, axis, sr):
     return vec
 
 
+def _dist_reduce_add_n(terms, axis, sr):
+    from .dist_assoc import _reduce_add_n_prog
+
+    d0 = terms[0]
+    n_out = len(d0.local.row_space if axis == 1 else d0.local.col_space)
+    return _reduce_add_n_prog(d0.mesh, sr, axis, n_out,
+                              [t.local for t in terms])
+
+
 # ---------------------------------------------------------------------------
 # Fused n-ary ⊕ chains (one canonicalize pass)
 # ---------------------------------------------------------------------------
@@ -839,7 +908,9 @@ def _add_n(terms, sr):
     layer = layers.pop()
     if layer == "host":
         return _host_add_n(terms, sr)
-    return _device_add_n(terms, sr)
+    if layer == "device":
+        return _device_add_n(terms, sr)
+    return _dist_add_n(terms, sr)
 
 
 def _host_add_n(terms, sr):
@@ -900,3 +971,11 @@ def _device_add_n(terms, sr):
     r, c, v, nnz = dedup_sorted_coo(rows, cols, vals, sr.add, zero=sr.zero)
     return AssocTensor(r, c, v, nnz, rs_space, cs_space,
                        aligned[0].val_space)
+
+
+def _dist_add_n(terms, sr):
+    from .dist_assoc import DistAssoc, _add_n_prog
+
+    d0 = terms[0]
+    return DistAssoc(_add_n_prog([t.local for t in terms], sr), d0.mesh,
+                     row_bounds=d0.row_bounds)

@@ -16,8 +16,11 @@ The LSM read path of the device layer has three steps:
   linearize into int32 (``nrows·ncols ≥ 2³¹−1``): concat + one
   canonicalize, the same result in O(cap log cap).
 
-The sharded overlay merge (``dist_merge``) comes with the port's
-``DistAssoc``.
+* :func:`dist_merge` — the sharded layer's merge: each rank concatenates
+  its own shard (re-ranked onto the union keyspaces when they grew) with
+  the delta that ``IngestTable.insert`` routed to it, and canonicalizes
+  once.  Zero collectives; ``rank_count`` is not used, as in the JAX
+  package.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.core.assoc_tensor import coo_compact
 from repro_torch.core.coo import SENT, dedup_sorted_coo
 from repro_torch.kernels.sorted_merge.ops import overlay_scatter
 
-__all__ = ["AGG_OPS", "delta_canon", "merge_read"]
+__all__ = ["AGG_OPS", "delta_canon", "dist_merge", "merge_read"]
 
 # Device ingest aggregates: the associative AND commutative monoids only
 # (the device canonicalization is a sort, so an order-sensitive ⊕ such as
@@ -107,3 +110,21 @@ def merge_read(base, dr, dc, dv, aggregate: str, *, nrows: int, ncols: int):
                                 max(ncols, 1), aggregate)
     return _merge_concat_prog(base.rows, base.cols, base.vals, dr, dc, dv,
                               aggregate)
+
+
+
+def dist_merge(loc, dr, dc, dv, rmap, cmap, aggregate: str, rerank: bool):
+    """The sharded overlay merge on this rank: its base shard ``loc``
+    (re-ranked through ``rmap``/``cmap`` when ``rerank``) ⊕ the delta
+    routed to it, by concat + one canonicalize.  Zero collectives: the
+    delta is pre-routed to the owning row shard.  Returns canonical
+    ``(rows, cols, vals, nnz)`` of length ``cap + capd``."""
+    br, bc, bv = loc.rows, loc.cols, loc.vals
+    if rerank:
+        ok = br != SENT
+        br = torch.where(ok, rmap[br.clamp(0, rmap.shape[0] - 1).long()],
+                         SENT)
+        bc = torch.where(ok, cmap[bc.clamp(0, cmap.shape[0] - 1).long()],
+                         SENT)
+    return dedup_sorted_coo(torch.cat([br, dr]), torch.cat([bc, dc]),
+                            torch.cat([bv, dv]), _agg_op(aggregate))

@@ -1,11 +1,13 @@
 """LSM-style mutable overlay over a resident associative array.
 
-:class:`IngestTable` wraps a base array of the host (``Assoc``) or device
-(``AssocTensor``) layer with the Accumulo tablet-server write path:
+:class:`IngestTable` wraps a base array from any of the three layers
+(host ``Assoc``, device ``AssocTensor``, sharded ``DistAssoc``) with the
+Accumulo tablet-server write path:
 
 * ``insert(rows, cols, vals)`` appends a raw triple batch to a host-side
   **delta buffer** — list appends only, no canonicalization, no device
-  work;
+  work; for the sharded layer the batch is routed by key interval to the
+  owning row shard (zero collectives);
 * ``snapshot()`` is the **merge-on-read** view: base ⊕ delta through the
   overlay merge (:mod:`repro_torch.ingest.merge`), memoized per
   (version, delta-depth) so repeated reads between mutations reuse one
@@ -19,13 +21,14 @@
 
 Aggregation matches a one-shot constructor over the concatenated
 triples: ⊕ collisions combine base-first (the host ``combine`` order);
-the device layer restricts ⊕ to the commutative monoids
+the device and dist layers restrict ⊕ to the commutative monoids
 (``sum``/``min``/``max``), host tables accept any ``Assoc`` aggregator
 (including order-sensitive ``"concat"``).  One difference comes from the
 layers themselves: the host constructor drops explicit-zero *raw* values
 before aggregation while the device constructor drops zero *results*
-after it — ingest keeps each layer's own semantics.  The sharded layer
-(``DistAssoc``) is not ported yet and is rejected.
+after it — ingest keeps each layer's own semantics.  A dist table is
+driven SPMD, as its ``DistAssoc`` is: every rank inserts the same batches
+and reads the same snapshots, and each merges only its own shard.
 """
 from __future__ import annotations
 
@@ -46,28 +49,37 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _boundary_keys(space, bounds) -> np.ndarray:
+    """First key of shards 1..S-1 — the key-interval routing table."""
+    keys = space.keys
+    if len(keys) == 0:
+        return keys[:0]
+    idx = np.minimum(np.asarray(bounds[1:-1], dtype=np.int64),
+                     len(keys) - 1)
+    return keys[idx]
+
+
 class IngestTable:
     """Mutable LSM overlay (delta buffer + merge-on-read + compaction)."""
 
     def __init__(self, base, *, aggregate: str = "sum",
                  compact_threshold: int = 4096, name: str = ""):
-        from repro_torch.core import Assoc, AssocTensor
+        from repro_torch.core import Assoc, AssocTensor, DistAssoc
 
         if isinstance(base, Assoc):
             self.layer = "host"
         elif isinstance(base, AssocTensor):
             self.layer = "device"
-        elif type(base).__name__ == "DistAssoc":
-            raise TypeError(
-                "IngestTable over a sharded DistAssoc is not ported yet: it "
-                "comes with the port's DistAssoc (ROADMAP module step 6)")
+        elif isinstance(base, DistAssoc):
+            self.layer = "dist"
         else:
             raise TypeError(
-                f"IngestTable base must be Assoc/AssocTensor, got "
+                f"IngestTable base must be Assoc/AssocTensor/DistAssoc, got "
                 f"{type(base).__name__}")
-        if self.layer == "device":
-            if base.val_space is not None:
-                raise TypeError("device ingest requires numeric values")
+        if self.layer in ("device", "dist"):
+            if getattr(base, "local", base).val_space is not None:
+                raise TypeError(f"{self.layer} ingest requires numeric "
+                                f"values")
             from .merge import _agg_op
             _agg_op(aggregate)   # validate early, not at first read
 
@@ -78,7 +90,9 @@ class IngestTable:
         self.version = 0
 
         self._lock = threading.RLock()
+        # host/device: one flat batch list; dist: one list per shard
         self._batches: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        self._shard_batches: List[List[Tuple]] = []
         self._depth = 0
         self._last_insert_t = time.monotonic()
         self._snap: Optional[Tuple[int, int, Any]] = None  # (ver, depth, arr)
@@ -87,11 +101,17 @@ class IngestTable:
             "inserts": 0, "insert_triples": 0, "reads": 0, "merges": 0,
             "compactions": 0,
         }
+        if self.layer == "dist":
+            self._nshards = base.mesh.shape["data"]
+            self._shard_batches = [[] for _ in range(self._nshards)]
+            self._bkeys = _boundary_keys(base.local.row_space,
+                                         base.row_bounds)
 
     # -- write path ----------------------------------------------------------
     def insert(self, rows, cols, vals) -> Dict[str, int]:
-        """Append one raw triple batch (host work only: validation and a
-        list append)."""
+        """Append one raw triple batch (host work only: validates, and for
+        the dist layer routes each triple to its owning row shard by key
+        interval — the zero-collective ingest path)."""
         rows = np.asarray(rows)
         cols = np.asarray(cols)
         vals = np.asarray(vals)
@@ -101,14 +121,24 @@ class IngestTable:
                 f"{len(rows)}/{len(cols)}/{len(vals)}")
         if len(rows) == 0:
             return {"accepted": 0, "delta_depth": self._depth}
-        if self.layer == "device" and vals.dtype.kind not in "fiub":
+        if self.layer in ("device", "dist") and vals.dtype.kind not in "fiub":
             raise TypeError(
-                f"device ingest requires numeric values, got dtype "
+                f"{self.layer} ingest requires numeric values, got dtype "
                 f"{vals.dtype}")
         if vals.dtype.kind in "fiub":
             vals = vals.astype(np.float64)
         with self._lock:
-            self._batches.append((rows, cols, vals))
+            if self.layer == "dist" and not len(self._bkeys):
+                self._shard_batches[0].append((rows, cols, vals))  # 1 shard
+            elif self.layer == "dist":
+                shard = np.searchsorted(self._bkeys, rows, side="right")
+                for s in range(self._nshards):
+                    m = shard == s
+                    if m.any():
+                        self._shard_batches[s].append(
+                            (rows[m], cols[m], vals[m]))
+            else:
+                self._batches.append((rows, cols, vals))
             self._depth += len(rows)
             self._last_insert_t = time.monotonic()
             self.stats["inserts"] += 1
@@ -158,7 +188,7 @@ class IngestTable:
         layer); keeps the base space OBJECT when content is unchanged so
         digests and compile-cache keys stay put."""
         from repro_torch.core import KeySpace
-        base = self.base
+        base = self.base if self.layer == "device" else self.base.local
         rs, rmap, _ = base.row_space.union(KeySpace(d_rows))
         cs, cmap, _ = base.col_space.union(KeySpace(d_cols))
         if rs == base.row_space:
@@ -203,6 +233,53 @@ class IngestTable:
                                       nrows=len(rs), ncols=len(cs))
         return AssocTensor(r, c, v, nnz, rs, cs, None)
 
+    def _merge_dist(self):
+        """Every rank: the union keyspaces and new bounds over all shards'
+        deltas (host); then its own shard's merge (no collective)."""
+        from repro_torch.core import AssocTensor, DistAssoc
+        from repro_torch.core.assoc_tensor import _upload_map
+        from repro_torch.core.spgemm import _stage
+        from .merge import dist_merge
+
+        base = self.base
+        dev = base.device
+        with _stage("delta_keys", dev):    # host: key unions and ranks
+            per_shard = [self._shard_triples(s) for s in range(self._nshards)]
+            d_rows = np.concatenate([t[0] for t in per_shard])
+            d_cols = np.concatenate([t[1] for t in per_shard])
+            rs, cs, rmap, cmap, rerank = self._union_spaces(d_rows, d_cols)
+            # new shard bounds: ranks of the old boundary KEYS in the union
+            # space — key-interval ownership is the invariant, so the
+            # insert routing and the rank partition stay consistent
+            nb = np.empty(self._nshards + 1, dtype=np.int64)
+            nb[0], nb[-1] = 0, len(rs)
+            if len(self._bkeys):
+                nb[1:-1] = np.searchsorted(rs.keys, self._bkeys, side="left")
+            else:
+                nb[1:-1] = len(rs)
+            capd = _next_pow2(max((len(t[0]) for t in per_shard), default=8))
+            r_k, c_k, v = per_shard[base.mesh.rank]
+            rr, _ = rs.rank(r_k)
+            cr, _ = cs.rank(c_k)
+        with _stage("upload", dev):
+            dr, dc, dv = self._pad_ranks(rr, cr, v, capd, dev)
+            rm = _upload_map(rmap if rerank else [], dev)
+            cm = _upload_map(cmap if rerank else [], dev)
+        with _stage("merge", dev):
+            r, c, vv, nnz = dist_merge(base.local, dr, dc, dv, rm, cm,
+                                       self.aggregate, rerank)
+        return DistAssoc(AssocTensor(r, c, vv, nnz, rs, cs, None), base.mesh,
+                         row_bounds=nb)
+
+    def _shard_triples(self, s: int):
+        batches = self._shard_batches[s]
+        if not batches:
+            e = self.base.local.row_space.keys[:0]
+            return e, e, np.empty(0, np.float64)
+        return (np.concatenate([b[0] for b in batches]),
+                np.concatenate([b[1] for b in batches]),
+                np.concatenate([b[2] for b in batches]))
+
     # -- compaction ----------------------------------------------------------
     def compact(self) -> Dict[str, int]:
         """Fold delta into a new base (reusing the cached merge when the
@@ -221,6 +298,10 @@ class IngestTable:
             self._snap = None
             self.base = new_base
             self._batches = []
+            if self.layer == "dist":
+                self._shard_batches = [[] for _ in range(self._nshards)]
+                self._bkeys = _boundary_keys(new_base.local.row_space,
+                                             new_base.row_bounds)
             self._depth = 0
             self.version += 1
             self.stats["compactions"] += 1
@@ -235,8 +316,9 @@ class IngestTable:
     @staticmethod
     def _stale_digests(retired, new_base) -> set:
         def spaces(a):
-            rs = getattr(a, "row_space", None)
-            cs = getattr(a, "col_space", None)
+            loc = getattr(a, "local", a)
+            rs = getattr(loc, "row_space", None)
+            cs = getattr(loc, "col_space", None)
             return [s for s in (rs, cs) if s is not None]
 
         live = {s.digest for s in spaces(new_base)}

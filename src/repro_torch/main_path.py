@@ -18,11 +18,21 @@ Two workloads (:mod:`repro_torch.configs.d4m_bench`):
   halfway and at the end, a row ``Range`` selection on the snapshot,
   ``compact()``, one more batch and a snapshot, for ``aggregate="sum"``
   and ``"max"``; and the concat fallback (:func:`drive_ingest_fallback`)
-  over an array whose keyspace is too large to linearize into int32.
+  over an array whose keyspace is too large to linearize into int32;
+* **dist** (the clustered arrays on a mesh, :func:`build_dist` /
+  :func:`drive_dist`) — ``DistAssoc`` A and B on their union keyspaces:
+  the row ``Range`` selection, ``A + B``, ``A.mul(B)``, a scalar
+  assignment, ``col_reduce``/``row_reduce`` under ``PLUS_TIMES`` and
+  ``MAX_PLUS``, ``col_degree``, ``matmul_dense_vec`` of a ones vector, the
+  lazy select-⊕ and ⊕-reduce pipelines, ``gather_replicated`` and
+  ``to_assoc`` — each beside the same operation on the device
+  ``AssocTensor``s, with the collectives and ``range_mask`` launches each
+  dist operation made; and the ingest workload over a ``DistAssoc`` base
+  (``build_ingest(..., mesh=)``).
 
-:func:`check_clustered` / :func:`check_uniform` / :func:`check_ingest` hold
-the results against the host ``Assoc`` (numpy/scipy) built from the same
-raw triples — a check that shares no code with the torch device path.  ``full=True`` compares
+:func:`check_clustered` / :func:`check_uniform` / :func:`check_ingest` /
+:func:`check_dist` hold the results against the host ``Assoc``
+(numpy/scipy) built from the same raw triples — a check that shares no code with the torch device path.  ``full=True`` compares
 every result entry by entry; otherwise counts, checksums and the reduced
 vectors are compared.  ``chip_smoke.py`` runs this on the card; the tests
 run it on the CPU.
@@ -36,13 +46,18 @@ import numpy as np
 import torch
 
 from .configs.d4m_bench import make_clustered, make_dataset
-from .core import MIN_PLUS, PLUS_TIMES, Assoc, AssocTensor, Range
+from .core import (MAX_PLUS, MIN_PLUS, PLUS_TIMES, Assoc, AssocTensor,
+                   DistAssoc, KeySpace, Range)
+from .core.collectives import collective_count
+from .core.plan import host_axis_reduce
 from .ingest import IngestTable
+from .kernels import LAUNCHES
 
-__all__ = ["build_clustered", "build_uniform", "build_ingest",
-           "drive_clustered", "drive_uniform", "drive_ingest",
+__all__ = ["build_clustered", "build_uniform", "build_ingest", "build_dist",
+           "drive_clustered", "drive_uniform", "drive_ingest", "drive_dist",
            "drive_ingest_fallback", "check_clustered", "check_uniform",
-           "check_ingest", "check_ingest_fallback", "row_range"]
+           "check_ingest", "check_ingest_fallback", "check_dist",
+           "check_dist_ingest", "row_range", "DIST_COLLECTIVES"]
 
 INGEST_AGGREGATES = ("sum", "max")
 INGEST_BATCHES = 16
@@ -93,10 +108,11 @@ def build_uniform(n: int, device) -> dict:
             "A": a, "B": b}
 
 
-def row_range(a: AssocTensor) -> Range:
+def row_range(a) -> Range:
     """The row selection of the main path: the second quarter of A's row
-    keys (a contiguous rank box, so it runs the range kernel)."""
-    keys = a.row_space.keys
+    keys (a contiguous rank box, so it runs the range kernel); ``a`` is an
+    ``AssocTensor`` or a ``DistAssoc``."""
+    keys = getattr(a, "local", a).row_space.keys
     return Range(keys[len(keys) // 4], keys[len(keys) // 2])
 
 
@@ -135,15 +151,21 @@ def drive_uniform(a: AssocTensor, b: AssocTensor) -> dict:
     return out
 
 
-def build_ingest(n: int, device) -> dict:
+def build_ingest(n: int, device, mesh=None) -> dict:
     """The uniform triples at size n (values 1..100) and one base array
     over A's triples per ingest aggregate (built with that aggregate, so
-    base ⊕ delta equals a one-shot build over all triples)."""
+    base ⊕ delta equals a one-shot build over all triples): an
+    ``AssocTensor``, or with ``mesh`` a ``DistAssoc``."""
     d = make_dataset(n)
     vals = d["num_vals"] + 1.0
-    bases = {agg: AssocTensor.from_triples(d["rows"], d["cols"], vals,
-                                           aggregate=agg, device=device)
-             for agg in INGEST_AGGREGATES}
+    if mesh is None:
+        bases = {agg: AssocTensor.from_triples(d["rows"], d["cols"], vals,
+                                               aggregate=agg, device=device)
+                 for agg in INGEST_AGGREGATES}
+    else:
+        bases = {agg: DistAssoc.from_triples(d["rows"], d["cols"], vals, mesh,
+                                             aggregate=agg, device=device)
+                 for agg in INGEST_AGGREGATES}
     return {"raw": (d["rows"], d["cols"], d["rows2"], d["cols2"], vals),
             "bases": bases}
 
@@ -195,6 +217,99 @@ def drive_ingest_fallback(a: AssocTensor, raw, n_insert: int = 65536
             "stats": dict(table.stats), "seconds": clock.seconds}
 
 
+# the collectives each dist operation of drive_dist makes: the numbers the
+# JAX package's @contract declarations give (gather_replicated and
+# to_assoc: one all_gather)
+DIST_COLLECTIVES = {
+    "select": 0, "add": 0, "mul": 0, "setitem": 0, "lazy_select_add": 0,
+    "col_reduce plus_times": 1, "col_reduce max_plus": 1,
+    "row_reduce plus_times": 1, "row_reduce max_plus": 1,
+    "col_degree": 1, "matmul_dense_vec": 1, "lazy_add_sum": 1,
+    "gather_replicated": 1, "to_assoc": 1,
+}
+
+
+def build_dist(raw, mesh, device) -> dict:
+    """The clustered A and B as ``DistAssoc``s on ``mesh``, both on the
+    union of their keyspaces (element-wise dist operands share their
+    keyspaces and row partition)."""
+    rows, cols, rows2, cols2 = raw
+    rs = KeySpace(np.concatenate([rows, rows2]))
+    cs = KeySpace(np.concatenate([cols, cols2]))
+    clock = _Clock(device)
+    a = clock("dist from_triples", DistAssoc.from_triples, rows, cols, 1.0,
+              mesh, row_space=rs, col_space=cs, device=device)
+    b = DistAssoc.from_triples(rows2, cols2, 1.0, mesh, row_space=rs,
+                               col_space=cs, device=device)
+    return {"raw": raw, "A": a, "B": b, "seconds": clock.seconds}
+
+
+def _setitem_copy(x, sel, value):
+    """``x[sel, :] = value`` on a copy of ``x`` (either layer)."""
+    if isinstance(x, DistAssoc):
+        c = DistAssoc(x.local, x.mesh, row_bounds=x.row_bounds)
+    else:
+        c = AssocTensor(x.rows, x.cols, x.vals, x.nnz, x.row_space,
+                        x.col_space, x.val_space)
+    c[sel, :] = value
+    return c
+
+
+def drive_dist(a: DistAssoc, b: DistAssoc, ta: AssocTensor,
+               tb: AssocTensor, sel) -> dict:
+    """Every dist operation of the main path, each beside the same operation
+    on the device arrays ``ta``/``tb`` (the same triples): results, wall
+    seconds of both (each ended by a device sync; None where the device
+    layer has no such operation: its result is ``ta`` itself), and the
+    collectives and ``range_mask`` launches of the dist operation alone."""
+    ones = torch.ones(len(a.local.col_space), device=a.device)
+    steps = [
+        ("select", lambda: a[sel, :], lambda: ta[sel, :]),
+        ("add", lambda: a + b, lambda: ta + tb),
+        ("mul", lambda: a.mul(b), lambda: ta.mul(tb)),
+        ("setitem", lambda: _setitem_copy(a, sel, 2.0),
+         lambda: _setitem_copy(ta, sel, 2.0)),
+        ("lazy_select_add",
+         lambda: (a.lazy()[sel, :] + b.lazy()[sel, :]).collect(),
+         lambda: (ta.lazy()[sel, :] + tb.lazy()[sel, :]).collect()),
+    ]
+    for sr in (PLUS_TIMES, MAX_PLUS):
+        steps += [
+            (f"col_reduce {sr.name}", lambda sr=sr: a.col_reduce(sr),
+             lambda sr=sr: ta.reduce_cols(sr)),
+            (f"row_reduce {sr.name}", lambda sr=sr: a.row_reduce(sr),
+             lambda sr=sr: ta.reduce_rows(sr))]
+    steps += [
+        ("col_degree", a.col_degree, lambda: ta.logical().reduce_cols()),
+        # A ⊗.⊕ ones under (+, ×) is A's row sums
+        ("matmul_dense_vec", lambda: a.matmul_dense_vec(ones),
+         lambda: ta.reduce_rows(PLUS_TIMES)),
+        ("lazy_add_sum", lambda: (a.lazy() + b.lazy()).sum(axis=1).collect(),
+         lambda: (ta.lazy() + tb.lazy()).sum(axis=1).collect()),
+        ("gather_replicated", a.gather_replicated, None),
+        ("to_assoc", a.to_assoc, ta.to_assoc),
+    ]
+    out = {"dist": {}, "device": {}, "seconds": {}, "collectives": {},
+           "range_mask": {}}
+    for name, dist_fn, dev_fn in steps:
+        n_coll, n_rm = collective_count(), LAUNCHES["range_mask"]
+        t0 = time.perf_counter()
+        out["dist"][name] = dist_fn()
+        _sync(a.device)
+        t1 = time.perf_counter()
+        out["collectives"][name] = collective_count() - n_coll
+        out["range_mask"][name] = LAUNCHES["range_mask"] - n_rm
+        if dev_fn is None:
+            out["device"][name], dev_s = ta, None
+        else:
+            out["device"][name] = dev_fn()
+            _sync(ta.device)
+            dev_s = time.perf_counter() - t1
+        out["seconds"][name] = (t1 - t0, dev_s)
+    out["selector"] = sel
+    return out
+
+
 # -- host checks ----------------------------------------------------------------
 
 def _stats(x: Assoc) -> Tuple[int, float]:
@@ -208,8 +323,8 @@ def _tensor_stats(t: AssocTensor) -> Tuple[int, float]:
 
 def _compare(name: str, got: AssocTensor, want: Assoc, full: bool):
     if full:
-        ok = got.to_assoc() == want
-        return name, bool(ok), f"nnz {int(got.nnz)} vs {want.nnz()}"
+        g = got.to_assoc()
+        return name, bool(g == want), f"nnz {g.nnz()} vs {want.nnz()}"
     g, w = _tensor_stats(got), _stats(want)
     return name, g == w, f"(nnz, sum) {g} vs {w}"
 
@@ -309,3 +424,111 @@ def check_ingest_fallback(raw, results: dict) -> List[Tuple[str, bool, str]]:
     delta = Assoc(rows2[:n], cols2[:n], 1.0, aggregate="sum")
     return [_compare("ingest fallback snapshot", results["snapshot"],
                      ha.combine(delta, "sum"), False)]
+
+
+def _key_triples(x):
+    """(row keys, col keys, values) of the stored entries of a host
+    ``Assoc``, an ``AssocTensor`` or a ``DistAssoc`` (gathered: one
+    collective), in (row, col) key order."""
+    if isinstance(x, Assoc):
+        coo = x.adj.tocoo()
+        order = np.lexsort((coo.col, coo.row))
+        return (x.row[coo.row[order]], x.col[coo.col[order]],
+                coo.data[order].astype(np.float64))
+    if isinstance(x, DistAssoc):
+        x = x.gather_replicated()
+    n = int(x.nnz)
+    return (x.row_space.keys[x.rows[:n].cpu().numpy()],
+            x.col_space.keys[x.cols[:n].cpu().numpy()],
+            x.vals[:n].double().cpu().numpy())
+
+
+def _same_triples(name: str, g, w):
+    """Compare two :func:`_key_triples` results."""
+    ok = len(g[0]) == len(w[0]) and all(np.array_equal(p, q)
+                                       for p, q in zip(g, w))
+    return name, ok, f"nnz {len(g[0])} vs {len(w[0])}"
+
+
+def _vec_on(keys, vec_keys, vec, zero) -> np.ndarray:
+    """``vec`` over ``vec_keys`` spread onto the (sorted) ``keys``, with
+    ``zero`` at keys it does not hold."""
+    out = np.full(len(keys), zero, np.float64)
+    out[np.searchsorted(keys, vec_keys)] = np.asarray(vec, np.float64)
+    return out
+
+
+def check_dist(raw, drv: dict) -> List[Tuple[str, bool, str]]:
+    """Every dist result of :func:`drive_dist` against the host ``Assoc``
+    and against the device result beside it, exactly (the values are 1.0
+    and 2.0, so every sum is an exact integer), and each dist operation's
+    collectives against :data:`DIST_COLLECTIVES`."""
+    rows, cols, rows2, cols2 = raw
+    ha = Assoc(rows, cols, 1.0)
+    hb = Assoc(rows2, cols2, 1.0)
+    sel = drv["selector"]
+    hsel = ha[sel, :]
+    r, c, v = ha.triples()
+    want_set = Assoc(r, c, np.where(np.isin(r, hsel.row), 2.0, v))
+    arrays = {"select": hsel, "add": ha + hb, "mul": ha.mul(hb),
+              "setitem": want_set,
+              "lazy_select_add": hsel + hb[sel, :],
+              "gather_replicated": ha}
+    dist, dev = drv["dist"], drv["device"]
+    checks = []
+    for name, want in arrays.items():
+        g = _key_triples(dist[name])
+        checks.append(_same_triples(f"dist {name} vs host", g,
+                                    _key_triples(want)))
+        checks.append(_same_triples(f"dist {name} vs device", g,
+                                    _key_triples(dev[name])))
+    checks.append(("dist to_assoc vs host", bool(dist["to_assoc"] == ha),
+                   f"nnz {dist['to_assoc'].nnz()} vs {ha.nnz()}"))
+    # each vector: its semiring, the host's (keys, vector) and the keys of
+    # the device vector; every dist vector lies on the union keyspaces
+    loc, ta = dist["select"].local, dev["select"]
+    col, row = (ha.col, ta.col_space.keys), (ha.row, ta.row_space.keys)
+    hab = arrays["add"]
+    vectors = {f"col_reduce {sr.name}": (sr, host_axis_reduce(ha, 0, sr), col)
+               for sr in (PLUS_TIMES, MAX_PLUS)}
+    vectors.update({f"row_reduce {sr.name}":
+                    (sr, host_axis_reduce(ha, 1, sr), row)
+                    for sr in (PLUS_TIMES, MAX_PLUS)})
+    vectors["col_degree"] = (PLUS_TIMES, np.diff(ha.adj.tocsc().indptr), col)
+    vectors["matmul_dense_vec"] = (
+        PLUS_TIMES, np.asarray(ha.adj @ np.ones(len(ha.col))).ravel(), row)
+    vectors["lazy_add_sum"] = (PLUS_TIMES,
+                               host_axis_reduce(hab, 1, PLUS_TIMES),
+                               (hab.row, loc.row_space.keys))
+    for name, (sr, want, (host_keys, dev_keys)) in vectors.items():
+        keys = (loc.col_space.keys if name.startswith("col")
+                else loc.row_space.keys)
+        w = _vec_on(keys, host_keys, want, sr.zero)
+        g = dist[name].double().cpu().numpy()
+        d = _vec_on(keys, dev_keys, dev[name].double().cpu().numpy(),
+                    sr.zero)
+        checks.append((f"dist {name} vs host", bool(np.array_equal(g, w)),
+                       f"len {len(g)} vs {len(w)}"))
+        checks.append((f"dist {name} vs device", bool(np.array_equal(g, d)),
+                       f"len {len(g)} vs {len(d)}"))
+    for name, want in DIST_COLLECTIVES.items():
+        got = drv["collectives"][name]
+        checks.append((f"dist {name} collectives", got == want,
+                       f"{got} vs {want}"))
+    return checks
+
+
+def check_dist_ingest(dist_res: dict, dev_res: dict
+                      ) -> List[Tuple[str, bool, str]]:
+    """Each snapshot and selection of the ingest workload over a
+    ``DistAssoc`` base against the same over an ``AssocTensor`` base,
+    entry by entry (both are held against the host by
+    :func:`check_ingest`)."""
+    checks = []
+    for agg, r in dist_res["per_aggregate"].items():
+        d = dev_res["per_aggregate"][agg]
+        for key in ("snap_half", "snap_full", "select", "snap_after"):
+            checks.append(_same_triples(f"dist ingest {agg} {key} vs device",
+                                        _key_triples(r[key]),
+                                        _key_triples(d[key])))
+    return checks

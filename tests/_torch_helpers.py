@@ -1,5 +1,11 @@
 """Shared helpers of the ``test_torch_*`` files: seeded numpy inputs fed to
 both the JAX package (``repro``) and its PyTorch port (``repro_torch``)."""
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -58,3 +64,87 @@ def _reset_port_stats():
     from repro_torch import core
     core.reset_all_stats()
     yield
+
+
+# -- the sharded layer ----------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def cpu_mesh():
+    """The one-rank gloo mesh of this pytest process: made once, and a
+    process group of its own (``torch.distributed``'s default group stays
+    unset for every other test)."""
+    from repro_torch.core import make_mesh
+    return make_mesh("cpu")
+
+
+SRC = str(Path(__file__).resolve().parent.parent / "src")
+
+# the first lines of every port rank: no JAX, nothing of the JAX package
+_PORT_PRELUDE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.core import make_mesh
+RANK, WORLD, STORE, OUT = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+mesh = make_mesh("cpu", rank=RANK, world_size=WORLD, store_path=STORE)
+"""
+
+
+class SpmdRun:
+    """``jax_prog`` in one JAX process on ``world`` host devices
+    (``XLA_FLAGS=--xla_force_host_platform_device_count``) and ``port_prog``
+    in ``world`` port ranks on one gloo group, all started at once when
+    made, so that a module's other tests run meanwhile.  Each program
+    writes an ``.npz``: the JAX one to ``sys.argv[1]``, rank r to ``OUT``.
+    :meth:`result` waits and returns ``(jax_arrays, [rank arrays])``."""
+
+    def __init__(self, jax_prog: str, port_prog: str, tmp, world: int = 4,
+                 timeout: float = 240.0):
+        tmp = Path(tmp)
+        env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+        env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+        env["OMP_NUM_THREADS"] = "1"
+        jax_env = dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+            f"--xla_force_host_platform_device_count={world}"))
+        self.timeout = timeout
+        self.jax_out = tmp / "jax.npz"
+        self.outs = [tmp / f"rank{r}.npz" for r in range(world)]
+        self.names = ["jax"] + [f"rank {r}" for r in range(world)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c", jax_prog, str(self.jax_out)], env=jax_env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
+        self.procs += [subprocess.Popen(
+            [sys.executable, "-c", _PORT_PRELUDE + port_prog, str(r),
+             str(world), str(tmp / "store"), str(self.outs[r])], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        self._result = None
+
+    def result(self):
+        if self._result is None:
+            errors = []
+            try:
+                for name, p in zip(self.names, self.procs):
+                    _, err = p.communicate(timeout=self.timeout)
+                    if p.returncode != 0:
+                        errors.append(f"{name} exited {p.returncode}:\n"
+                                      f"{err[-3000:]}")
+            finally:
+                self.close()
+            if errors:
+                raise RuntimeError("\n".join(errors))
+            self._result = (
+                dict(np.load(self.jax_out, allow_pickle=False)),
+                [dict(np.load(o, allow_pickle=False)) for o in self.outs])
+        return self._result
+
+    def close(self) -> None:
+        """Stop whatever still runs."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()

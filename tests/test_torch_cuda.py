@@ -645,6 +645,39 @@ def test_ingest_path_on_card(card):
         assert ok, (name, detail)
 
 
+def test_dist_selection_on_card(card):
+    """On a one-rank NCCL mesh a dist selection of three rank boxes, and an
+    assignment through it, launch range_mask once a box and equal the same
+    selection of the same shard on the CPU (the plain version)."""
+    from repro_torch.core import AssocTensor, DistAssoc, Keys, make_mesh
+    mesh = make_mesh(card)
+    try:
+        rng = np.random.default_rng(3)
+        rows = np.char.zfill(rng.integers(0, 200, 5000).astype(str), 3)
+        cols = np.char.zfill(rng.integers(0, 90, 5000).astype(str), 3)
+        d = DistAssoc.from_triples(rows, cols, rng.integers(1, 9, 5000) * 1.0,
+                                   mesh, aggregate="sum", device=card)
+        rk = d.local.row_space.keys
+        sel = (Keys(list(rk[10:20]) + list(rk[50:60]) + list(rk[100:105])),
+               ":")
+        loc = d.local
+        plain = AssocTensor(loc.rows.cpu(), loc.cols.cpu(), loc.vals.cpu(),
+                            loc.nnz.cpu(), loc.row_space, loc.col_space)
+        reset_launch_counts()
+        got = d[sel].local
+        assert LAUNCHES["range_mask"] == 3
+        want = plain._select_eager(sel)
+        assert int(got.nnz) == int(want.nnz) > 0
+        for f in ("rows", "cols", "vals"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+        d[sel] = 2.0
+        assert LAUNCHES["range_mask"] == 6
+        plain[sel] = 2.0
+        assert torch.equal(d.local.vals.cpu(), plain.vals)
+    finally:
+        mesh.close()
+
+
 def test_dense_matmul_reduce_on_card(card):
     """The dense strategy's fused reduce runs the block-masked kernel and
     equals the coo strategy and the host."""

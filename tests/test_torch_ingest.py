@@ -92,13 +92,19 @@ def test_device_rejects_order_sensitive_aggregate_and_strings():
 
 
 def test_rejects_dist_base_until_module_step_6():
+    """Module step 6a has landed: the port's DistAssoc is a base; a JAX
+    DistAssoc and any other object are refused, naming the accepted
+    types."""
     import jax
+    from _torch_helpers import cpu_mesh
     mesh = jax.make_mesh((1,), ("data",))
     dist = J.DistAssoc.from_triples(*_BASE, mesh, aggregate="sum")
-    with pytest.raises(TypeError, match="module step 6"):
-        IngestTable(dist)
-    with pytest.raises(TypeError, match="Assoc/AssocTensor"):
-        IngestTable(object())
+    for bad in (dist, object()):
+        with pytest.raises(TypeError, match="Assoc/AssocTensor/DistAssoc"):
+            IngestTable(bad)
+    port = T.DistAssoc.from_triples(*_BASE, cpu_mesh(), aggregate="sum",
+                                    device="cpu")
+    assert IngestTable(port, aggregate="sum").layer == "dist"
 
 
 def test_snapshot_memoized_until_next_mutation():
