@@ -55,11 +55,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      assignment, and each dist operation must make the collectives its
      JAX ``@contract`` declares (0 shard-local, 1 a reduction); then the
      ingest workload at n=15 over ``DistAssoc`` bases, with no collective;
+   * the dist products on the same mesh: the clustered n=18 DistAssocs
+     ``A @ B`` (the cost model picks replicate at one rank; 15.6M
+     products, so its tiled compute: ``bsr_pairlist``, TF32 route), the
+     forced ``coo``, ``all_to_all`` (a one-rank ``all_to_all``) and
+     ``2d`` (grid (1, 1), no shift) strategies,
+     ``A.matmul_reduce(B, axis=0)`` under replicate and all-to-all,
+     ``A.sqout(reduce=1)``, ``A.sqin()`` and ``A.sqin(reduce=1)`` (the
+     device planner on the gathered array: ``bsr_pairlist_reduce``), the
+     lazy ``(A.lazy()[sel, :] @ B.lazy())`` with and without
+     ``.sum(axis=1)``; the uniform n=12 triples as DistAssocs:
+     ``A.matmul(B)`` under ``PLUS_TIMES`` and ``MIN_PLUS``
+     (``bsr_pairlist`` on both routes), ``A.sqin()``
+     (``semiring_matmul``) and ``A.sqin(reduce=1)``
+     (``bsr_spgemm_reduce``); each with its wall time beside the
+     ``AssocTensor``'s, strategy, collectives and launches (the
+     ``[dist product]`` lines);
 3. the results held against the host ``Assoc`` (numpy/scipy): counts,
    checksums and reduced vectors at n=18, every entry at n=12, on a
    clustered n=14 run and of every ingest snapshot; every dist result
    entry by entry against the host and against the device result beside
-   it;
+   it; every dist product against the host (counts and checksums at
+   n=18, every entry at n=12) and the main path's device result, its
+   collectives against the JAX ``@contract`` (no prologue collective at
+   one rank) and all three strategies run;
 4. each kernel against its plain torch version on the card, on inputs of
    the main path's shapes, under all six semirings where a semiring
    applies.  The matmul inputs are multiples of 1/4 in [1/4, 2], so every
@@ -879,6 +898,60 @@ def main() -> int:
     if ingest_coll != 0:
         failures.append(f"the dist ingest made {ingest_coll} collectives")
 
+    # the dist products on the same one-rank mesh: the clustered DistAssocs
+    # above and the uniform n=12 triples as DistAssocs
+    dist_u = main_path.build_dist(uni["raw"], mesh, dev)
+    reset_all_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_p = main_path.drive_dist_product(dist, dist_u, res["selector"])
+    torch.cuda.synchronize()
+    report["dist_product_s"] = time.perf_counter() - t0
+    report["launches"]["dist_product"] = dict(LAUNCHES)
+    device_s = {"A @ B": res["seconds"]["matmul"],
+                "sqout_reduce": res["seconds"]["sqout_reduce"],
+                "pipeline": res["seconds"]["pipeline"],
+                "uniform plus_times": res_u["seconds"]["plus_times"],
+                "uniform min_plus": res_u["seconds"]["min_plus"]}
+    for name in ("coo", "all_to_all", "2d"):
+        device_s[name] = res["seconds"]["matmul"]
+    report["dist_product_ms"] = {
+        name: {"dist": sec * 1e3,
+               "assoc_tensor": (device_s[name] * 1e3 if name in device_s
+                                else None),
+               "strategy": res_p["strategy"][name],
+               "collectives": res_p["collectives"][name],
+               "prologue": res_p["prologue"][name],
+               "launches": res_p["launches"][name]}
+        for name, sec in res_p["seconds"].items()}
+    report["dist_product_plan"] = res_p["plan"]
+    report["dist_product_stages_ms"] = res_p["stages_ms"]
+    log(f"[dist product] one-rank {mesh.backend} mesh, clustered n={gen_n} "
+        f"and uniform n={uni_n}: {report['dist_product_s']:.1f} s on "
+        f"{nvidia_smi_line()}")
+    log("[dist product] ms (DistAssoc, AssocTensor), strategy, collectives, "
+        "launches " + json.dumps(report["dist_product_ms"]))
+    log("[dist product] A @ B plan " + json.dumps(res_p["plan"])
+        + " stages ms " + json.dumps(res_p["stages_ms"]))
+    # each product's kernel: the tiled replicate compute (PLUS_TIMES on the
+    # TF32 route, MIN_PLUS on the ring), and sqin's device planner (bsr on
+    # the clustered array, dense on the uniform one)
+    want_kernels = {"A @ B": ("bsr_pairlist", "bsr_pairlist_tf32"),
+                    "uniform plus_times": ("bsr_pairlist",
+                                           "bsr_pairlist_tf32"),
+                    "uniform min_plus": ("bsr_pairlist",),
+                    "sqin_reduce": ("bsr_pairlist_reduce",),
+                    "uniform sqin": ("semiring_matmul",),
+                    "uniform sqin_reduce": ("bsr_spgemm_reduce",)}
+    for name, kernels_of in want_kernels.items():
+        for k in kernels_of:
+            if res_p["launches"][name].get(k, 0) < 1:
+                failures.append(f"{k} was not launched in the dist product "
+                                f"{name} (launches "
+                                f"{res_p['launches'][name]})")
+    if res_p["launches"]["uniform min_plus"].get("bsr_pairlist_tf32", 0):
+        failures.append("the dist MIN_PLUS product took the TF32 route")
+
     # -- phase 3: host checks --------------------------------------------------
     t0 = time.perf_counter()
     checks = main_path.check_clustered(clus["raw"], res, full=False)
@@ -889,6 +962,9 @@ def main() -> int:
     checks += [(f"dist {name}", ok, det) for name, ok, det in
                main_path.check_ingest(ing_d["raw"], res_di)]
     checks += main_path.check_dist_ingest(res_di, res_i)
+    checks += main_path.check_dist_product(clus["raw"], uni["raw"], res_p,
+                                           res, res_u,
+                                           clus["A"].row_space.keys)
     small = main_path.build_clustered(N_FULL, dev)
     res_s = main_path.drive_clustered(small["A"], small["B"])
     checks += [(f"n={N_FULL} {name}", ok, det) for name, ok, det in
@@ -898,7 +974,7 @@ def main() -> int:
         if not ok:
             failures.append(f"host check {name}: {detail}")
     report["host_check_s"] = time.perf_counter() - t0
-    del small, res_s, dist, res_d, ing_d, res_di
+    del small, res_s, dist, res_d, ing_d, res_di, dist_u, res_p
     mesh.close()
 
     # -- phase 4: each kernel against its plain version ------------------------

@@ -40,6 +40,7 @@ __all__ = [
     "spgemm_np",
     "spgemm_reduce_np",
     "expand_join_coo",
+    "bucket_coo_by_range",
     "dedup_sorted_coo",
     "compact_to_front",
     "sort_key",
@@ -407,3 +408,40 @@ def expand_join_coo(a_rows, a_cols, a_vals, b_rows, b_cols, b_vals,
     vals = torch.where(valid, mul(a_vals[a_of], b_vals[b_idx]),
                        torch.tensor(zero, dtype=a_vals.dtype, device=dev))
     return rows, cols, vals, total.to(torch.int32)
+
+
+def bucket_coo_by_range(rows, cols, vals, bounds, n_buckets: int,
+                        bucket_cap: int, *, zero: float):
+    """Scatter COO triples into ``[n_buckets, bucket_cap]`` buckets keyed by
+    the range of ``rows`` (shape-static, no host sync).
+
+    The routing step of the sharded-B all-to-all product: partial products
+    land on the shard that owns their output row, so each producer buckets
+    its triples by ``searchsorted(bounds[1:], rows)`` before the exchange.
+    ``bounds`` is the ``[n_buckets+1]`` rank-boundary tensor (the
+    ``row_bounds`` of the DistAssoc partition); sentinel rows and bucket
+    overflow beyond ``bucket_cap`` are dropped — callers size
+    ``bucket_cap`` from host-side exact counts so the main path never
+    overflows.  Within a bucket the triples keep their input order.
+    Returns ``(rows, cols, vals)`` each shaped ``[n_buckets, bucket_cap]``,
+    sentinel/zero padded.
+    """
+    dev = rows.device
+    ok = rows != SENT
+    dest = torch.searchsorted(bounds[1:].to(torch.int64).contiguous(),
+                              rows.to(torch.int64), right=True)
+    dest = torch.where(ok, dest, n_buckets)        # invalid → dropped
+    order = torch.sort(dest, stable=True).indices
+    d = dest[order]
+    # rank within bucket: position minus the bucket's run start
+    slot = (torch.arange(rows.shape[0], device=dev)
+            - torch.searchsorted(d, d, right=False))
+    keep = (d < n_buckets) & (slot < bucket_cap)
+    size = n_buckets * bucket_cap
+    flat = torch.where(keep, d * bucket_cap + slot, size)
+    outs = []
+    for t, fill in ((rows, SENT), (cols, SENT), (vals, zero)):
+        out = torch.full((size + 1,), fill, dtype=t.dtype, device=dev)
+        out[flat] = t[order]
+        outs.append(out[:size].reshape(n_buckets, bucket_cap))
+    return tuple(outs)

@@ -74,6 +74,10 @@ PLAN_STATS = {
     "pushdown": 0, "fused_matmul_reduce": 0,
     "fused_select_matmul": 0, "ewise_fused": 0,
     "reduce_through_add": 0, "fused_select_ewise": 0,
+    # distributed matmul strategy choices (DistAssoc.matmul/_reduce):
+    # which communication pattern the cost model — or an explicit impl=
+    # override — actually ran
+    "dist_replicate": 0, "dist_all_to_all": 0, "dist_2d": 0,
     # plan-cache entries dropped because a compaction (repro.ingest)
     # retired the Source arrays they were keyed on
     "plan_invalidations": 0,
@@ -493,7 +497,7 @@ def _eval_matmul(a_node, b_node, sr, axis, memo):
         return host_matmul(a, asels, b, bsels, sr, axis)
     if layer == "device":
         return _device_fused_matmul(a, asels, b, bsels, sr, axis)
-    return a.matmul(b, sr)   # the dist product: module step 6b, raises
+    return _dist_fused_matmul(a, asels, b, bsels, sr, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +640,46 @@ def _device_fused_matmul(a, asels, b, bsels, sr, axis=None):
         return spgemm.matmul(a, b, sr, a_keep=a_keep, b_keep=b_keep)
     return spgemm.matmul_reduce(a, b, axis, sr,
                                 a_keep=a_keep, b_keep=b_keep)
+
+
+# ---------------------------------------------------------------------------
+# Fused select→matmul, dist layer (shard-local masking)
+# ---------------------------------------------------------------------------
+
+def _dist_fused_matmul(a, asels, b, bsels, sr, axis=None):
+    """``A[asel] ⊗.⊕ B[bsel]`` (``axis``: its fused reduce) on the dist
+    layer: each rank sentinel-masks its own A shard's deselected rows IN
+    PLACE (the expand-join and the pair-list planner skip SENT entries, so
+    the sliced A never exists as a compacted array), and B's deselected
+    entries are ⊗-annihilated — value → semiring zero — rather than
+    removed: the rank arrays stay sorted for the join, and zero products
+    drop in the canonical merge (every registered semiring's zero
+    annihilates ⊗)."""
+    from .assoc_tensor import AssocTensor
+    from .dist_assoc import DistAssoc
+
+    sr = get_semiring(sr)
+    masked = DistAssoc(_dist_masked_local(a, asels), a.mesh,
+                       row_bounds=a.row_bounds)
+    bt = a._as_replicated_operand(b)
+    bt = bt if bt.numeric else bt.logical()
+    if bsels is not None:
+        rc = compile_selector(bsels[0], bt.row_space)
+        cc = compile_selector(bsels[1], bt.col_space)
+        rows_h = bt.rows.cpu().numpy().astype(np.int64)
+        cols_h = bt.cols.cpu().numpy().astype(np.int64)
+        keep = _entry_keep(rc, cc, rows_h, cols_h)
+        if keep is not None:
+            keep &= rows_h != int(SENT)
+            zero = torch.tensor(sr.zero, dtype=bt.vals.dtype,
+                                device=bt.device)
+            bt = AssocTensor(bt.rows, bt.cols,
+                             torch.where(torch.from_numpy(keep).to(
+                                 bt.device), bt.vals, zero),
+                             bt.nnz, bt.row_space, bt.col_space, None)
+    if axis is None:
+        return masked.matmul(bt, sr)
+    return masked.matmul_reduce(bt, axis, sr)
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,11 @@ from .coo import SENT, dedup_sorted_coo, expand_join_coo
 from .semiring import PLUS_TIMES, Semiring, get_semiring, scatter_combine
 
 __all__ = ["MatmulPlan", "plan_matmul", "matmul", "matmul_reduce",
-           "bsr_matmul_coo", "pack_tiles", "estimate_out_nnz", "reduce_pairs",
-           "tiles_to_coo", "stage_timing", "STAGE_MS", "TILE"]
+           "bsr_matmul_coo", "bsr_tiles_coo", "pack_tiles",
+           "estimate_out_nnz", "reduce_pairs",
+           "tiles_to_coo", "stage_timing", "STAGE_MS", "TILE",
+           "BSR_AUTO_EXPAND", "DistPlan", "dist_summary",
+           "plan_from_summaries", "plan_dist_matmul", "suggest_grid"]
 
 TILE = 128  # block edge: bm = bk = bn = 128
 
@@ -403,28 +406,22 @@ def tiles_to_coo(c_tiles: torch.Tensor, c_blocks: np.ndarray, m: int, n: int,
     return rows.to(torch.int32), cols.to(torch.int32), v, true_nnz
 
 
-def bsr_matmul_coo(plan: MatmulPlan, a_vals: torch.Tensor,
-                   b_vals: torch.Tensor, sr: Semiring, out_capacity: int, *,
-                   kernel_impl: str = "auto",
-                   bm: int = TILE, bk: int = TILE, bn: int = TILE):
-    """Execute the BSR strategy: packed tiles in, canonical COO out.
-
-    The pair-list contraction dispatches through
-    :func:`repro_torch.kernels.bsr_spgemm.ops.bsr_pairlist` — the CUDA
-    kernel on CUDA tensors, its plain torch version on CPU tensors
-    (``kernel_impl`` forwards to that dispatch).
-
-    Returns ``(rows, cols, vals, nnz, overflowed)``; the extraction runs
-    over the **present C tiles only** — never over |rowspace|×|colspace| —
-    so peak memory is tiles + the output COO.
-    """
+def bsr_tiles_coo(plan: MatmulPlan, a_vals: torch.Tensor,
+                  b_vals: torch.Tensor, sr: Semiring, out_capacity: int, *,
+                  kernel_impl: str = "auto",
+                  bm: int = TILE, bk: int = TILE, bn: int = TILE):
+    """The BSR contraction: the plan's A and B entries (``a_vals``/
+    ``b_vals`` in the plan's entry order) packed into tiles, the pair list
+    contracted by :func:`repro_torch.kernels.bsr_spgemm.ops.bsr_pairlist`
+    (the CUDA kernel on CUDA tensors, its plain torch version on CPU
+    tensors; ``kernel_impl`` forwards to that dispatch) and the present C
+    tiles read out as canonical COO.  Returns ``(rows, cols, vals,
+    true_nnz)`` with ``min(true_nnz, out_capacity)`` entries, unpadded."""
     dev = a_vals.device
     if len(plan.pair_a) == 0:
-        rows = torch.full((out_capacity,), SENT, dtype=torch.int32,
-                          device=dev)
-        return rows, rows.clone(), torch.full(
-            (out_capacity,), sr.zero, dtype=torch.float32, device=dev), \
-            torch.zeros((), dtype=torch.int32, device=dev), False
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        return empty, empty.clone(), torch.empty(
+            0, dtype=torch.float32, device=dev), 0
 
     from repro_torch.kernels.bsr_spgemm.ops import bsr_pairlist
 
@@ -442,14 +439,30 @@ def bsr_matmul_coo(plan: MatmulPlan, a_vals: torch.Tensor,
             n_c=n_c, semiring=sr, impl=kernel_impl)
     del a_tiles, b_tiles
     with _stage("tiles_to_coo", dev):
-        r, c, v, true_nnz = tiles_to_coo(c_tiles, plan.c_blocks, plan.m,
-                                         plan.n, sr.zero, out_capacity)
+        return tiles_to_coo(c_tiles, plan.c_blocks, plan.m, plan.n, sr.zero,
+                            out_capacity)
+
+
+def bsr_matmul_coo(plan: MatmulPlan, a_vals: torch.Tensor,
+                   b_vals: torch.Tensor, sr: Semiring, out_capacity: int, *,
+                   kernel_impl: str = "auto",
+                   bm: int = TILE, bk: int = TILE, bn: int = TILE):
+    """Execute the BSR strategy: packed tiles in, canonical COO out
+    (:func:`bsr_tiles_coo`, padded to ``out_capacity``).
+
+    Returns ``(rows, cols, vals, nnz, overflowed)``; the extraction runs
+    over the **present C tiles only** — never over |rowspace|×|colspace| —
+    so peak memory is tiles + the output COO.
+    """
+    r, c, v, true_nnz = bsr_tiles_coo(plan, a_vals, b_vals, sr, out_capacity,
+                                      kernel_impl=kernel_impl, bm=bm, bk=bk,
+                                      bn=bn)
     overflowed = true_nnz > out_capacity
     if overflowed:
         _warn_overflow(true_nnz, out_capacity, "bsr_matmul_coo")
     r, c, v = pad_to_cap(r, c, v, out_capacity, sr.zero)
     nnz = torch.tensor(min(true_nnz, out_capacity), dtype=torch.int32,
-                       device=dev)
+                       device=a_vals.device)
     return r, c, v, nnz, overflowed
 
 
@@ -742,3 +755,259 @@ def matmul_reduce(a, b, axis: int, semiring=PLUS_TIMES, *,
         idx = _upload(o_uniq * TILE, dev)[:, None] + offs[None, :]
         vec = scatter_combine(vec, idx, blocks, sr)
     return vec[:out_len]
+
+
+# ---------------------------------------------------------------------------
+# Distribution cost model: which communication pattern should a sharded
+# product use?  Exact per-entry product counts (two searchsorteds over B's
+# contraction ranks) turn into triples-moved estimates for the three
+# DistAssoc strategies, and the cheapest wins — the D4M.jl / Graphulo
+# observation that the win at scale comes from moving the *smaller* data
+# (B slices or partial products), not from one hard-coded pattern.
+#
+# The JAX package runs the model on the single controller over the
+# ``[P, cap]`` arrays of every shard.  Here each rank holds one shard, so
+# the model splits in two: :func:`dist_summary` reduces one shard to a
+# small int64 vector (its row of every table the model builds), one
+# ``all_gather`` stacks the ranks' vectors, and :func:`plan_from_summaries`
+# runs the same plan on every rank.  :func:`plan_dist_matmul` and
+# :func:`suggest_grid` keep the JAX signatures on top of the two.
+# ---------------------------------------------------------------------------
+
+def _divisors(n: int):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+# Weight of per-shard sort work (expand-join sorts + the canonical dedup
+# merge) relative to one moved triple.  The critical-path sort sizes are
+# the SAME padded capacities the movement terms use, so skew prices both:
+# a hub row inflates a bucket, the bucket inflates the exchange AND the
+# merge that consumes it.  Sorting a resident triple costs more than
+# copying one, so the weight leans the chooser toward the strategy with
+# the smallest per-shard merge when movement is close.
+_SORT_WEIGHT = 8.0
+
+# Per-shard expand size above which DistAssoc's replicate path swaps its
+# local compute from the coo expand-join to the tiled pair-list (BSR)
+# program.  That swap plans the pair lists on host — a scan of ALL of B
+# per shard — so the distribution cost model charges replicate for it
+# (see plan_dist_matmul); the sharded strategies never pay it because each
+# shard only ever contracts one B block.
+BSR_AUTO_EXPAND = 1 << 14
+
+
+@dataclasses.dataclass
+class DistPlan:
+    """Host-side communication plan for one sharded ``A ⊗.⊕ B``.
+
+    ``costs`` holds the modeled data movement per strategy in **triples**
+    (COO entries: 12 bytes each — the unit every term shares, so bytes
+    cancel).  Replicated/staged movement and collective movement are
+    counted at the same weight, but the collective terms use the *padded*
+    capacities (``bucket_cap`` / ``block_cap``): a hub row that
+    concentrates partial products into one bucket inflates the all-to-all
+    estimate exactly as it inflates the real exchange.
+    """
+
+    strategy: str                  # "replicate" | "all_to_all" | "2d"
+    grid: Tuple[int, int]          # (pr, pc); (n_shards, 1) off the 2d path
+    bucket_cap: int                # all_to_all per-(src, dest) bucket slots
+    block_cap: int                 # 2d staged B-block capacity (triples)
+    expands: dict                  # strategy → per-shard expand-join slots
+    costs: dict                    # strategy → modeled triples moved
+
+    @property
+    def expand(self) -> int:
+        return self.expands[self.strategy]
+
+
+def _cap8(x: int) -> int:
+    """A static buffer size: ``x`` rounded up to 8, at least 8."""
+    return int(max(8, _round_up(int(x) or 1, 8)))
+
+
+def _grid_pcs(n_shards: int, grid: Optional[Tuple[int, int]]):
+    """The contraction-block counts the model sizes: the forced grid's
+    ``pc``, or every divisor of ``n_shards``."""
+    if grid is None:
+        return _divisors(n_shards)
+    pr, pc = grid
+    if pr * pc != n_shards:
+        raise ValueError(f"grid {grid} does not tile {n_shards} shards")
+    return [pc]
+
+
+def _block_products(a_cols: np.ndarray, counts: np.ndarray,
+                    bounds: np.ndarray) -> np.ndarray:
+    """Products of one shard's entries per contraction block of
+    ``bounds`` (int64 ``[len(bounds) - 1]``)."""
+    nb = len(bounds) - 1
+    kb = np.searchsorted(bounds[1:], a_cols, side="right").clip(
+        0, max(nb - 1, 0))
+    # float64 sums of integer counts are exact below 2^53 products
+    return np.bincount(kb, weights=counts, minlength=nb).astype(np.int64)
+
+
+def dist_summary(a_rows: np.ndarray, a_cols: np.ndarray,
+                 counts: np.ndarray, k: int, n_shards: int, *,
+                 grid: Optional[Tuple[int, int]] = None,
+                 a2a_bounds: Optional[np.ndarray] = None) -> np.ndarray:
+    """One shard's row of every table the cost model builds, as one int64
+    vector: ``[nnz, products, products per all-to-all contraction block
+    (n_shards), products per block of each pc of _grid_pcs (pc each)]``.
+
+    ``a_rows``/``a_cols`` are the shard's ``[cap]`` SENT-padded rank
+    arrays, cols on the contraction space; ``counts`` the exact per-entry
+    B-run lengths (0 for SENT entries); ``a2a_bounds`` a resident B's
+    partition in the merged rank space (else equal ranges of ``k``).
+    Every rank's vector has the same length, so one ``all_gather`` stacks
+    them for :func:`plan_from_summaries`.
+    """
+    a_cols = np.asarray(a_cols).ravel()
+    counts = np.asarray(counts, np.int64).ravel()
+    bnds = (np.asarray(a2a_bounds, np.int64) if a2a_bounds is not None
+            else np.linspace(0, k, n_shards + 1).astype(np.int64))
+    parts = [np.asarray([int((np.asarray(a_rows) != int(SENT)).sum()),
+                         int(counts.sum())], np.int64),
+             _block_products(a_cols, counts, bnds)]
+    for pc in _grid_pcs(n_shards, grid):
+        parts.append(_block_products(
+            a_cols, counts, np.linspace(0, k, pc + 1).astype(np.int64)))
+    return np.concatenate(parts)
+
+
+def _grid_cost(n_shards: int, pc: int, table: np.ndarray, k: int,
+               b_rows: np.ndarray):
+    """``(cost, round_expand, block_cap)`` of the grid ``(P/pc, pc)`` from
+    its ``[P, pc]`` product table."""
+    pr = n_shards // pc
+    round_expand = _cap8(table.max(initial=0))
+    bnds = np.linspace(0, k, pc + 1).astype(np.int64)
+    block_cap = _cap8(np.diff(np.searchsorted(b_rows, bnds)).max(initial=0))
+    cost = (pr * len(b_rows) + n_shards * (pc - 1) * block_cap
+            + _SORT_WEIGHT * pc * round_expand)
+    return cost, round_expand, block_cap
+
+
+def _best_grid(n_shards: int, k: int, tables, b_rows: np.ndarray):
+    """The cheapest grid of ``tables`` (``pc`` → ``[P, pc]`` products):
+    ``((pr, pc), round_expand, block_cap, cost)``."""
+    best = None
+    for pc, table in tables.items():
+        cost, round_expand, block_cap = _grid_cost(n_shards, pc, table, k,
+                                                   b_rows)
+        if best is None or cost < best[0]:
+            best = (cost, (n_shards // pc, pc), round_expand, block_cap)
+    return best[1], best[2], best[3], best[0]
+
+
+def _grid_tables(summaries: np.ndarray, n_shards: int,
+                 grid: Optional[Tuple[int, int]]):
+    """``pc`` → the ``[P, pc]`` product table, cut from stacked
+    summaries."""
+    tables, off = {}, 2 + n_shards
+    for pc in _grid_pcs(n_shards, grid):
+        tables[pc] = summaries[:, off:off + pc]
+        off += pc
+    return tables
+
+
+def suggest_grid(n_shards: int, k: int, a_cols: np.ndarray,
+                 counts: np.ndarray, b_rows: np.ndarray):
+    """Pick the 2D process grid ``(pr, pc)`` from nnz structure.
+
+    Models each divisor split ``pr·pc = n_shards`` (``pc`` = contraction
+    blocks ring-shifted through the shards, ``pr`` = replication factor of
+    each block at staging) and returns the grid minimizing::
+
+        pr·nnz(B)  +  n_shards·(pc−1)·block_cap  +  w·pc·round_expand
+
+    — staged B replication vs ring traffic vs per-shard merge work
+    (``w`` = :data:`_SORT_WEIGHT`), all in triples — with the per-round
+    expand size, staged block capacity and cost of the winner.
+    ``a_cols``/``counts`` are the ``[P, cap]`` contraction ranks and
+    per-entry product counts (SENT entries carry count 0); ``b_rows`` the
+    sorted valid contraction ranks of B.
+    """
+    pcs = _divisors(n_shards)
+    tables = {pc: np.stack([
+        _block_products(a_cols[s], np.asarray(counts[s], np.int64),
+                        np.linspace(0, k, pc + 1).astype(np.int64))
+        for s in range(counts.shape[0])]) for pc in pcs}
+    return _best_grid(n_shards, k, tables, b_rows)
+
+
+def plan_from_summaries(summaries: np.ndarray, b_rows: np.ndarray, k: int,
+                        n_shards: int, *, b_resident: bool = False,
+                        grid: Optional[Tuple[int, int]] = None) -> DistPlan:
+    """Choose replicate / all-to-all / 2D from the stacked
+    :func:`dist_summary` rows of every shard (``[P, L]``) and B's sorted
+    valid contraction ranks.  Modeled cost = movement +
+    ``w``·(per-shard sort work), ``w`` = :data:`_SORT_WEIGHT`::
+
+        replicate:   P·nnz(B)                        + w·expand
+        all_to_all:  P·nnz(A) + stage(B) + P²·bucket_cap
+                                         + w·(expand + P·bucket_cap)
+        2d(pr, pc):  pr·nnz(B) + P·(pc−1)·block_cap + w·pc·round_expand
+
+    The sort terms make the chooser load-balance-aware: A's row skew
+    concentrates ``replicate``'s and ``2d``'s expand on the hub shard (A
+    never moves), while ``all_to_all`` re-buckets products by contraction
+    block — its expand is the *column* max of the product table, not the
+    row max.  ``stage(B)`` is 0 for a resident B (its row partition IS a
+    contraction partition, reused in place).  ``grid`` forces the 2D
+    grid.
+    """
+    P = n_shards
+    s = np.asarray(summaries, np.int64).reshape(P, -1)
+    nnz_a = int(s[:, 0].sum())
+    nnz_b = len(b_rows)
+    expand_rep = _cap8(s[:, 1].max(initial=0))
+    # the [dest, src] product table: column sums size the compute
+    # expansion, the largest cell the exchange buckets
+    table = s[:, 2:2 + P]
+    bucket_cap = _cap8(table.max(initial=0))
+    expand_a2a = _cap8(table.sum(axis=0).max(initial=0))
+    grid_2d, round_expand, block_cap, cost_2d = _best_grid(
+        P, k, _grid_tables(s, P, grid), b_rows)
+
+    cost_rep = float(P * nnz_b + _SORT_WEIGHT * expand_rep)
+    if expand_rep >= BSR_AUTO_EXPAND:
+        # replicate's local compute will switch to the pair-list program,
+        # whose host planning rescans B once per shard
+        cost_rep += float(_SORT_WEIGHT * P * nnz_b)
+    costs = {
+        "replicate": cost_rep,
+        "all_to_all": float(P * nnz_a + (0 if b_resident else nnz_b)
+                            + P * P * bucket_cap
+                            + _SORT_WEIGHT * (expand_a2a
+                                              + P * bucket_cap)),
+        "2d": float(cost_2d),
+    }
+    strategy = "replicate" if P == 1 else min(costs, key=costs.get)
+    expands = {"replicate": expand_rep, "all_to_all": expand_a2a,
+               "2d": round_expand}
+    return DistPlan(strategy=strategy, grid=grid_2d, bucket_cap=bucket_cap,
+                    block_cap=block_cap, expands=expands, costs=costs)
+
+
+def plan_dist_matmul(a_rows: np.ndarray, a_cols: np.ndarray,
+                     counts: np.ndarray, b_rows: np.ndarray, k: int,
+                     n_shards: int, *, b_resident: bool = False,
+                     grid: Optional[Tuple[int, int]] = None,
+                     a2a_bounds: Optional[np.ndarray] = None) -> DistPlan:
+    """Choose replicate / all-to-all / 2D for one sharded product from the
+    ``[n_shards, cap]`` SENT-padded rank arrays of every shard (cols on
+    the contraction space), their exact per-entry B-run lengths
+    ``counts`` and B's sorted valid contraction ranks ``b_rows``: the
+    stacked :func:`dist_summary` of each shard through
+    :func:`plan_from_summaries`.  ``a2a_bounds`` carries a resident B's
+    partition in the merged rank space, so the product table matches the
+    blocks the program will contract."""
+    _grid_pcs(n_shards, grid)
+    summaries = np.stack([
+        dist_summary(a_rows[s], a_cols[s], counts[s], k, n_shards,
+                     grid=grid, a2a_bounds=a2a_bounds)
+        for s in range(counts.shape[0])])
+    return plan_from_summaries(summaries, b_rows, k, n_shards,
+                               b_resident=b_resident, grid=grid)

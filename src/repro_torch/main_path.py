@@ -28,10 +28,19 @@ Two workloads (:mod:`repro_torch.configs.d4m_bench`):
   ``to_assoc`` — each beside the same operation on the device
   ``AssocTensor``s, with the collectives and ``range_mask`` launches each
   dist operation made; and the ingest workload over a ``DistAssoc`` base
-  (``build_ingest(..., mesh=)``).
+  (``build_ingest(..., mesh=)``);
+* **dist product** (:func:`drive_dist_product`) — the clustered and the
+  uniform arrays as ``DistAssoc``s: ``A @ B`` (the cost model's strategy;
+  at one rank replicate, whose tiled compute runs ``bsr_pairlist``), the
+  forced ``coo``, ``all_to_all`` and ``2d`` strategies,
+  ``matmul_reduce`` under replicate and all-to-all, ``sqout(reduce=1)``,
+  ``sqin()`` and ``sqin(reduce=1)`` (the device layer's product on the
+  gathered array), the lazy select→product and select→product→sum, and
+  the uniform ``A.matmul(B)`` under ``PLUS_TIMES`` and ``MIN_PLUS`` — with
+  the collectives, strategy and kernel launches of each.
 
 :func:`check_clustered` / :func:`check_uniform` / :func:`check_ingest` /
-:func:`check_dist` hold the results against the host ``Assoc``
+:func:`check_dist` / :func:`check_dist_product` hold the results against the host ``Assoc``
 (numpy/scipy) built from the same raw triples — a check that shares no code with the torch device path.  ``full=True`` compares
 every result entry by entry; otherwise counts, checksums and the reduced
 vectors are compared.  ``chip_smoke.py`` runs this on the card; the tests
@@ -46,18 +55,20 @@ import numpy as np
 import torch
 
 from .configs.d4m_bench import make_clustered, make_dataset
-from .core import (MAX_PLUS, MIN_PLUS, PLUS_TIMES, Assoc, AssocTensor,
-                   DistAssoc, KeySpace, Range)
-from .core.collectives import collective_count
+from .core import (MAX_PLUS, MIN_PLUS, PLAN_STATS, PLUS_TIMES, Assoc,
+                   AssocTensor, DistAssoc, KeySpace, Range, spgemm)
+from .core.collectives import (COLLECTIVE_STATS, collective_count,
+                               prologue_count)
 from .core.plan import host_axis_reduce
 from .ingest import IngestTable
 from .kernels import LAUNCHES
 
 __all__ = ["build_clustered", "build_uniform", "build_ingest", "build_dist",
            "drive_clustered", "drive_uniform", "drive_ingest", "drive_dist",
-           "drive_ingest_fallback", "check_clustered", "check_uniform",
-           "check_ingest", "check_ingest_fallback", "check_dist",
-           "check_dist_ingest", "row_range", "DIST_COLLECTIVES"]
+           "drive_ingest_fallback", "drive_dist_product", "check_clustered",
+           "check_uniform", "check_ingest", "check_ingest_fallback",
+           "check_dist", "check_dist_ingest", "check_dist_product",
+           "row_range", "DIST_COLLECTIVES", "DIST_PRODUCT_COLLECTIVES"]
 
 INGEST_AGGREGATES = ("sum", "max")
 INGEST_BATCHES = 16
@@ -230,16 +241,18 @@ DIST_COLLECTIVES = {
 
 
 def build_dist(raw, mesh, device) -> dict:
-    """The clustered A and B as ``DistAssoc``s on ``mesh``, both on the
-    union of their keyspaces (element-wise dist operands share their
-    keyspaces and row partition)."""
-    rows, cols, rows2, cols2 = raw
+    """A and B as ``DistAssoc``s on ``mesh``, both on the union of their
+    keyspaces (element-wise dist operands share their keyspaces and row
+    partition): the clustered raw triples (values 1.0) or the uniform ones
+    (``build_uniform``'s ``raw``, with its values)."""
+    rows, cols, rows2, cols2 = raw[:4]
+    vals = raw[4] if len(raw) > 4 else 1.0
     rs = KeySpace(np.concatenate([rows, rows2]))
     cs = KeySpace(np.concatenate([cols, cols2]))
     clock = _Clock(device)
-    a = clock("dist from_triples", DistAssoc.from_triples, rows, cols, 1.0,
+    a = clock("dist from_triples", DistAssoc.from_triples, rows, cols, vals,
               mesh, row_space=rs, col_space=cs, device=device)
-    b = DistAssoc.from_triples(rows2, cols2, 1.0, mesh, row_space=rs,
+    b = DistAssoc.from_triples(rows2, cols2, vals, mesh, row_space=rs,
                                col_space=cs, device=device)
     return {"raw": raw, "A": a, "B": b, "seconds": clock.seconds}
 
@@ -306,6 +319,88 @@ def drive_dist(a: DistAssoc, b: DistAssoc, ta: AssocTensor,
             _sync(ta.device)
             dev_s = time.perf_counter() - t1
         out["seconds"][name] = (t1 - t0, dev_s)
+    out["selector"] = sel
+    return out
+
+
+# the program collectives each operation of drive_dist_product makes at one
+# rank, by collective (no prologue collective runs at one rank): the JAX
+# @contract of each program, gather_replicated's all_gather where the
+# operation gathers (sqout, sqin, and a resident B in the lazy product)
+DIST_PRODUCT_COLLECTIVES = {
+    "A @ B": {}, "coo": {}, "all_to_all": {"all_to_all": 1}, "2d": {},
+    "matmul_reduce0 replicate": {"all_reduce": 1},
+    "matmul_reduce0 all_to_all": {"all_reduce": 1},
+    "sqout_reduce": {"all_reduce": 1, "all_gather": 1},
+    "sqin": {"all_gather": 1}, "sqin_reduce": {"all_gather": 1},
+    "lazy_select_matmul": {"all_gather": 1},
+    "pipeline": {"all_reduce": 1, "all_gather": 1},
+    "uniform plus_times": {}, "uniform min_plus": {},
+    "uniform sqin": {"all_gather": 1},
+    "uniform sqin_reduce": {"all_gather": 1},
+}
+
+
+def drive_dist_product(dc: dict, du: dict, sel) -> dict:
+    """Every dist product of the main path on the clustered (``dc``) and
+    uniform (``du``) ``DistAssoc``s of :func:`build_dist`: wall seconds of
+    each (ended by a device sync), its program collectives by name, its
+    prologue collectives, the strategy the product ran (``PLAN_STATS``)
+    and its kernel launches; then the stage split of ``A @ B``
+    (``spgemm.stage_timing``) and its plan."""
+    a, b = dc["A"], dc["B"]
+    ua, ub = du["A"], du["B"]
+    steps = [
+        ("A @ B", lambda: a @ b),
+        ("coo", lambda: a.matmul(b, impl="coo")),
+        ("all_to_all", lambda: a.matmul(b, impl="all_to_all")),
+        ("2d", lambda: a.matmul(b, impl="2d")),
+        ("matmul_reduce0 replicate",
+         lambda: a.matmul_reduce(b, axis=0, impl="replicate")),
+        ("matmul_reduce0 all_to_all",
+         lambda: a.matmul_reduce(b, axis=0, impl="all_to_all")),
+        ("sqout_reduce", lambda: a.sqout(reduce=1)),
+        ("sqin", a.sqin),
+        ("sqin_reduce", lambda: a.sqin(reduce=1)),
+        ("lazy_select_matmul",
+         lambda: (a.lazy()[sel, :] @ b.lazy()).collect()),
+        ("pipeline",
+         lambda: (a.lazy()[sel, :] @ b.lazy()).sum(axis=1).collect()),
+        ("uniform plus_times", lambda: ua.matmul(ub, PLUS_TIMES)),
+        ("uniform min_plus", lambda: ua.matmul(ub, MIN_PLUS)),
+        ("uniform sqin", ua.sqin),
+        ("uniform sqin_reduce", lambda: ua.sqin(reduce=1)),
+    ]
+    out = {"dist": {}, "seconds": {}, "collectives": {}, "prologue": {},
+           "strategy": {}, "launches": {}}
+    strategies = ("replicate", "all_to_all", "2d")
+    for name, fn in steps:
+        coll = dict(COLLECTIVE_STATS)
+        pro = prologue_count()
+        plan = {k: PLAN_STATS[f"dist_{k}"] for k in strategies}
+        kern = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        if name == "A @ B":
+            with spgemm.stage_timing() as ms:
+                out["dist"][name] = fn()
+                _sync(a.device)
+            out["stages_ms"] = dict(ms)
+        else:
+            out["dist"][name] = fn()
+            _sync(a.device)
+        out["seconds"][name] = time.perf_counter() - t0
+        out["collectives"][name] = {
+            k: v - coll[k] for k, v in COLLECTIVE_STATS.items()
+            if v != coll[k]}
+        out["prologue"][name] = prologue_count() - pro
+        out["strategy"][name] = [k for k in strategies
+                                 if PLAN_STATS[f"dist_{k}"] > plan[k]]
+        out["launches"][name] = {k: LAUNCHES[k] - v for k, v in kern.items()
+                                 if LAUNCHES[k] != v}
+    st = a._matmul_setup(b)
+    plan = a._dist_plan(st)
+    out["plan"] = {"strategy": plan.strategy, "expands": plan.expands,
+                   "grid": plan.grid, "costs": plan.costs}
     out["selector"] = sel
     return out
 
@@ -531,4 +626,116 @@ def check_dist_ingest(dist_res: dict, dev_res: dict
             checks.append(_same_triples(f"dist ingest {agg} {key} vs device",
                                         _key_triples(r[key]),
                                         _key_triples(d[key])))
+    return checks
+
+
+def _dist_stats(x) -> Tuple[int, float]:
+    """(nnz, sum) of a ``DistAssoc`` (gathered) or an ``AssocTensor``."""
+    if isinstance(x, DistAssoc):
+        x = x.gather_replicated()
+    return _tensor_stats(x)
+
+
+def _vec_check(name, got, keys, host_keys, want, zero=0.0):
+    """A dist vector over ``keys`` against a host vector over
+    ``host_keys`` spread onto them."""
+    w = _vec_on(keys, host_keys, want, zero)
+    g = got.double().cpu().numpy()
+    ok = g.shape == w.shape and bool(np.array_equal(g, w))
+    return name, ok, f"len {len(g)} vs {len(w)}"
+
+
+def check_dist_product(raw_c, raw_u, drv: dict, res: dict, res_u: dict,
+                       dev_rows: np.ndarray, full: bool = False
+                       ) -> List[Tuple[str, bool, str]]:
+    """Every result of :func:`drive_dist_product` against the host
+    ``Assoc`` (numpy/scipy) and against the main path's device result of
+    the same operation where it has one (``res``: :func:`drive_clustered`
+    over device arrays whose row keys are ``dev_rows``, ``res_u``:
+    :func:`drive_uniform`), exactly (integer values: every fp32
+    sum is exact in any order); clustered results by (nnz, sum), or entry
+    by entry with ``full``; uniform results entry by entry.  Then the
+    collectives of each operation against
+    :data:`DIST_PRODUCT_COLLECTIVES` (and no prologue collective at one
+    rank), and every strategy having run."""
+    rows, cols, rows2, cols2 = raw_c
+    ha, hb = Assoc(rows, cols, 1.0), Assoc(rows2, cols2, 1.0)
+    d = drv["dist"]
+    loc = d["A @ B"].local
+    rk, ck = loc.row_space.keys, loc.col_space.keys
+    sel = drv["selector"]
+    prod = ha @ hb
+    checks = []
+
+    def same(name, got, want):
+        if full:
+            checks.append(_same_triples(name, _key_triples(got),
+                                        _key_triples(want)))
+        else:
+            g = _dist_stats(got)
+            w = _stats(want) if isinstance(want, Assoc) else _dist_stats(want)
+            checks.append((name, g == w, f"(nnz, sum) {g} vs {w}"))
+
+    for name in ("A @ B", "coo", "all_to_all", "2d"):
+        same(f"dist product {name} vs host", d[name], prod)
+        same(f"dist product {name} vs device", d[name], res["matmul"])
+    same("dist product lazy_select_matmul vs host",
+         d["lazy_select_matmul"], ha[sel, :] @ hb)
+    adj = ha.adj.tocsr()
+    sq = np.asarray(adj @ (adj.T @ np.ones(adj.shape[0]))).ravel()
+    checks.append(_vec_check("dist product sqout_reduce vs host",
+                             d["sqout_reduce"], rk, ha.row, sq))
+    checks.append(_vec_check("dist product sqout_reduce vs device",
+                             d["sqout_reduce"], rk,
+                             dev_rows,
+                             res["sqout_reduce"].double().cpu().numpy()))
+    pipe = (ha.lazy()[sel, :] @ hb.lazy()).sum(axis=1).collect()
+    checks.append(_vec_check("dist product pipeline vs host",
+                             d["pipeline"], rk, ha.row,
+                             np.asarray(pipe, np.float64)))
+    checks.append(_vec_check("dist product pipeline vs device",
+                             d["pipeline"], rk, dev_rows,
+                             res["pipeline"].double().cpu().numpy()))
+    mr0 = np.asarray(ha.matmul_reduce(hb, axis=0), np.float64)
+    for name in ("matmul_reduce0 replicate", "matmul_reduce0 all_to_all"):
+        checks.append(_vec_check(f"dist product {name} vs host", d[name],
+                                 ck, hb.col, mr0))
+    # sqin on scipy: AᵀA by (nnz, sum), and Aᵀ(A·1)
+    ata = (adj.T @ adj).tocsr()
+    g = _dist_stats(d["sqin"])
+    w = (ata.nnz, float(ata.sum()))
+    checks.append(("dist product sqin vs host", g == w,
+                   f"(nnz, sum) {g} vs {w}"))
+    sqin_vec = np.asarray(adj.T @ (adj @ np.ones(adj.shape[1]))).ravel()
+    checks.append(_vec_check("dist product sqin_reduce vs host",
+                             d["sqin_reduce"], ck, ha.col, sqin_vec))
+
+    urows, ucols, urows2, ucols2, uvals = raw_u
+    ua, ub = Assoc(urows, ucols, uvals), Assoc(urows2, ucols2, uvals)
+    for name, want, dev in (
+            ("uniform plus_times", ua @ ub, res_u["plus_times"]),
+            ("uniform min_plus", ua.matmul(ub, MIN_PLUS), res_u["min_plus"])):
+        g = _key_triples(d[name])
+        checks.append(_same_triples(f"dist product {name} vs host", g,
+                                    _key_triples(want)))
+        checks.append(_same_triples(f"dist product {name} vs device", g,
+                                    _key_triples(dev)))
+    checks.append(_same_triples("dist product uniform sqin vs host",
+                                _key_triples(d["uniform sqin"]),
+                                _key_triples(ua.sqin())))
+    uloc = d["uniform plus_times"].local
+    checks.append(_vec_check(
+        "dist product uniform sqin_reduce vs host", d["uniform sqin_reduce"],
+        uloc.col_space.keys, ua.col,
+        np.asarray(ua.sqin(reduce=1), np.float64)))
+
+    for name, want in DIST_PRODUCT_COLLECTIVES.items():
+        got = drv["collectives"][name]
+        checks.append((f"dist product {name} collectives",
+                       got == want and drv["prologue"][name] == 0,
+                       f"{got} vs {want}, prologue {drv['prologue'][name]}"))
+    ran = {k for v in drv["strategy"].values() for k in v}
+    checks.append(("dist product strategies",
+                   ran == {"replicate", "all_to_all", "2d"},
+                   f"ran {sorted(ran)}"))
     return checks

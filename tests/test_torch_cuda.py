@@ -1074,3 +1074,43 @@ def test_ring_kernels_propagate_nan(card, sr):
             bsr_ref.bsr_pairlist_reduce_ref(at, bt, pa, pb, po, n_o=2,
                                             axis=axis, semiring=sr),
             rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.fixture
+def nccl_mesh(card):
+    from repro_torch.core import make_mesh
+    mesh = make_mesh(card)
+    yield mesh
+    mesh.close()
+
+
+def test_dist_matmul_on_nccl(nccl_mesh, card):
+    """On a one-rank NCCL mesh: the replicate strategy's tiled product
+    launches ``bsr_pairlist`` and equals the same product through the plain
+    pair list (``kernel_impl="ref"``); the forced ``all_to_all`` (one NCCL
+    all_to_all) equals the host ``Assoc``.  Integer values: exact."""
+    from repro_torch.core import Assoc, DistAssoc, MIN_PLUS
+    rng = np.random.default_rng(5)
+    ar = np.char.zfill(rng.integers(0, 300, 3000).astype(str), 3)
+    ac = np.char.zfill(rng.integers(0, 200, 3000).astype(str), 3)
+    br = np.char.zfill(rng.integers(0, 200, 3000).astype(str), 3)
+    bc = np.char.zfill(rng.integers(0, 250, 3000).astype(str), 3)
+    av = rng.integers(1, 5, 3000).astype(np.float64)
+    bv = rng.integers(1, 5, 3000).astype(np.float64)
+    a = DistAssoc.from_triples(ar, ac, av, nccl_mesh, aggregate="sum",
+                               device=card)
+    b = DistAssoc.from_triples(br, bc, bv, nccl_mesh, aggregate="sum",
+                               device=card)
+    ha = Assoc(ar, ac, av, aggregate="sum")
+    hb = Assoc(br, bc, bv, aggregate="sum")
+    for sr in ("plus_times", MIN_PLUS):
+        reset_launch_counts()
+        got = a.matmul(b, sr, impl="bsr")
+        assert LAUNCHES["bsr_pairlist"] >= 1
+        ref = a.matmul(b, sr, impl="bsr", kernel_impl="ref")
+        for f in ("rows", "cols", "vals", "nnz"):
+            assert torch.equal(getattr(got.local, f), getattr(ref.local, f))
+        assert got.to_assoc() == ha.matmul(hb, sr)
+        a2a = a.matmul(b, sr, impl="all_to_all")
+        assert a2a.local.rows.is_cuda
+        assert a2a.to_assoc() == ha.matmul(hb, sr)

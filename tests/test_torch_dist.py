@@ -320,7 +320,8 @@ def test_reduce_parity(int_pair, sr):
     want = ja.matmul_dense_vec(jnp.asarray(x), sr)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert COLLECTIVE_STATS == {"all_reduce": 3, "all_gather": 0}
+    assert COLLECTIVE_STATS == {"all_reduce": 3, "all_gather": 0,
+                                "all_to_all": 0, "ring_shift": 0}
 
 
 def test_col_degree_and_operators(int_pair):
@@ -409,7 +410,7 @@ def test_collectives_match_jax_contract(int_pair, entry):
 
 
 # ---------------------------------------------------------------------------
-# devices and the parts of step 6b
+# devices and operands
 # ---------------------------------------------------------------------------
 
 def test_entry_points_default_to_the_card():
@@ -443,15 +444,8 @@ def test_cpu_mesh_refuses_cuda_tensors():
         T.make_mesh("cpu", world_size=2)
 
 
-def test_matmul_family_is_step_6b(int_pair):
-    ta, _, tb, _ = int_pair
-    for call in (lambda: ta.matmul(tb), lambda: ta.matmul_reduce(tb),
-                 lambda: ta.sqout(), lambda: ta.sqin(), lambda: ta @ tb,
-                 lambda: (ta.lazy() @ tb.lazy()).collect(),
-                 lambda: (ta.lazy()[TS.Range("03", "11"), :]
-                          @ tb.lazy()).sum(axis=1).collect()):
-        with pytest.raises(NotImplementedError, match="step 6b"):
-            call()
+def test_ewise_operands_must_share_keyspaces(int_pair):
+    ta, _, _, _ = int_pair
     with pytest.raises(ValueError, match="keyspaces"):
         ta.add(DistAssoc.from_triples(["zz"], ["zz"], [1.0], ta.mesh,
                                       device="cpu"))
@@ -459,8 +453,8 @@ def test_matmul_family_is_step_6b(int_pair):
 
 def test_device_matmul_gathers_a_dist_operand(int_pair):
     """A device A against a dist B: B gathers to a replicated tensor, as the
-    JAX planner does (held against the host product, as step 6b's
-    products will be)."""
+    JAX planner does (held against the host product, as the dist
+    products are in ``tests/test_torch_dist_matmul.py``)."""
     ta, _, tb, _ = int_pair
     got = (ta.gather_replicated().lazy() @ tb.lazy()).collect()
     assert got.to_assoc() == ta.to_assoc() @ tb.to_assoc()
@@ -499,10 +493,11 @@ VALS_B = rng.integers(1, 10, N).astype(np.float64)
 RK, CK = np.unique(ROWS), np.unique(COLS)
 X = (np.arange(len(CK)) % 5 + 1).astype(np.float32)
 # one row in each shard; column c0 holds a NaN in shard 1's partial,
-# column c1 in shard 0's
-NAN_ROWS = np.asarray(["r0", "r1", "r2", "r3"] * 2)
-NAN_COLS = np.asarray(["c0"] * 4 + ["c1"] * 4)
-NAN_VALS = np.asarray([1.0, np.nan, 1.0, 1.0, np.nan, 1.0, 1.0, 1.0])
+# column c1 in shard 0's, column c2 in every shard's
+NAN_ROWS = np.asarray(["r0", "r1", "r2", "r3"] * 3)
+NAN_COLS = np.asarray(["c0"] * 4 + ["c1"] * 4 + ["c2"] * 4)
+NAN_VALS = np.asarray([1.0, np.nan, 1.0, 1.0, np.nan, 1.0, 1.0, 1.0]
+                      + [np.nan] * 4)
 SEMIRINGS = ("and_or", "max_min", "max_plus", "max_times", "min_plus",
              "plus_times")
 """
@@ -644,18 +639,30 @@ def test_four_ranks_reductions_equal_jax(four, op):
 
 def test_four_ranks_empty_shard_and_nan_combine(four):
     """The selection that leaves shard 3 empty; the MAX_PLUS combine of
-    partials [1, NaN, 1, 1] (column c0): the port's one all_reduce gives
-    what JAX's pmax gives on the CPU, 1.  Partials [NaN, 1, 1, 1] (column
-    c1) pin a known difference (ROADMAP queue 3): gloo's MAX keeps a NaN
-    that rank 0 holds, JAX's pmax on the CPU drops it from any shard."""
+    partials [1, NaN, 1, 1] (column c0), [NaN, 1, 1, 1] (column c1) and
+    NaN on every shard (column c2): JAX's pmax at four shards treats a NaN
+    partial as absent (1, 1 and the ⊕ identity -inf), and so does the
+    port's combine on rank 0's NaN as on rank 1's."""
     jx, ranks = four
     assert ranks[3]["sel_empty_shard__nnz"] == 0
     assert jx["sel_empty_shard__nnz"][3] == 0
     assert np.isnan(ranks[1]["nan__vals"][0])
-    np.testing.assert_array_equal(jx["nan_colred__vec"], [1.0, 1.0])
+    np.testing.assert_array_equal(jx["nan_colred__vec"], [1.0, 1.0, -np.inf])
     for got in ranks:
-        assert got["nan_colred__vec"][0] == 1.0
-        assert np.isnan(got["nan_colred__vec"][1])
+        np.testing.assert_array_equal(got["nan_colred__vec"],
+                                      jx["nan_colred__vec"])
+
+
+def test_one_rank_nan_combine(jmesh):
+    """At one shard the JAX combine is the identity and NaN stays: so it
+    does at one rank."""
+    ns = {}
+    exec(_DATA, ns)
+    t, j = _both(ns["NAN_ROWS"], ns["NAN_COLS"], ns["NAN_VALS"], jmesh,
+                 aggregate="max")
+    want = np.asarray(j.col_reduce("max_plus"))
+    assert np.isnan(want).all()
+    np.testing.assert_array_equal(t.col_reduce("max_plus").numpy(), want)
 
 
 @pytest.mark.parametrize("what", ["gather", "lazy_T", "to_assoc"])
