@@ -71,7 +71,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (``bsr_spgemm_reduce``); each with its wall time beside the
      ``AssocTensor``'s, strategy, collectives and launches (the
      ``[dist product]`` lines);
-3. the results held against the host ``Assoc`` (numpy/scipy): counts,
+   * the serve phase: those arrays (clustered ``edges``/``feat``, uniform
+     ``U``/``V``, the dist ``dA``/``dB``) and a fresh ``IngestTable`` over
+     the n=15 ``sum`` base, registered as resident tables of the query
+     server (``repro_torch.serve``) on 127.0.0.1 with 4 workers (one
+     executor in admission order, since the registry holds dist tables)
+     and queried by ``D4MClient`` threads over loopback HTTP in six mixes
+     (``main_path.SERVE_COUNTS``): hot ``(edges[sel, :] @
+     feat).sum(axis=1)`` after one warm-up, cold ones with a fresh
+     ``Keys`` window of 16 rows each, ``edges[Keys(16 rows), :] @ feat``
+     triples, the uniform ``(U @ V).sum(axis=1)`` under ``PLUS_TIMES``
+     and ``MIN_PLUS``, 16 ``POST /ingest`` batches of 16,384 triples each
+     followed by a read, and the dist ``(dA[sel, :] @ dB).sum(axis=1)``
+     with one ``/tables``; each mix must launch its kernels
+     (``main_path.SERVE_MIX_KERNELS``: ``range_mask``, the pair kernels,
+     ``bsr_spgemm_reduce`` on both routes, ``rank_count``), and the
+     one-rank mesh makes no broadcast (the ``[d4m serve]`` lines: per mix
+     p50/p99 latency, throughput, plan hit rate, batch mean, the server's
+     ``exec_s`` beside the in-process ``collect()``, launches; peak card
+     memory);
+3. the results held against the host ``Assoc`` (numpy/scipy): every
+   served result identical to the in-process ``collect()`` of the same
+   query, one per serve mix against the host, every ingest read and the
+   final ingest snapshot against the host, no hot request after the
+   warm-up missing the plan cache and the dist mix's collectives against
+   the JAX ``@contract``s; counts,
    checksums and reduced vectors at n=18, every entry at n=12, on a
    clustered n=14 run and of every ingest snapshot; every dist result
    entry by entry against the host and against the device result beside
@@ -177,6 +201,7 @@ MAIN_PATH_KERNELS = ("range_mask", "bsr_pairlist", "bsr_pairlist_reduce",
 INGEST_PATH_KERNELS = ("rank_count", "range_mask")
 SEMIRINGS = ("plus_times", "max_plus", "min_plus", "max_min", "max_times",
              "and_or")
+SERVE_WORKERS = 4   # the D4M query server's worker pool
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 SERVE_SEED = 0
@@ -660,6 +685,45 @@ def serve_phase(dev, report, failures) -> dict:
             "library_ms": lib_ms}
 
 
+def serve_summary(drv: dict) -> dict:
+    """Per serve mix: requests, client latency p50/p99 and throughput,
+    the server's exec_s beside the in-process collect() (and its
+    formatting), plan hit rate, batch mean, kernel launches and
+    collectives."""
+    import numpy as np
+
+    out = {}
+    for name, mix in drv["mixes"].items():
+        inproc = drv["in_process"].get(name, [])
+        out[name] = {
+            "requests": mix["requests"], "wall_s": mix["wall_s"],
+            "throughput_rps": mix["throughput_rps"],
+            "latency_s": mix["latency_s"], "server_exec_s": mix["exec_s"],
+            "in_process_collect_s": {
+                "p50": float(np.median([r["collect_s"] for r in inproc])),
+                "format_p50": float(np.median([r["format_s"]
+                                               for r in inproc])),
+                "n": len(inproc)} if inproc else None,
+            "plan_hit_rate": mix["plan_hit_rate"],
+            "plan_hits": mix["plan_hits"], "plan_misses": mix["plan_misses"],
+            "batch_mean": mix["batch_mean"], "launches": mix["launches"],
+            "collectives": mix["collectives"]}
+        # the ingest mix: the POST /ingest requests apart from the reads
+        posts = [r for r in mix["records"] if r["body"]["kind"] == "ingest"]
+        if posts:
+            reads = [r for r in mix["records"]
+                     if r["body"]["kind"] != "ingest"]
+            out[name]["by_kind"] = {
+                kind: {"n": len(rs), **{
+                    f: {"p50": float(np.percentile(v, 50)),
+                        "p99": float(np.percentile(v, 99))}
+                    for f, v in (("latency_s", [r["latency_s"] for r in rs]),
+                                 ("server_exec_s",
+                                  [r["exec_s"] for r in rs]))}}
+                for kind, rs in (("ingest", posts), ("read", reads))}
+    return out
+
+
 def segment_inputs(raw, a, gen):
     """What a dedup of the clustered array scans: its 2^21 raw triples as
     sorted int32 (row, col) pair ids (ranks of the distinct pairs; the
@@ -952,9 +1016,48 @@ def main() -> int:
     if res_p["launches"]["uniform min_plus"].get("bsr_pairlist_tf32", 0):
         failures.append("the dist MIN_PLUS product took the TF32 route")
 
+    # the serve phase: the arrays above as resident tables of the query
+    # server on 127.0.0.1 (one executor in admission order: the registry
+    # holds dist tables), queried by client threads over loopback HTTP
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serve_reg = main_path.build_serve(clus, uni, dist, ing["bases"]["sum"],
+                                      dev)
+    res_sv = main_path.drive_serve(serve_reg, res["selector"], ing["raw"],
+                                   workers=SERVE_WORKERS)
+    torch.cuda.synchronize()
+    del serve_reg
+    report["d4m_serve_phase_s"] = time.perf_counter() - t0
+    report["launches"]["d4m_serve"] = dict(LAUNCHES)
+    report["d4m_serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["d4m_serve"] = serve_summary(res_sv)
+    smi = nvidia_smi_line()
+    log(f"[d4m serve] {len(res_sv['mixes'])} mixes over loopback HTTP "
+        f"({res_sv['workers']} executor, counts "
+        f"{json.dumps(main_path.SERVE_COUNTS)}): "
+        f"{report['d4m_serve_phase_s']:.1f} s, peak "
+        f"{report['d4m_serve_peak_mem_gb']:.2f} GB, broadcasts "
+        f"{res_sv['broadcasts']}, /tables {res_sv['tables_s'] * 1e3:.1f} ms "
+        f"on {smi}")
+    for name, mix in report["d4m_serve"].items():
+        log(f"[d4m serve] {name} " + json.dumps(mix))
+    for name, kernels_of in main_path.SERVE_MIX_KERNELS.items():
+        got = res_sv["mixes"][name]["launches"]
+        for k in kernels_of:
+            if got.get(k, 0) < 1:
+                failures.append(f"{k} was not launched in the serve mix "
+                                f"{name} (launches {got})")
+    if res_sv["broadcasts"] != 0:
+        failures.append(f"the one-rank serve phase made "
+                        f"{res_sv['broadcasts']} broadcasts")
+
     # -- phase 3: host checks --------------------------------------------------
     t0 = time.perf_counter()
-    checks = main_path.check_clustered(clus["raw"], res, full=False)
+    checks = main_path.check_serve(clus["raw"], uni["raw"], ing["raw"],
+                                   res_sv)
+    del res_sv
+    checks += main_path.check_clustered(clus["raw"], res, full=False)
     checks += main_path.check_uniform(uni["raw"], res_u, full=True)
     checks += main_path.check_ingest(ing["raw"], res_i)
     checks += main_path.check_ingest_fallback(clus["raw"], res_f)

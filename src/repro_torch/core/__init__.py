@@ -21,7 +21,8 @@ memoization), ``DISPATCH_STATS`` (selection execution paths) and
 """
 from .assoc import Assoc
 from .assoc_tensor import AssocTensor, DISPATCH_STATS
-from .collectives import COLLECTIVE_STATS, reset_collective_stats
+from .collectives import (COLLECTIVE_STATS, mesh_combine,
+                          reset_collective_stats)
 from .coo import (aggregate_runs, canonicalize_np, dedup_sorted_coo,
                   intersect_pairs_np, linearize_pairs_np, spgemm_np)
 from .expr import (EwiseAdd, EwiseMul, LazyExpr, MatMul, Reduce, Select,
@@ -78,5 +79,5 @@ __all__ = [
     "CACHE_STATS", "clear_compile_cache", "reset_cache_stats",
     "UNION_STATS", "clear_union_cache",
     "DISPATCH_STATS",
-    "COLLECTIVE_STATS", "reset_collective_stats",
+    "COLLECTIVE_STATS", "reset_collective_stats", "mesh_combine",
 ]

@@ -26,11 +26,16 @@ collective is the identity and NaN stays; ``psum`` keeps NaN on both.  So
 on a mesh of more than one rank :func:`mesh_combine` writes the ⊕ identity
 over NaN in a max/min partial before its one ``all_reduce``, and the
 result no longer depends on what gloo or NCCL do with NaN.
+
+The serve engine's control channel (:func:`broadcast_bytes`, rank 0's
+admitted requests sent to the other ranks) is counted apart again, in
+:data:`BROADCAST_STATS`: it carries requests, not data of a shard
+program, so program counts stay comparable with the JAX ``@contract``.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -38,15 +43,18 @@ import torch.distributed as dist
 from .mesh import Mesh
 from .semiring import Semiring
 
-__all__ = ["COLLECTIVE_STATS", "PROLOGUE_STATS", "all_gather", "all_reduce",
-           "all_to_all", "collective_count", "mesh_combine",
-           "prologue_count", "reset_collective_stats", "ring_shift"]
+__all__ = ["BROADCAST_STATS", "COLLECTIVE_STATS", "PROLOGUE_STATS",
+           "all_gather", "all_reduce", "all_to_all", "broadcast_bytes",
+           "collective_count", "mesh_combine", "prologue_count",
+           "reset_collective_stats", "ring_shift"]
 
 # program collectives called on this rank, by collective
 COLLECTIVE_STATS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                                     "all_to_all": 0, "ring_shift": 0}
 # prologue collectives (the single controller's host reads), by collective
 PROLOGUE_STATS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+# control-channel messages on this rank (sent or received)
+BROADCAST_STATS: Dict[str, int] = {"broadcast": 0}
 _LOCK = threading.Lock()
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
@@ -74,7 +82,7 @@ def prologue_count() -> int:
 
 def reset_collective_stats() -> None:
     with _LOCK:
-        for stats in (COLLECTIVE_STATS, PROLOGUE_STATS):
+        for stats in (COLLECTIVE_STATS, PROLOGUE_STATS, BROADCAST_STATS):
             for k in stats:
                 stats[k] = 0
 
@@ -127,6 +135,40 @@ def all_gather(x: torch.Tensor, mesh: Mesh, *,
     _bump("all_gather", prologue)
     mesh.group.allgather([out], [x]).wait()
     return torch.stack(out)
+
+
+def broadcast_bytes(data: Optional[bytes], mesh: Mesh) -> bytes:
+    """One control message from rank 0 to every rank: ``data`` is read on
+    rank 0 only, and every rank returns the same bytes.
+
+    The framing is fixed: an int64 length, then the bytes, as two
+    broadcasts of the group on the mesh's device; together they count as
+    one message in :data:`BROADCAST_STATS`.  At one rank nothing is sent
+    and nothing is counted."""
+    if mesh.size == 1:
+        return bytes(data)
+    root = mesh.rank == 0
+    n = torch.tensor([len(data) if root else 0], dtype=torch.int64,
+                     device=mesh.device)
+    _broadcast(n, mesh)
+    size = int(n[0])
+    if root:
+        buf = torch.tensor(bytearray(data), dtype=torch.uint8,
+                           device=mesh.device)
+    else:
+        buf = torch.empty(size, dtype=torch.uint8, device=mesh.device)
+    if size:
+        _broadcast(buf, mesh)
+    with _LOCK:
+        BROADCAST_STATS["broadcast"] += 1
+    return bytes(data) if root else buf.cpu().numpy().tobytes()
+
+
+def _broadcast(x: torch.Tensor, mesh: Mesh) -> None:
+    opts = dist.BroadcastOptions()
+    opts.rootRank = 0
+    opts.rootTensor = 0
+    mesh.group.broadcast([x], opts).wait()
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

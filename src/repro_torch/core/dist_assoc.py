@@ -62,8 +62,9 @@ entry point: JAX ``@contract`` / port program collectives / port prologue
 collectives —
 
 * ``matmul``, replicate (``coo`` or ``bsr``): 0 / 0 / 1 summary
-  ``all_gather``, +1 out-cap ``all_reduce`` MAX when the expand exceeds
-  4096, +1 B ``all_gather`` if B is resident;
+  ``all_gather`` and 1 overflow ``all_reduce`` MAX, +1 out-cap
+  ``all_reduce`` MAX when the expand exceeds 4096, +1 B ``all_gather`` if
+  B is resident;
 * ``matmul``, ``all_to_all``: 1 / 1 ``all_to_all`` / as replicate, +1 A
   ``all_gather``;
 * ``matmul``, ``2d`` (pr, pc): pc − 1 / pc − 1 ``ring_shift`` / as
@@ -82,8 +83,11 @@ product on every rank, as the JAX ``sqin`` runs ``AssocTensor`` products
 and ``sqin`` counts the fused reduce program its probe lowers.  The
 lazy select→product gathers a dist B to every rank first (one
 ``all_gather``), as the JAX planner's dist branch replicates it.
-An overflow of ``out_capacity_per_shard`` is seen by the rank whose shard
-overflowed: that rank warns and sets ``result.overflow``.
+An overflow of ``out_capacity_per_shard`` is global, as the reference's
+(its single controller reads every shard's ``true_nnz``): one prologue
+``all_reduce`` MAX of a one-element flag ORs it over the ranks, so
+``result.overflow`` is the same on every rank; the rank whose shard
+overflowed warns.
 """
 from __future__ import annotations
 
@@ -853,8 +857,12 @@ class DistAssoc:
         """Shared epilogue: overflow surfacing + result assembly (row
         partition unchanged — every strategy emits row-sharded output)."""
         true_nnz = int(out["true_nnz"])
-        overflowed = true_nnz > out_cap
-        if overflowed:
+        mine = true_nnz > out_cap
+        flag = all_reduce(torch.tensor([int(mine)], dtype=torch.int32,
+                                       device=self.device), self.mesh, "max",
+                          prologue=True)
+        overflowed = bool(flag[0])
+        if mine:
             warnings.warn(
                 f"DistAssoc.matmul: shard {self.mesh.rank} produced "
                 f"{true_nnz} entries but out_capacity_per_shard is "

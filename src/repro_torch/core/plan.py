@@ -48,7 +48,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .assoc_tensor import _upload_map
+from .assoc_tensor import _upload_map, coo_range_keep
 from .coo import SENT, canonicalize_np, dedup_sorted_coo
 from .expr import (EwiseAdd, EwiseMul, LazyExpr, MatMul, Reduce, Select,
                    Source, Transpose)
@@ -527,6 +527,17 @@ def _entry_keep(rc: Compiled, cc: Compiled, rows: np.ndarray,
     return keep
 
 
+def _range_box(rc: Compiled, cc: Compiled) -> Optional[tuple]:
+    """The rank box ``(row_lo, row_hi, col_lo, col_hi)`` of a selection
+    that compiles to a range on both axes and keeps less than everything:
+    on a device shard its keep mask is the range-mask kernel's, as an
+    eager selection's range path; None otherwise."""
+    if not (rc.is_range and cc.is_range) or (rc.count == rc.n
+                                             and cc.count == cc.n):
+        return None
+    return (rc.lo, rc.hi, cc.lo, cc.hi)
+
+
 # ---------------------------------------------------------------------------
 # Fused select→matmul, host layer
 # ---------------------------------------------------------------------------
@@ -627,6 +638,9 @@ def _tensor_entry_keep(t, sels) -> Optional[np.ndarray]:
     rc = compile_selector(sels[0], t.row_space)
     cc = compile_selector(sels[1], t.col_space)
     na = int(t.nnz)
+    box = _range_box(rc, cc)
+    if box is not None:
+        return coo_range_keep(t.rows[:na], t.cols[:na], box).cpu().numpy()
     rows = t.rows[:na].cpu().numpy().astype(np.int64)
     cols = t.cols[:na].cpu().numpy().astype(np.int64)
     return _entry_keep(rc, cc, rows, cols)
@@ -772,7 +786,8 @@ def _device_fused_select_add(a, asels, b, bsels, sr):
 
 def _dist_masked_local(d, sels):
     """This rank's shard with the deselected entries' rows sentinel-masked:
-    the keep mask comes from the rank's own entries."""
+    the keep mask comes from the rank's own entries (a rank box's from the
+    range-mask kernel, on the shard's device)."""
     from .assoc_tensor import AssocTensor
 
     loc = d.local
@@ -780,6 +795,12 @@ def _dist_masked_local(d, sels):
         return loc
     rc = compile_selector(sels[0], loc.row_space)
     cc = compile_selector(sels[1], loc.col_space)
+    box = _range_box(rc, cc)
+    if box is not None:   # SENT rows lie outside every box
+        keep_dev = coo_range_keep(loc.rows, loc.cols, box)
+        return AssocTensor(torch.where(keep_dev, loc.rows, SENT), loc.cols,
+                           loc.vals, loc.nnz, loc.row_space, loc.col_space,
+                           loc.val_space)
     rows_h = loc.rows.cpu().numpy().astype(np.int64)
     cols_h = loc.cols.cpu().numpy().astype(np.int64)
     keep = _entry_keep(rc, cc, rows_h, cols_h)

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -324,14 +324,17 @@ class IngestTable:
         live = {s.digest for s in spaces(new_base)}
         return {s.digest for a in retired for s in spaces(a)} - live
 
-    def maybe_compact(self, idle_s: float = 0.25) -> bool:
-        """Compact if the delta crossed the threshold or went idle."""
+    def compaction_due(self, idle_s: float = 0.25) -> bool:
+        """Whether the delta crossed the threshold or went idle."""
         with self._lock:
             depth = self._depth
             idle = time.monotonic() - self._last_insert_t
-        if depth == 0:
-            return False
-        if depth >= self.compact_threshold or idle >= idle_s:
+        return depth > 0 and (depth >= self.compact_threshold
+                              or idle >= idle_s)
+
+    def maybe_compact(self, idle_s: float = 0.25) -> bool:
+        """Compact if the delta crossed the threshold or went idle."""
+        if self.compaction_due(idle_s):
             self.compact()
             return True
         return False
@@ -356,13 +359,19 @@ class Compactor:
     """Background compaction: polls a registry's ingest tables and folds
     delta into base on a depth threshold (the table's own
     ``compact_threshold``) or an idle timeout.  The registry needs
-    ``ingest_names()`` and ``ingest_table(name)``."""
+    ``ingest_names()`` and ``ingest_table(name)``.
+
+    With ``submit``, the thread only decides: it calls ``submit(name)``
+    for a table that is due, and ``submit`` compacts it (the query
+    engine's SPMD mode sends the compaction to every rank as a request)."""
 
     def __init__(self, registry, *, interval_s: float = 0.05,
-                 idle_s: float = 0.25):
+                 idle_s: float = 0.25,
+                 submit: Optional[Callable[[str], Any]] = None):
         self.registry = registry
         self.interval_s = float(interval_s)
         self.idle_s = float(idle_s)
+        self.submit = submit
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -386,7 +395,10 @@ class Compactor:
         while not self._stop.wait(self.interval_s):
             for name in self.registry.ingest_names():
                 try:
-                    self.registry.ingest_table(name).maybe_compact(
-                        idle_s=self.idle_s)
+                    table = self.registry.ingest_table(name)
+                    if self.submit is None:
+                        table.maybe_compact(idle_s=self.idle_s)
+                    elif table.compaction_due(self.idle_s):
+                        self.submit(name)
                 except Exception:      # table dropped mid-iteration etc.
                     continue

@@ -37,10 +37,17 @@ Two workloads (:mod:`repro_torch.configs.d4m_bench`):
   ``sqin()`` and ``sqin(reduce=1)`` (the device layer's product on the
   gathered array), the lazy select→product and select→product→sum, and
   the uniform ``A.matmul(B)`` under ``PLUS_TIMES`` and ``MIN_PLUS`` — with
-  the collectives, strategy and kernel launches of each.
+  the collectives, strategy and kernel launches of each;
+* **serve** (:func:`build_serve` / :func:`drive_serve`) — the arrays
+  above, registered as resident tables of the query server
+  (:mod:`repro_torch.serve`) and queried by client threads over loopback
+  HTTP in six mixes (:data:`SERVE_COUNTS`): hot, cold, product, dense,
+  ingest (``POST /ingest`` then a read) and dist, with each query also
+  collected in process.
 
 :func:`check_clustered` / :func:`check_uniform` / :func:`check_ingest` /
-:func:`check_dist` / :func:`check_dist_product` hold the results against the host ``Assoc``
+:func:`check_dist` / :func:`check_dist_product` / :func:`check_serve`
+hold the results against the host ``Assoc``
 (numpy/scipy) built from the same raw triples — a check that shares no code with the torch device path.  ``full=True`` compares
 every result entry by entry; otherwise counts, checksums and the reduced
 vectors are compared.  ``chip_smoke.py`` runs this on the card; the tests
@@ -56,19 +63,21 @@ import torch
 
 from .configs.d4m_bench import make_clustered, make_dataset
 from .core import (MAX_PLUS, MIN_PLUS, PLAN_STATS, PLUS_TIMES, Assoc,
-                   AssocTensor, DistAssoc, KeySpace, Range, spgemm)
-from .core.collectives import (COLLECTIVE_STATS, collective_count,
-                               prologue_count)
+                   AssocTensor, DistAssoc, Keys, KeySpace, Range, spgemm)
+from .core.collectives import (BROADCAST_STATS, COLLECTIVE_STATS,
+                               collective_count, prologue_count)
 from .core.plan import host_axis_reduce
 from .ingest import IngestTable
 from .kernels import LAUNCHES
 
 __all__ = ["build_clustered", "build_uniform", "build_ingest", "build_dist",
-           "drive_clustered", "drive_uniform", "drive_ingest", "drive_dist",
-           "drive_ingest_fallback", "drive_dist_product", "check_clustered",
-           "check_uniform", "check_ingest", "check_ingest_fallback",
-           "check_dist", "check_dist_ingest", "check_dist_product",
-           "row_range", "DIST_COLLECTIVES", "DIST_PRODUCT_COLLECTIVES"]
+           "build_serve", "drive_clustered", "drive_uniform", "drive_ingest",
+           "drive_dist", "drive_ingest_fallback", "drive_dist_product",
+           "drive_serve", "check_clustered", "check_uniform", "check_ingest",
+           "check_ingest_fallback", "check_dist", "check_dist_ingest",
+           "check_dist_product", "check_serve", "row_range",
+           "DIST_COLLECTIVES", "DIST_PRODUCT_COLLECTIVES", "SERVE_COUNTS",
+           "SERVE_MIX_KERNELS"]
 
 INGEST_AGGREGATES = ("sum", "max")
 INGEST_BATCHES = 16
@@ -739,3 +748,412 @@ def check_dist_product(raw_c, raw_u, drv: dict, res: dict, res_u: dict,
                    ran == {"replicate", "all_to_all", "2d"},
                    f"ran {sorted(ran)}"))
     return checks
+
+
+# -- the query server over the resident arrays -------------------------------
+
+# requests per mix: closed-loop clients x requests each (hot after one
+# warm-up request; ingest: batches, each then read once; dist: plus one
+# /tables listing)
+SERVE_COUNTS = {"hot": (4, 6), "cold": (4, 3), "product": (2, 1),
+                "dense": (2, 2), "ingest": (1, INGEST_BATCHES),
+                "dist": (2, 3)}
+# the kernel launches (LAUNCHES keys) each mix must make on the card: the
+# fused select's rank box through range_mask, the pair kernels (the hot
+# pipeline's reduce on the TF32 route), the block-masked dense reduce on
+# both routes and the ingest merge's rank_count
+SERVE_MIX_KERNELS = {
+    "hot": ("range_mask", "bsr_pairlist_reduce", "bsr_pairlist_reduce_tf32"),
+    "cold": ("range_mask", "bsr_pairlist_reduce"),
+    "product": ("range_mask", "bsr_pairlist"),
+    "dense": ("bsr_spgemm_reduce", "bsr_spgemm_reduce_tf32"),
+    "ingest": ("rank_count",),
+    "dist": ("range_mask",),
+}
+_SERVE_WINDOW = 16   # row keys of a cold, product or ingest read selection
+
+
+def build_serve(clus: dict, uni: dict, dist: dict, ingest_base,
+                device):
+    """A query-server registry over arrays already built, so no
+    ``from_triples`` runs again: the clustered ``edges``/``feat``
+    (:func:`build_clustered`), the uniform ``U``/``V``
+    (:func:`build_uniform`), the dist ``dA``/``dB`` (:func:`build_dist`)
+    and a fresh ``aggregate="sum"`` :class:`IngestTable` ``ingest`` over
+    ``ingest_base`` (a ``sum`` base of :func:`build_ingest`)."""
+    from .serve import TableRegistry
+    reg = TableRegistry(device)
+    for name, arr in (("edges", clus["A"]), ("feat", clus["B"]),
+                      ("U", uni["A"]), ("V", uni["B"]),
+                      ("dA", dist["A"]), ("dB", dist["B"])):
+        reg.register(name, arr)
+    reg.register("ingest", IngestTable(ingest_base, aggregate="sum"))
+    return reg
+
+
+def _serve_windows(a, b, count: int) -> list:
+    """``count`` distinct windows of 16 consecutive row keys of ``a`` (a
+    rank range: a selection's box), each starting at a row that has an
+    entry whose column is a row key of ``b`` (so its product is not
+    empty), spread over the middle half of those rows."""
+    n = int(a.nnz)
+    rows = a.rows[:n].cpu().numpy()
+    cols = a.cols[:n].cpu().numpy()
+    good = np.unique(rows[np.isin(a.col_space.keys[cols],
+                                  b.row_space.keys)])
+    good = good[good + _SERVE_WINDOW <= len(a.row_space)]
+    starts = good[np.linspace(len(good) // 4, 3 * len(good) // 4,
+                              count).astype(np.int64)]
+    if len(np.unique(starts)) < count:
+        raise ValueError(f"{len(good)} rows with a product give no "
+                         f"{count} distinct windows")
+    keys = a.row_space.keys
+    return [keys[s:s + _SERVE_WINDOW] for s in starts]
+
+
+def _body_arrays(body: dict) -> dict:
+    """A result body with its lists as numpy arrays (compact to keep)."""
+    out = dict(body)
+    for f in ("rows", "cols"):
+        if f in out:
+            out[f] = np.asarray(out[f])
+    if "vals" in out:
+        out["vals"] = np.asarray(out["vals"], np.float64)
+    return out
+
+
+def _same_body(a: dict, b: dict) -> bool:
+    """Two result bodies equal: kind, counts and every list, exactly."""
+    if a.keys() != b.keys():
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, np.ndarray):
+            if v.shape != w.shape or not np.array_equal(
+                    v, w, equal_nan=v.dtype.kind == "f"):
+                return False
+        elif v != w and not (isinstance(v, float) and np.isnan(v)
+                             and np.isnan(w)):
+            return False
+    return True
+
+
+def _percentiles(xs) -> dict:
+    return ({"p50": float(np.percentile(xs, 50)),
+             "p99": float(np.percentile(xs, 99))} if len(xs) else {})
+
+
+def drive_serve(reg, sel, ingest_raw, *, workers: int = 4) -> dict:
+    """Serve ``reg`` (:func:`build_serve`) on 127.0.0.1 and drive the mixes
+    of :data:`SERVE_COUNTS` through :class:`~repro_torch.serve.D4MClient`
+    threads, one mix after the other:
+
+    * ``hot`` — ``(edges[sel, :] @ feat).sum(axis=1)``, one warm-up
+      request, then every client repeats it;
+    * ``cold`` — the same with a fresh ``Keys`` window of 16 row keys in
+      every request;
+    * ``product`` — ``edges[Keys(16 rows), :] @ feat`` (triples);
+    * ``dense`` — ``(U @ V).sum(axis=1)`` under ``plus_times`` and
+      ``min_plus``;
+    * ``ingest`` — ``ingest_raw``'s second triples (:func:`build_ingest`)
+      in :data:`INGEST_BATCHES` ``POST /ingest`` batches, each followed
+      by a read of 16 of its row keys;
+    * ``dist`` — ``(dA[sel, :] @ dB).sum(axis=1)`` and one ``/tables``.
+
+    Per mix: client latencies, each request's server timing, the change
+    of ``/stats`` (requests, batches, plan hits and misses), of the kernel
+    launches and of the collectives, and wall seconds; over the phase,
+    the control broadcasts.  After each mix (each ingest read: right
+    after it) every distinct query is collected in process on the same
+    resident arrays, timed, and its formatted result kept beside the
+    served ones.  The server is closed before returning; then the ingest
+    table's final snapshot is kept."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .serve import D4MClient, TableRef, start_server, to_wire
+    from .serve.engine import format_result
+
+    n_cold = SERVE_COUNTS["cold"][0] * SERVE_COUNTS["cold"][1]
+    windows = _serve_windows(reg.get("edges"), reg.get("feat"),
+                             n_cold + SERVE_COUNTS["product"][0])
+    E, F = TableRef("edges"), TableRef("feat")
+    hot = to_wire((E[sel, :] @ F).sum(axis=1))
+    cold = [to_wire((E[Keys(list(w)), :] @ F).sum(axis=1))
+            for w in windows[:n_cold]]
+    product = [to_wire(E[Keys(list(w)), :] @ F) for w in windows[n_cold:]]
+    dense = [to_wire(TableRef("U").matmul(TableRef("V"), semiring=sr)
+                     .sum(axis=1, semiring=sr))
+             for sr in ("plus_times", "min_plus")]
+    dist_q = to_wire((TableRef("dA")[sel, :] @ TableRef("dB")).sum(axis=1))
+    device = reg.device
+
+    def in_process(payload):
+        from .serve import from_wire
+        t0 = time.perf_counter()
+        res = from_wire(payload, resolve=reg.resolve).collect()
+        _sync(device)
+        t1 = time.perf_counter()
+        body = format_result(res)
+        return _body_arrays(body), t1 - t0, time.perf_counter() - t1
+
+    bcast0 = BROADCAST_STATS["broadcast"]
+    srv = start_server(reg, workers=workers)
+    client = D4MClient(srv.url, timeout=600)
+    out = {"workers": srv.engine.workers, "mixes": {}, "in_process": {}}
+
+    def request(c, kind, payload):
+        t0 = time.perf_counter()
+        resp = (c.query(payload) if kind == "query"
+                else c.ingest(*payload))
+        lat = time.perf_counter() - t0
+        return {"latency_s": lat, "exec_s": resp["timing"]["exec_s"],
+                "payload": payload, "body": _body_arrays(resp["result"])}
+
+    def run_mix(name, per_client, after=None):
+        """Each client thread runs its list of (kind, payload) in turn;
+        ``after(record)`` runs after each request of its thread."""
+        st0 = client.stats()
+        launches = dict(LAUNCHES)
+        coll = dict(COLLECTIVE_STATS)
+        pro = prologue_count()
+        t0 = time.perf_counter()
+
+        def one(reqs):
+            c = D4MClient(srv.url, timeout=600)
+            recs = []
+            for kind, payload in reqs:
+                recs.append(request(c, kind, payload))
+                if after is not None:
+                    after(recs[-1])
+            return recs
+        with ThreadPoolExecutor(len(per_client)) as pool:
+            futs = [pool.submit(one, reqs) for reqs in per_client]
+            recs = [r for f in futs for r in f.result()]
+        wall = time.perf_counter() - t0
+        st1 = client.stats()
+        s0, s1 = st0["server"], st1["server"]
+
+        def delta(d1, d0, k):
+            return d1.get(k, 0.0) - d0.get(k, 0.0)
+        hits = delta(st1["plan"], st0["plan"], "plan_hits")
+        misses = delta(st1["plan"], st0["plan"], "plan_misses")
+        batches = delta(s1, s0, "batches")
+        lat = [r["latency_s"] for r in recs]
+        mix = {"requests": len(recs), "wall_s": wall,
+               "throughput_rps": len(recs) / wall if wall else None,
+               "latency_s": _percentiles(lat),
+               "exec_s": _percentiles([r["exec_s"] for r in recs]),
+               "plan_hits": hits, "plan_misses": misses,
+               "plan_hit_rate": hits / (hits + misses) if hits + misses
+               else None,
+               "server_requests": delta(s1, s0, "requests"),
+               "server_errors": delta(s1, s0, "errors"),
+               "batch_mean": (delta(s1, s0, "batch_n") / batches
+                              if batches else None),
+               "launches": {k: LAUNCHES[k] - v for k, v in launches.items()
+                            if LAUNCHES[k] != v},
+               "collectives": {k: v - coll[k] for k, v in
+                               COLLECTIVE_STATS.items() if v != coll[k]},
+               "prologue": prologue_count() - pro, "records": recs}
+        out["mixes"][name] = mix
+
+    def collect_all(name, payloads):
+        res = out["in_process"].setdefault(name, [])
+        for p in payloads:
+            body, t_collect, t_format = in_process(p)
+            res.append({"payload": p, "body": body,
+                        "collect_s": t_collect, "format_s": t_format})
+
+    try:
+        n_c, per = SERVE_COUNTS["hot"]
+        out["hot_warmup"] = request(client, "query", hot)
+        run_mix("hot", [[("query", hot)] * per for _ in range(n_c)])
+        collect_all("hot", [hot])
+        n_c, per = SERVE_COUNTS["cold"]
+        run_mix("cold", [[("query", cold[i * per + j]) for j in range(per)]
+                         for i in range(n_c)])
+        collect_all("cold", cold)
+        run_mix("product", [[("query", p)] for p in product])
+        collect_all("product", product)
+        n_c, per = SERVE_COUNTS["dense"]
+        run_mix("dense", [[("query", dense[i])] * per for i in range(n_c)])
+        collect_all("dense", dense)
+
+        # ingest: each batch, then a read of 16 of its row keys (read your
+        # writes), collected in process right after it
+        _, _, rows2, cols2, vals = ingest_raw
+        size = len(rows2) // INGEST_BATCHES
+        reads = []
+        seq = []
+        for k in range(INGEST_BATCHES):
+            part = slice(k * size, (k + 1) * size)
+            w = np.unique(rows2[part])[:_SERVE_WINDOW]
+            read = to_wire(TableRef("ingest")[Keys(list(w)), :])
+            reads.append({"n": (k + 1) * size, "keys": w, "payload": read})
+            seq += [("ingest", ("ingest", rows2[part], cols2[part],
+                                vals[part])), ("query", read)]
+
+        def after_ingest(rec):
+            if rec["body"].get("kind") != "ingest":
+                collect_all("ingest", [rec["payload"]])
+        run_mix("ingest", [seq], after=after_ingest)
+        out["ingest_reads"] = reads
+
+        n_c, per = SERVE_COUNTS["dist"]
+        run_mix("dist", [[("query", dist_q)] * per for _ in range(n_c)])
+        collect_all("dist", [dist_q])
+        coll, pro = collective_count(), prologue_count()
+        t0 = time.perf_counter()
+        out["tables"] = client.tables()
+        out["tables_s"] = time.perf_counter() - t0
+        out["tables_collectives"] = (collective_count() - coll,
+                                     prologue_count() - pro)
+    finally:
+        srv.close()
+    out["broadcasts"] = BROADCAST_STATS["broadcast"] - bcast0
+    out["U_rows"] = reg.get("U").row_space.keys
+    out["dA_rows"] = reg.get("dA").local.row_space.keys
+    table = reg.ingest_table("ingest")
+    out["ingest_final"] = _key_triples(table.snapshot())
+    out["ingest_version"] = table.version
+    out["selector"] = sel
+    return out
+
+
+def _payload_key(payload) -> str:
+    import json
+    return json.dumps(payload, sort_keys=True)
+
+
+def _body_triples(body: dict):
+    """A triples body as (rows, cols, vals) arrays in (row, col) order."""
+    order = np.lexsort((body["cols"], body["rows"]))
+    return (body["rows"][order], body["cols"][order],
+            body["vals"][order])
+
+
+def check_serve(raw_c, raw_u, raw_i, drv: dict
+                ) -> List[Tuple[str, bool, str]]:
+    """The served results of :func:`drive_serve` against the in-process
+    ``collect()`` of the same query on the same resident arrays (every
+    request: identical triples and vectors), one result per mix against
+    the host ``Assoc`` (numpy/scipy) on the raw triples (exact: integer
+    values), every ingest read against the host over base and the batches
+    so far, and the final ingest snapshot against the host over all of
+    them; no request failed, no hot request after the warm-up missed the
+    plan cache, and the dist mix made the program collectives of
+    :data:`DIST_PRODUCT_COLLECTIVES` per request (and no prologue
+    collective at one rank)."""
+    checks = []
+    mixes, inproc = drv["mixes"], drv["in_process"]
+
+    # every served query against its in-process collect()
+    for name, mix in mixes.items():
+        served = [r for r in mix["records"] if r["body"]["kind"] != "ingest"]
+        if name == "hot":
+            served.append(drv["hot_warmup"])
+        if name == "ingest":   # each read beside its own in-process collect
+            pairs = list(zip(served, inproc[name]))
+        else:
+            want = {_payload_key(r["payload"]): r for r in inproc[name]}
+            pairs = [(r, want.get(_payload_key(r["payload"])))
+                     for r in served]
+        n = len(served)
+        same = sum(int(w is not None and _same_body(r["body"], w["body"]))
+                   for r, w in pairs)
+        checks.append((f"serve {name}: served equals in-process collect",
+                       n > 0 and same == n, f"{same} of {n} identical"))
+        checks.append((f"serve {name}: no request failed",
+                       mix["server_errors"] == 0
+                       and mix["server_requests"] == mix["requests"],
+                       f"{mix['server_errors']} errors, "
+                       f"{mix['server_requests']} of {mix['requests']}"))
+
+    rows, cols, rows2, cols2 = raw_c
+    ha, hb = Assoc(rows, cols, 1.0), Assoc(rows2, cols2, 1.0)
+
+    def first(name):
+        return next(r for r in mixes[name]["records"]
+                    if r["body"]["kind"] != "ingest")
+
+    sel = drv["selector"]
+    pipe = np.asarray((ha.lazy()[sel, :] @ hb.lazy()).sum(axis=1).collect(),
+                      np.float64)
+    hot = first("hot")["body"]["vals"]
+    checks.append(("serve hot vs host", bool(np.array_equal(hot, pipe)),
+                   f"len {len(hot)} vs {len(pipe)}"))
+    rec = first("cold")
+    w = _payload_keys(rec["payload"])
+    want = np.asarray((ha.lazy()[Keys(w), :] @ hb.lazy()).sum(axis=1)
+                      .collect(), np.float64)
+    checks.append(("serve cold vs host",
+                   bool(np.array_equal(rec["body"]["vals"], want)),
+                   f"len {len(rec['body']['vals'])} vs {len(want)}"))
+    rec = first("product")
+    w = _payload_keys(rec["payload"])
+    checks.append(_same_triples("serve product vs host",
+                                _body_triples(rec["body"]),
+                                _key_triples(ha[Keys(w), :] @ hb)))
+    urows, ucols, urows2, ucols2, uvals = raw_u
+    ua, ub = Assoc(urows, ucols, uvals), Assoc(urows2, ucols2, uvals)
+    for rec in mixes["dense"]["records"]:
+        sr = MIN_PLUS if "min_plus" in _payload_key(rec["payload"]) \
+            else PLUS_TIMES
+        prod = ua.matmul(ub, sr)
+        want = _vec_on(drv["U_rows"], prod.row,
+                       host_axis_reduce(prod, 1, sr), sr.zero)
+        checks.append((f"serve dense {sr.name} vs host",
+                       bool(np.array_equal(rec["body"]["vals"], want)),
+                       f"len {len(rec['body']['vals'])} vs {len(want)}"))
+    dist = first("dist")["body"]["vals"]
+    want = _vec_on(drv["dA_rows"], ha.row, pipe, 0.0)
+    checks.append(("serve dist vs host", bool(np.array_equal(dist, want)),
+                   f"len {len(dist)} vs {len(want)}"))
+
+    # ingest: read your writes, then the final snapshot
+    irows, icols, irows2, icols2, ivals = raw_i
+    reads = [r for r in mixes["ingest"]["records"]
+             if r["body"]["kind"] != "ingest"]
+    ok = len(reads) == len(drv["ingest_reads"])
+    for got, read in zip(reads, drv["ingest_reads"]):
+        n, keys = read["n"], read["keys"]
+        ma, mb = np.isin(irows, keys), np.isin(irows2[:n], keys)
+        want = Assoc(np.concatenate([irows[ma], irows2[:n][mb]]),
+                     np.concatenate([icols[ma], icols2[:n][mb]]),
+                     np.concatenate([ivals[ma], ivals[:n][mb]]),
+                     aggregate="sum")
+        ok &= _same_triples("", _body_triples(got["body"]),
+                            _key_triples(want))[1]
+    checks.append(("serve ingest: every read sees its writes (vs host)",
+                   bool(ok), f"{len(reads)} reads"))
+    n = len(irows2)
+    want = Assoc(np.concatenate([irows, irows2]),
+                 np.concatenate([icols, icols2]),
+                 np.concatenate([ivals, ivals[:n]]), aggregate="sum")
+    checks.append(_same_triples("serve ingest final snapshot vs host",
+                                drv["ingest_final"], _key_triples(want)))
+
+    hot = mixes["hot"]
+    checks.append(("serve hot: every request after the warm-up hit the "
+                   "plan cache", hot["plan_misses"] == 0
+                   and hot["plan_hits"] >= hot["requests"],
+                   f"hits {hot['plan_hits']}, misses {hot['plan_misses']}"))
+    d = mixes["dist"]
+    want = {k: v * d["requests"]
+            for k, v in DIST_PRODUCT_COLLECTIVES["pipeline"].items()}
+    checks.append(("serve dist collectives",
+                   d["collectives"] == want and d["prologue"] == 0
+                   and drv["tables_collectives"] == (0, 0),
+                   f"{d['collectives']} vs {want}, prologue "
+                   f"{d['prologue']}, /tables "
+                   f"{drv['tables_collectives']}"))
+    return checks
+
+
+def _payload_keys(payload) -> np.ndarray:
+    """The row keys of the ``Keys`` selection of a cold or product
+    query's wire payload."""
+    for node in payload["nodes"]:
+        if node["op"] == "select":
+            return np.asarray(node["row"]["keys"])
+    raise ValueError("no selection in the payload")

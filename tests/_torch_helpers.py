@@ -100,9 +100,11 @@ class SpmdRun:
     in ``world`` port ranks on one gloo group, all started at once when
     made, so that a module's other tests run meanwhile.  Each program
     writes an ``.npz``: the JAX one to ``sys.argv[1]``, rank r to ``OUT``.
-    :meth:`result` waits and returns ``(jax_arrays, [rank arrays])``."""
+    :meth:`result` waits and returns ``(jax_arrays, [rank arrays])``;
+    with ``jax_prog=None`` only the port ranks run (``jax_arrays`` is
+    None).  A process still running at ``timeout`` fails the result."""
 
-    def __init__(self, jax_prog: str, port_prog: str, tmp, world: int = 4,
+    def __init__(self, jax_prog, port_prog: str, tmp, world: int = 4,
                  timeout: float = 240.0):
         tmp = Path(tmp)
         env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
@@ -113,8 +115,9 @@ class SpmdRun:
         self.timeout = timeout
         self.jax_out = tmp / "jax.npz"
         self.outs = [tmp / f"rank{r}.npz" for r in range(world)]
-        self.names = ["jax"] + [f"rank {r}" for r in range(world)]
-        self.procs = [subprocess.Popen(
+        self.names = (["jax"] if jax_prog else []) + [
+            f"rank {r}" for r in range(world)]
+        self.procs = [] if jax_prog is None else [subprocess.Popen(
             [sys.executable, "-c", jax_prog, str(self.jax_out)], env=jax_env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
         self.procs += [subprocess.Popen(
@@ -138,7 +141,8 @@ class SpmdRun:
             if errors:
                 raise RuntimeError("\n".join(errors))
             self._result = (
-                dict(np.load(self.jax_out, allow_pickle=False)),
+                None if not self.jax_out.exists()
+                else dict(np.load(self.jax_out, allow_pickle=False)),
                 [dict(np.load(o, allow_pickle=False)) for o in self.outs])
         return self._result
 

@@ -1114,3 +1114,46 @@ def test_dist_matmul_on_nccl(nccl_mesh, card):
         a2a = a.matmul(b, sr, impl="all_to_all")
         assert a2a.local.rows.is_cuda
         assert a2a.to_assoc() == ha.matmul(hb, sr)
+
+
+def test_serve_device_table_over_http_on_card(card):
+    """Device tables on the card served over loopback HTTP: the fused
+    select→product→reduce launches range_mask (the selection's rank box)
+    and the pair-list reduce, and the served vector equals the in-process
+    ``collect()`` of the same query; the served product's triples equal
+    the host ``Assoc`` (values 1.0: exact)."""
+    from repro_torch.core import Assoc, Keys
+    from repro_torch.serve import (D4MClient, TableRef, TableRegistry,
+                                   from_wire, start_server, to_wire)
+    c = main_path.build_clustered(14, card)
+    reg = TableRegistry(card)
+    reg.register("edges", c["A"])
+    reg.register("feat", c["B"])
+    sel = main_path.row_range(c["A"])
+    E, F = TableRef("edges"), TableRef("feat")
+    pipe = to_wire((E[sel, :] @ F).sum(axis=1))
+    keys = list(main_path._serve_windows(c["A"], c["B"], 1)[0])
+    prod = to_wire(E[Keys(keys), :] @ F)
+    srv = start_server(reg, workers=2)
+    try:
+        client = D4MClient(srv.url)
+        reset_launch_counts()
+        got = client.query(pipe)["result"]
+        pipe_launches = dict(LAUNCHES)
+        reset_launch_counts()
+        got_prod = client.query(prod)["result"]
+        prod_launches = dict(LAUNCHES)
+    finally:
+        srv.close()
+    assert pipe_launches["range_mask"] >= 1
+    assert pipe_launches["bsr_pairlist_reduce"] >= 1
+    assert prod_launches["range_mask"] >= 1
+    assert prod_launches["bsr_pairlist"] >= 1
+    want = from_wire(pipe, resolve=reg.resolve).collect()
+    assert got["vals"] == want.double().cpu().tolist()
+    rows, cols, rows2, cols2 = c["raw"]
+    host = Assoc(rows, cols, 1.0)[Keys(keys), :] @ Assoc(rows2, cols2, 1.0)
+    r, cc, v = host.triples()
+    assert got_prod["nnz"] == len(r) > 0
+    assert sorted(zip(got_prod["rows"], got_prod["cols"], got_prod["vals"])) \
+        == sorted(zip(r.tolist(), cc.tolist(), v.tolist()))

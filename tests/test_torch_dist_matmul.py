@@ -619,7 +619,8 @@ def suite(mesh, device, out):
     out["lazy__fused"] = np.asarray(PLAN_STATS["fused_select_matmul"])
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        put("overflow", da.matmul(db, impl="coo", out_capacity_per_shard=8))
+        put("overflow", counted("overflow", lambda: da.matmul(
+            db, impl="coo", out_capacity_per_shard=8)))
     out["overflow__warned"] = np.asarray(any(
         issubclass(w.category, RuntimeWarning)
         and "out_capacity_per_shard" in str(w.message) for w in caught))
@@ -828,12 +829,17 @@ def test_operator_lazy_overflow_and_errors(ranks, host):
         assert int(r["lazy__fused"]) == 3
         assert bool(r["bad_impl__raised"])
         assert bool(r["bad_kernel_impl__raised"])
-    # a shard whose product outgrows 8 entries warns and says so
-    over = [bool(r["overflow__overflow"]) for r in ranks]
-    assert any(over)
-    for r, o in zip(ranks, over):
+    # the flag is global, as the reference's: True on every rank when any
+    # shard's product outgrows 8 entries; only that shard's rank warns.
+    # One prologue all_reduce MAX ORs it at four ranks, none at one
+    mine = [len(r["mm_coo_resident__r"]) > 8 for r in ranks]
+    assert any(mine)
+    for r, o in zip(ranks, mine):
+        assert bool(r["overflow__overflow"]) is True
         assert bool(r["overflow__warned"]) == o
         assert len(r["overflow__r"]) <= 8
+    _assert_counts(ranks, "overflow", _expected(ranks, "overflow",
+                                                resident=True))
 
 
 def test_large_b_and_hub_equal_host(ranks, host):
@@ -899,7 +905,8 @@ def _expected(ranks, name, *, resident, reduce=False, case=None):
     gathers = 1 + int(resident) + int(strategy == "all_to_all")
     cap_max = int(not reduce and case is not None and _jax_plan(
         ranks, case).expands["replicate"] > 4096)
-    return prog, [cap_max, gathers]
+    # a product (not a fused reduce) ORs its overflow flag: one MAX
+    return prog, [cap_max + int(not reduce), gathers]
 
 
 def _assert_counts(ranks, name, want):
