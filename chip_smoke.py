@@ -71,6 +71,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (``bsr_spgemm_reduce``); each with its wall time beside the
      ``AssocTensor``'s, strategy, collectives and launches (the
      ``[dist product]`` lines);
+   * the contracts phase, on the same mesh: ``repro_torch.analysis``'s
+     ``verify_all`` runs the programs behind every ``@contract`` (the 24
+     of the JAX package) over the probes' seeded inputs (64 triples a
+     tensor or shard over 4096 x 4096 keys, the JAX probe geometry) with
+     ``impl="auto"``, counted: collectives by family, host reads
+     (device-to-host copies included), the largest intermediate beside
+     the dense budget and the peak-memory delta beside the budget's
+     float32 bytes plus the inputs'; ``range_mask``, ``bsr_pairlist``,
+     ``bsr_pairlist_reduce`` and ``rank_count`` must launch, no contract
+     may be violated, and each program's output must equal the same call
+     on the plain route (the pair kernels' (+, ×) within the TF32 route's
+     bound; the ``[contracts]`` lines; ``dist.matmul_2d`` needs four
+     ranks and is reported as not run);
    * the serve phase: those arrays (clustered ``edges``/``feat``, uniform
      ``U``/``V``, the dist ``dA``/``dB``) and a fresh ``IngestTable`` over
      the n=15 ``sum`` base, registered as resident tables of the query
@@ -199,6 +212,8 @@ N_FALLBACK = 65536  # triples of B inserted over the clustered A
 MAIN_PATH_KERNELS = ("range_mask", "bsr_pairlist", "bsr_pairlist_reduce",
                      "semiring_matmul", "bsr_spgemm_reduce")
 INGEST_PATH_KERNELS = ("rank_count", "range_mask")
+CONTRACT_KERNELS = ("range_mask", "bsr_pairlist", "bsr_pairlist_reduce",
+                    "rank_count")
 SEMIRINGS = ("plus_times", "max_plus", "min_plus", "max_min", "max_times",
              "and_or")
 SERVE_WORKERS = 4   # the D4M query server's worker pool
@@ -515,6 +530,96 @@ def torch_calls(fn) -> int:
     with Count():
         fn()
     return Count.n
+
+
+# the probe programs that run a pair kernel: (+, ×) on the TF32 route
+PAIR_CONTRACTS = ("spgemm.matmul", "spgemm.matmul_reduce", "dist.matmul_bsr")
+# the most pairs any output tile or block of the probes takes
+PROBE_PAIRS = 16
+
+
+def contracts_phase(mesh, report, failures) -> None:
+    """Every ``@contract``'s programs on the card (``verify_all`` over the
+    probes' seeded inputs, the dist programs on ``mesh``), counted: its
+    collectives by family, host reads (device-to-host copies included),
+    largest intermediate beside the dense budget and peak memory beside
+    the budget's float32 bytes plus the inputs'; each program's output
+    held against the same call on the plain route
+    (``cuda_lib.plain_route``) — exactly, and the pair kernels' (+, ×)
+    within the TF32 route's bound: the inputs are positive, so
+    Σ|A|·|B| of an output is the plain output itself, with K = 128 x
+    the probe's 16 pairs and the reduce's fp32 fold (2^-23 a term of 128
+    folded outputs).  A violation, a disagreement or a kernel of the
+    probes that did not launch fails the run."""
+    import torch
+    from repro_torch.analysis import CONTRACT_REGISTRY, verify_all
+    from repro_torch.analysis.report import tensors_in
+    from repro_torch.kernels import LAUNCHES, cuda_lib, reset_launch_counts
+    from repro_torch.kernels.semiring_matmul.ref import TF32X3_C1
+
+    k = 128 * PROBE_PAIRS
+    tf32_scale = (TF32X3_C1 * 2.0 ** -22 + -(-k // 32) * 2.0 ** -24
+                  + 128 * 2.0 ** -23)
+    rows, ran = {}, set()
+
+    def on_program(entry, label, thunk, got, rep, reason):
+        name = f"{entry}[{label}]"
+        if reason is None:
+            ran.add(entry)
+        else:
+            rows[name] = {"not_run": reason}
+            log(f"[contracts] {name} not run: {reason}")
+            return
+        with cuda_lib.plain_route():
+            want = thunk()
+        gots, wants = list(tensors_in(got)), list(tensors_in(want))
+        err, ok = 0.0, len(gots) == len(wants)
+        for g, w in zip(gots, wants):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                ok = False
+                continue
+            e = max_err(g, w) if g.is_floating_point() else float(
+                (g != w).sum())
+            err = max(err, e)
+            if g.is_floating_point() and entry in PAIR_CONTRACTS:
+                ok &= bool(((g.double() - w.double()).abs()
+                            <= tf32_scale * w.double().abs()).all())
+            else:
+                ok &= e == 0.0
+        budget = CONTRACT_REGISTRY[entry].budget(rep)
+        rows[name] = {
+            "collectives": {f: v for f, v in rep.collective_counts.items()
+                            if v},
+            "host_transfers": rep.host_transfers,
+            "max_intermediate": rep.max_intermediate_elems,
+            "max_intermediate_op": rep.max_intermediate_op,
+            "budget": budget, "peak_bytes": rep.peak_bytes,
+            "peak_limit_bytes": 4 * budget + rep.input_bytes,
+            "max_abs_err": err}
+        log(f"[contracts] {name} " + json.dumps(rows[name]))
+        if not ok:
+            failures.append(f"contract program {name} disagrees with its "
+                            f"plain route (max |err| {err})")
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = verify_all(device=mesh.device, mesh=mesh, on_program=on_program)
+    torch.cuda.synchronize()
+    report["contracts_s"] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    report["launches"]["contracts"] = launches
+    report["contracts"] = rows
+    held = sum(1 for n, v in results.items() if n in ran and not v)
+    log(f"[contracts] {held} of {len(results)} contracts held on "
+        f"{nvidia_smi_line()} in {report['contracts_s']:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for viols in results.values():
+        failures += [f"contract {v}" for v in viols]
+    for k in CONTRACT_KERNELS:
+        if launches[k] < 1:
+            failures.append(f"kernel {k} was not launched by the contract "
+                            f"probes")
 
 
 def serve_phase(dev, report, failures) -> dict:
@@ -1015,6 +1120,10 @@ def main() -> int:
                                 f"{res_p['launches'][name]})")
     if res_p["launches"]["uniform min_plus"].get("bsr_pairlist_tf32", 0):
         failures.append("the dist MIN_PLUS product took the TF32 route")
+
+    # the contracts phase: every @contract's programs on the card, the dist
+    # ones on the same one-rank mesh
+    contracts_phase(mesh, report, failures)
 
     # the serve phase: the arrays above as resident tables of the query
     # server on 127.0.0.1 (one executor in admission order: the registry

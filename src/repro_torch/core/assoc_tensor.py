@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
+
 from .assoc import Assoc
 from .coo import SENT, compact_to_front, dedup_sorted_coo, sort_key
 from .expr import EwiseAdd, EwiseMul, MatMul, Select, Source
@@ -518,6 +520,8 @@ class AssocTensor:
                                              self._upload_mask(cc.mask()))
         return keep
 
+    @contract(collectives=0,
+              note="device selection: range kernel / masks, never dense")
     def __getitem__(self, ij) -> "AssocTensor":
         # thin wrapper over the one-node graph (see __add__)
         i, j = ij
@@ -527,6 +531,8 @@ class AssocTensor:
         """Physical selection (the executor's device backend)."""
         return self._compact(self._selection_keep(ij))
 
+    @contract(collectives=0,
+              note="in-place value overwrite over stored entries")
     def __setitem__(self, ij, value) -> None:
         """Selector-targeted value update (in place, numeric scalar).
 

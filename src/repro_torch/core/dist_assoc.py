@@ -98,6 +98,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
+
 from .assoc_tensor import (AssocTensor, _bump_dispatch, _upload_map,
                            coo_axis_mask_keep, coo_compact, coo_mask_keep,
                            coo_range_keep, resolve_device)
@@ -110,7 +112,8 @@ from .mesh import Mesh
 from .semiring import PLUS_TIMES, get_semiring, scatter_combine
 from .spgemm import (BSR_AUTO_EXPAND, _cap8, _stage, _upload,
                      bsr_tiles_coo, dist_summary, estimate_out_nnz,
-                     pad_to_cap, plan_from_summaries, plan_matmul)
+                     pack_b_tiles, pad_to_cap, plan_from_summaries,
+                     plan_matmul)
 
 __all__ = ["DistAssoc"]
 
@@ -211,11 +214,11 @@ def _select_prog(loc: AssocTensor, row_gather: bool, col_gather: bool,
 
 
 def _setvals_prog(loc: AssocTensor, row_gather: bool, col_gather: bool,
-                  boxes, rm, cm, value: float) -> torch.Tensor:
+                  boxes, rm, cm, value: np.float32) -> torch.Tensor:
     """Selector-targeted value overwrite (``__setitem__``'s executor):
-    the shard's new values."""
+    the shard's new values (``value`` already cast to float32 on host)."""
     keep = _shard_selection_keep(loc, row_gather, col_gather, boxes, rm, cm)
-    val = torch.tensor(np.float32(value), device=loc.vals.device)
+    val = torch.tensor(value, device=loc.vals.device)
     return torch.where(keep, val.to(loc.vals.dtype), loc.vals)
 
 
@@ -305,6 +308,9 @@ def _rerank_block(b_rows, bm):
     return torch.where(ok, bm[b_rows.clamp(0, bm.shape[0] - 1).long()], SENT)
 
 
+@contract(collectives=1, name="dist.matmul_all_to_all",
+          note="sharded-B product: one packed all_to_all of partial "
+               "products, B never replicated")
 def _matmul_a2a_prog(mesh: Mesh, sr, expand: int, bucket_cap: int,
                      out_cap: int, ar, ac, av, br, bc, bv, bm, bounds
                      ) -> dict:
@@ -337,6 +343,9 @@ def _ring_peers(rank: int, pc: int) -> Tuple[int, int]:
     return g * pc + (p - 1) % pc, g * pc + (p + 1) % pc
 
 
+@contract(collectives=3, name="dist.matmul_2d",
+          note="SUMMA-style grid: pc−1 packed ring shifts "
+               "(probe grid 1×4 → 3); A never moves")
 def _matmul_ring_prog(mesh: Mesh, sr, pr: int, pc: int, round_expand: int,
                       out_cap: int, ar, ac, av, br, bc, bv) -> dict:
     """2D-grid ring product.
@@ -367,6 +376,9 @@ def _matmul_ring_prog(mesh: Mesh, sr, pr: int, pc: int, round_expand: int,
     return _finish_coo(r, c, v, nnz, out_cap, sr.zero)
 
 
+@contract(collectives=1, name="dist.matmul_reduce_all_to_all",
+          note="sharded-B fused epilogue: one mesh_combine, no exchange "
+               "of partial products needed")
 def _matmul_reduce_a2a_prog(mesh: Mesh, sr, expand: int, n_out: int,
                             axis: int, ar, ac, av, br, bc, bv, bm
                             ) -> torch.Tensor:
@@ -382,14 +394,19 @@ def _matmul_reduce_a2a_prog(mesh: Mesh, sr, expand: int, n_out: int,
     return mesh_combine(vec, mesh, sr)
 
 
-def _matmul_bsr_prog(sr, plan, a_vals, b_vals, out_cap: int,
+@contract(collectives=0, name="dist.matmul_bsr",
+          note="the rank's whole tiled product in one program: its own "
+               "pair list against the replicated B")
+def _matmul_bsr_prog(sr, plan, a_vals, b_tiles, out_cap: int,
                      kernel_impl: str) -> dict:
     """Replicate strategy, tiled compute: the rank's own pair-list plan
-    (``plan``, over its valid A entries and all of B) contracted by the
+    (``plan``, over its valid A entries and all of B) — its A tiles packed
+    here, against the replicated B tiles the caller packed once
+    (``b_tiles``, as the JAX program takes them) — contracted by the
     ``bsr_pairlist`` kernel and read out of the present C tiles as
     canonical COO (zero collectives).  Each rank plans and runs only its
     own shard, so no padding to uniform pair-list sizes is needed."""
-    r, c, v, true_nnz = bsr_tiles_coo(plan, a_vals, b_vals, sr, out_cap,
+    r, c, v, true_nnz = bsr_tiles_coo(plan, a_vals, b_tiles, sr, out_cap,
                                       kernel_impl=kernel_impl)
     nnz = torch.tensor(true_nnz, dtype=torch.int64, device=a_vals.device)
     return _finish_coo(r, c, v, nnz, out_cap, sr.zero)
@@ -530,10 +547,12 @@ class DistAssoc:
         out = _ewise_prog(self.local, other.local, get_semiring(semiring), op)
         return DistAssoc(out, self.mesh, row_bounds=self.row_bounds)
 
+    @contract(collectives=0, note="shard-local ⊕: disjoint aligned rows")
     def add(self, other, semiring=PLUS_TIMES):
         """Shard-local ⊕ over disjoint aligned rows (zero collectives)."""
         return self._ewise(other, "add", semiring)
 
+    @contract(collectives=0, note="shard-local ⊗: disjoint aligned rows")
     def mul(self, other, semiring=PLUS_TIMES):
         """Shard-local ⊗ over disjoint aligned rows (zero collectives)."""
         return self._ewise(other, "mul", semiring)
@@ -592,6 +611,9 @@ class DistAssoc:
         return (row_gather, col_gather, boxes, mask(rc, nr, row_gather),
                 mask(cc, nc, col_gather))
 
+    @contract(collectives=0,
+              note="selection is shard-local: compiled boxes/masks on "
+                   "every rank")
     def __getitem__(self, ij) -> "DistAssoc":
         """Shard-local selection (zero collectives)."""
         i, j = ij
@@ -610,6 +632,8 @@ class DistAssoc:
         out = _select_prog(self.local, *self._compiled_selection(ij))
         return DistAssoc(out, self.mesh, row_bounds=self.row_bounds)
 
+    @contract(collectives=0,
+              note="scalar assignment is shard-local over stored entries")
     def __setitem__(self, ij, value) -> None:
         """Selector-targeted scalar assignment, sharded (zero collectives).
 
@@ -624,11 +648,13 @@ class DistAssoc:
         loc = self.local
         if not loc.numeric:
             raise TypeError("DistAssoc __setitem__ requires numeric values")
-        vals = _setvals_prog(loc, *self._compiled_selection(ij), value)
+        vals = _setvals_prog(loc, *self._compiled_selection(ij),
+                             np.float32(value))
         self.local = AssocTensor(loc.rows, loc.cols, vals, loc.nnz,
                                  loc.row_space, loc.col_space, loc.val_space)
 
     # -- global reductions --------------------------------------------------------
+    @contract(collectives=1, note="local segment scatter + one mesh_combine")
     def col_reduce(self, semiring=PLUS_TIMES) -> torch.Tensor:
         """⊕ over rows per column → dense ``[n_cols]`` (one collective)."""
         loc = self.local
@@ -636,6 +662,7 @@ class DistAssoc:
                                 len(loc.col_space), loc.cols, loc.vals,
                                 loc.rows)
 
+    @contract(collectives=1, note="disjoint-support concat as one collective")
     def row_reduce(self, semiring=PLUS_TIMES) -> torch.Tensor:
         """⊕ over cols per row → dense ``[n_rows]`` (one collective).
 
@@ -646,6 +673,7 @@ class DistAssoc:
                                 len(loc.row_space), loc.rows, loc.vals,
                                 loc.rows)
 
+    @contract(collectives=1, note="one SUM of per-shard counts")
     def col_degree(self) -> torch.Tensor:
         """Stored entries per column → dense int32 ``[n_cols]`` (one SUM):
         the Graphulo degree-table idiom."""
@@ -653,6 +681,7 @@ class DistAssoc:
         return _col_degree_prog(self.mesh, len(loc.col_space), loc.cols,
                                 loc.rows)
 
+    @contract(collectives=1, note="per-shard y rows + one mesh_combine")
     def matmul_dense_vec(self, x: torch.Tensor,
                          semiring=PLUS_TIMES) -> torch.Tensor:
         """``y = A ⊗.⊕ x`` for a dense vector over the column keyspace, on
@@ -876,6 +905,10 @@ class DistAssoc:
         result.overflow = overflowed
         return result
 
+    @contract(collectives=0,
+              note="replicate strategy: shard-local product, zero program "
+                   "collectives; sharded-B strategies carry their own "
+                   "contracts (dist.matmul_all_to_all / dist.matmul_2d)")
     def matmul(self, other, semiring=PLUS_TIMES, *, impl: str = "auto_dist",
                kernel_impl: str = "auto",
                grid: Optional[Tuple[int, int]] = None,
@@ -958,8 +991,11 @@ class DistAssoc:
         if local == "bsr" or (local == "auto" and expand >= BSR_AUTO_EXPAND):
             idx = self._a_valid(st)
             a_vals = st.a_loc.vals[_upload(idx, dev)].to(torch.float32)
-            out = _matmul_bsr_prog(sr, self._bsr_plan(st), a_vals, st.b_vals,
-                                   out_cap, kernel_impl)
+            tile_plan = self._bsr_plan(st)
+            with _stage("pack_tiles", dev):
+                b_tiles = pack_b_tiles(tile_plan, st.b_vals, sr)
+            out = _matmul_bsr_prog(sr, tile_plan, a_vals, b_tiles, out_cap,
+                                   kernel_impl)
             return self._matmul_finish(out, st, out_cap)
         out = _matmul_prog(sr, expand, out_cap, *a, st.b_rows, st.b_cols,
                            st.b_vals)
@@ -971,6 +1007,7 @@ class DistAssoc:
             return MatMul(Source(self), Source(other)).collect()
         return NotImplemented
 
+    @contract(collectives=1, note="fused epilogue: exactly one reduction")
     def matmul_reduce(self, other, axis: int = 1, semiring=PLUS_TIMES, *,
                       impl: str = "auto_dist") -> torch.Tensor:
         """Fused ``⊕-reduce(A ⊗.⊕ B, axis)`` — one program collective, no C.
@@ -1016,6 +1053,7 @@ class DistAssoc:
             st.a_loc.rows, st.a_cols, st.a_loc.vals.to(torch.float32),
             st.b_rows, st.b_cols, st.b_vals)
 
+    @contract(collectives=1, note="fused reduce= epilogue (AA^T)")
     def sqout(self, semiring=PLUS_TIMES, reduce: Optional[int] = None):
         """AAᵀ — the row-key graph, sharded like A; ``reduce=0/1`` runs the
         fused epilogue instead (a dense vector, one combine).  Aᵀ is
@@ -1025,6 +1063,7 @@ class DistAssoc:
             return self.matmul(t, semiring)
         return self.matmul_reduce(t, reduce, semiring)
 
+    @contract(collectives=1, note="fused reduce= epilogue (A^T A)")
     def sqin(self, semiring=PLUS_TIMES, reduce: Optional[int] = None):
         """AᵀA — the correlation idiom.  The transpose breaks the row
         partition, so this runs as gathered Aᵀ × gathered A on the device

@@ -56,11 +56,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
+
 from .coo import SENT, dedup_sorted_coo, expand_join_coo
 from .semiring import PLUS_TIMES, Semiring, get_semiring, scatter_combine
 
 __all__ = ["MatmulPlan", "plan_matmul", "matmul", "matmul_reduce",
-           "bsr_matmul_coo", "bsr_tiles_coo", "pack_tiles",
+           "bsr_matmul_coo", "bsr_tiles_coo", "pack_b_tiles", "pack_tiles",
            "estimate_out_nnz", "reduce_pairs",
            "tiles_to_coo", "stage_timing", "STAGE_MS", "TILE",
            "BSR_AUTO_EXPAND", "DistPlan", "dist_summary",
@@ -346,6 +348,14 @@ def pack_tiles(vals: torch.Tensor, tile_of: np.ndarray, lr: np.ndarray,
     return tiles
 
 
+def pack_b_tiles(plan: MatmulPlan, b_vals: torch.Tensor, sr: Semiring, *,
+                 bk: int = TILE, bn: int = TILE) -> torch.Tensor:
+    """The plan's B entries (``b_vals`` in its entry order) packed into its
+    B tiles ``[n_b, bk, bn]``, the operand :func:`bsr_tiles_coo` takes."""
+    return pack_tiles(b_vals, plan.b_tile_of, plan.b_lr, plan.b_lc,
+                      len(plan.b_blocks), bk, bn, sr.zero)
+
+
 def _warn_overflow(true_nnz: int, capacity: int, what: str) -> None:
     warnings.warn(
         f"{what}: result has {true_nnz} entries but capacity {capacity}; "
@@ -407,11 +417,12 @@ def tiles_to_coo(c_tiles: torch.Tensor, c_blocks: np.ndarray, m: int, n: int,
 
 
 def bsr_tiles_coo(plan: MatmulPlan, a_vals: torch.Tensor,
-                  b_vals: torch.Tensor, sr: Semiring, out_capacity: int, *,
+                  b_tiles: torch.Tensor, sr: Semiring, out_capacity: int, *,
                   kernel_impl: str = "auto",
-                  bm: int = TILE, bk: int = TILE, bn: int = TILE):
-    """The BSR contraction: the plan's A and B entries (``a_vals``/
-    ``b_vals`` in the plan's entry order) packed into tiles, the pair list
+                  bm: int = TILE, bk: int = TILE):
+    """The BSR contraction: the plan's A entries (``a_vals`` in the plan's
+    entry order) packed into tiles, against B's tiles (``b_tiles``,
+    :func:`pack_b_tiles`), the pair list
     contracted by :func:`repro_torch.kernels.bsr_spgemm.ops.bsr_pairlist`
     (the CUDA kernel on CUDA tensors, its plain torch version on CPU
     tensors; ``kernel_impl`` forwards to that dispatch) and the present C
@@ -428,16 +439,12 @@ def bsr_tiles_coo(plan: MatmulPlan, a_vals: torch.Tensor,
     with _stage("pack_tiles", dev):
         a_tiles = pack_tiles(a_vals, plan.a_tile_of, plan.a_lr, plan.a_lc,
                              len(plan.a_blocks), bm, bk, sr.zero)
-        b_tiles = pack_tiles(b_vals, plan.b_tile_of, plan.b_lr, plan.b_lc,
-                             len(plan.b_blocks), bk, bn, sr.zero)
     n_c = len(plan.c_blocks)
     with _stage("kernel", dev):   # with the wrapper's checks
         c_tiles = bsr_pairlist(
-            a_tiles, b_tiles, _upload(plan.pair_a, dev, torch.int32),
-            _upload(plan.pair_b, dev, torch.int32),
-            _upload(plan.pair_c, dev, torch.int32),
+            a_tiles, b_tiles, plan.pair_a, plan.pair_b, plan.pair_c,
             n_c=n_c, semiring=sr, impl=kernel_impl)
-    del a_tiles, b_tiles
+    del a_tiles
     with _stage("tiles_to_coo", dev):
         return tiles_to_coo(c_tiles, plan.c_blocks, plan.m, plan.n, sr.zero,
                             out_capacity)
@@ -454,9 +461,11 @@ def bsr_matmul_coo(plan: MatmulPlan, a_vals: torch.Tensor,
     over the **present C tiles only** — never over |rowspace|×|colspace| —
     so peak memory is tiles + the output COO.
     """
-    r, c, v, true_nnz = bsr_tiles_coo(plan, a_vals, b_vals, sr, out_capacity,
-                                      kernel_impl=kernel_impl, bm=bm, bk=bk,
-                                      bn=bn)
+    with _stage("pack_tiles", a_vals.device):
+        b_tiles = pack_b_tiles(plan, b_vals, sr, bk=bk, bn=bn)
+    r, c, v, true_nnz = bsr_tiles_coo(plan, a_vals, b_tiles, sr, out_capacity,
+                                      kernel_impl=kernel_impl, bm=bm, bk=bk)
+    del b_tiles
     overflowed = true_nnz > out_capacity
     if overflowed:
         _warn_overflow(true_nnz, out_capacity, "bsr_matmul_coo")
@@ -548,6 +557,8 @@ def _check_impl(impl: str) -> None:
                          f"expected auto/dense/bsr/coo")
 
 
+@contract(collectives=0, name="spgemm.matmul",
+          note="single-device planned product: BSR pair-list kernel path")
 def matmul(a, b, semiring=PLUS_TIMES, *, impl: str = "auto",
            out_capacity: Optional[int] = None, use_kernel: bool = True,
            kernel_impl: str = "auto",
@@ -648,6 +659,8 @@ def matmul(a, b, semiring=PLUS_TIMES, *, impl: str = "auto",
     return out
 
 
+@contract(collectives=0, name="spgemm.matmul_reduce",
+          note="fused epilogue: C tiles never materialized")
 def matmul_reduce(a, b, axis: int, semiring=PLUS_TIMES, *,
                   impl: str = "auto", kernel_impl: str = "auto",
                   a_keep: Optional[np.ndarray] = None,
@@ -743,8 +756,7 @@ def matmul_reduce(a, b, axis: int, semiring=PLUS_TIMES, *,
         pa, pb, pair_o, o_uniq = reduce_pairs(plan, axis)
     with _stage("kernel", dev):   # with the wrapper's checks
         blocks = bsr_pairlist_reduce(
-            a_tiles, b_tiles, _upload(pa, dev, torch.int32),
-            _upload(pb, dev, torch.int32), _upload(pair_o, dev, torch.int32),
+            a_tiles, b_tiles, pa, pb, pair_o,
             n_o=len(o_uniq), axis=axis, semiring=sr,
             impl=kernel_impl)                              # [n_o, TILE]
 

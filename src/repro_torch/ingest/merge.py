@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.assoc_tensor import coo_compact
 from repro_torch.core.coo import SENT, dedup_sorted_coo
 from repro_torch.kernels.sorted_merge.ops import overlay_scatter
@@ -60,6 +61,9 @@ def _linear_keys(rows: torch.Tensor, cols: torch.Tensor,
     return torch.where(ok, torch.where(ok, rows, 0) * ncols + cols, SENT)
 
 
+@contract(collectives=0, name="ingest.merge_read",
+          note="overlay merge via the sorted_merge rank-count kernel: "
+               "base is never re-sorted, output is O(capb + capd)")
 def _merge_read_prog(br, bc, bv, dr, dc, dv, ncols: int, aggregate: str):
     """base ⊕ delta overlay through the rank-count kernel; returns canonical
     ``(rows, cols, vals, nnz)`` of length ``capb + capd``."""
@@ -97,6 +101,9 @@ def _merge_concat_prog(br, bc, bv, dr, dc, dv, aggregate: str):
                             torch.cat([bv, dv]), _agg_op(aggregate))
 
 
+@contract(collectives=0, name="ingest.append",
+          note="delta-buffer canonicalize: one dedup pass, no collectives, "
+               "O(cap) memory")
 def delta_canon(rows, cols, vals, aggregate: str):
     """Canonicalize one padded raw delta buffer → (r, c, v, nnz)."""
     return dedup_sorted_coo(rows, cols, vals, _agg_op(aggregate))
@@ -112,7 +119,9 @@ def merge_read(base, dr, dc, dv, aggregate: str, *, nrows: int, ncols: int):
                               aggregate)
 
 
-
+@contract(collectives=0, name="ingest.dist_merge_read",
+          note="shard-local overlay merge: delta is pre-routed to the "
+               "owning row shard, so zero collectives")
 def dist_merge(loc, dr, dc, dv, rmap, cmap, aggregate: str, rerank: bool):
     """The sharded overlay merge on this rank: its base shard ``loc``
     (re-ranked through ``rmap``/``cmap`` when ``rerank``) ⊕ the delta

@@ -16,6 +16,7 @@ the plain version on CPU tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.semiring import Semiring, get_semiring
@@ -66,11 +67,22 @@ def reduce_chunks(runs: torch.Tensor, n_pairs: int,
     return off, n + n_pairs // chunk
 
 
+def _pair_lists_on(t: torch.Tensor, *pairs):
+    """Pair lists given on the host (numpy, as the planner makes them) as
+    int32 tensors on ``t``'s device; tensors pass through."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(
+        t.device) if isinstance(p, np.ndarray) else p for p in pairs)
+
+
 def _check_pairlist(a_tiles, b_tiles, pair_a, pair_b, pair_x, n_out):
-    """Validate what the kernel cannot: device, dtypes, shapes, and (one
-    host read-back) that every pair indexes a tile and the output ids are
-    sorted within ``[0, n_out)`` — a bad index would read out of bounds."""
-    cuda_lib.check_cuda(a_tiles, b_tiles, pair_a, pair_b, pair_x)
+    """Validate what the kernel cannot: device, dtypes, shapes, and that
+    every pair indexes a tile and the output ids are sorted within
+    ``[0, n_out)`` — a bad index would read out of bounds.  Pair lists on
+    the host (numpy) are checked there and uploaded, with no read-back;
+    pair lists on the card are read back once."""
+    host = isinstance(pair_a, np.ndarray)
+    cuda_lib.check_cuda(a_tiles, b_tiles, *(() if host else
+                                            (pair_a, pair_b, pair_x)))
     for name, t in (("a_tiles", a_tiles), ("b_tiles", b_tiles)):
         if t.dim() != 3 or t.shape[1:] != (TILE, TILE) \
                 or t.dtype != torch.float32:
@@ -79,30 +91,32 @@ def _check_pairlist(a_tiles, b_tiles, pair_a, pair_b, pair_x, n_out):
     n = pair_a.shape[0]
     for name, t in (("pair_a", pair_a), ("pair_b", pair_b),
                     ("pair_c/o", pair_x)):
-        if t.dtype != torch.int32 or t.shape != (n,):
+        if t.shape != (n,) or (t.dtype != torch.int32 if not host else
+                               t.dtype.kind not in "iu"):
             raise ValueError(f"{name} must be int32 [{n}]; got {t.dtype} "
                              f"{tuple(t.shape)}")
     if n:
-        bad = torch.stack([
-            (pair_a.min() < 0) | (pair_a.max() >= a_tiles.shape[0]),
-            (pair_b.min() < 0) | (pair_b.max() >= b_tiles.shape[0]),
-            (pair_x.min() < 0) | (pair_x.max() >= n_out),
-            (pair_x[1:] < pair_x[:-1]).any()]).tolist()
+        bad = [(pair_a.min() < 0) | (pair_a.max() >= a_tiles.shape[0]),
+               (pair_b.min() < 0) | (pair_b.max() >= b_tiles.shape[0]),
+               (pair_x.min() < 0) | (pair_x.max() >= n_out),
+               (pair_x[1:] < pair_x[:-1]).any()]
+        bad = [bool(x) for x in bad] if host else torch.stack(bad).tolist()
         if any(bad):
             raise ValueError(
                 "pair lists out of range or unsorted (pair_a, pair_b, "
                 f"pair_c/o range, pair_c/o order): {bad}")
+    pair_a, pair_b, pair_x = _pair_lists_on(a_tiles, pair_a, pair_b, pair_x)
     return (a_tiles.contiguous(), b_tiles.contiguous(),
-            pair_a.contiguous(), pair_b.contiguous())
+            pair_a.contiguous(), pair_b.contiguous(), pair_x)
 
 
 def bsr_pairlist_cuda(a_tiles, b_tiles, pair_a, pair_b, pair_c, *,
                       n_c: int, sr: Semiring) -> torch.Tensor:
     """The kernel: packed C tiles ``[n_c, 128, 128]``; (+, ×) on the TF32
-    route, the other five on the ring.  Checks its inputs (one host
-    read-back), then :func:`pairlist_launch`."""
+    route, the other five on the ring.  Checks its inputs
+    (:func:`_check_pairlist`), then :func:`pairlist_launch`."""
     sid = cuda_lib.kernel_semiring_id(sr)
-    a_tiles, b_tiles, pair_a, pair_b = _check_pairlist(
+    a_tiles, b_tiles, pair_a, pair_b, pair_c = _check_pairlist(
         a_tiles, b_tiles, pair_a, pair_b, pair_c, n_c)
     return pairlist_launch(a_tiles, b_tiles, pair_a, pair_b, pair_c, n_c=n_c,
                            sid=sid)
@@ -132,12 +146,12 @@ def pairlist_launch(a_tiles, b_tiles, pair_a, pair_b, pair_c, *, n_c: int,
 def bsr_pairlist_reduce_cuda(a_tiles, b_tiles, pair_a, pair_b, pair_o, *,
                              n_o: int, axis: int, sr: Semiring) -> torch.Tensor:
     """The kernel: per-output-block ⊕-folded vectors ``[n_o, 128]``; (+, ×)
-    on the TF32 route, the other five on the ring.  Checks its inputs (one
-    host read-back), then :func:`pairlist_reduce_launch`."""
+    on the TF32 route, the other five on the ring.  Checks its inputs
+    (:func:`_check_pairlist`), then :func:`pairlist_reduce_launch`."""
     sid = cuda_lib.kernel_semiring_id(sr)
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis!r}")
-    a_tiles, b_tiles, pair_a, pair_b = _check_pairlist(
+    a_tiles, b_tiles, pair_a, pair_b, pair_o = _check_pairlist(
         a_tiles, b_tiles, pair_a, pair_b, pair_o, n_o)
     return pairlist_reduce_launch(a_tiles, b_tiles, pair_a, pair_b, pair_o,
                                   n_o=n_o, axis=axis, sid=sid)
@@ -170,11 +184,13 @@ def pairlist_reduce_launch(a_tiles, b_tiles, pair_a, pair_b, pair_o, *,
 
 def bsr_pairlist(a_tiles, b_tiles, pair_a, pair_b, pair_c, *, n_c: int,
                  semiring="plus_times", impl="auto") -> torch.Tensor:
-    """Pair-list BSR contraction → packed C tiles ``[n_c, bm, bn]``."""
+    """Pair-list BSR contraction → packed C tiles ``[n_c, bm, bn]``.  The
+    pair lists are int32 tensors on the tiles' device or host numpy arrays
+    (the planner's), which the kernel route checks without a read-back."""
     sr = get_semiring(semiring)
     if cuda_lib.resolve_impl(impl, a_tiles) == "ref":
-        return bsr_pairlist_ref(a_tiles, b_tiles, pair_a, pair_b, pair_c,
-                                n_c=n_c, semiring=sr)
+        return bsr_pairlist_ref(a_tiles, b_tiles, *_pair_lists_on(
+            a_tiles, pair_a, pair_b, pair_c), n_c=n_c, semiring=sr)
     return bsr_pairlist_cuda(a_tiles, b_tiles, pair_a, pair_b, pair_c,
                              n_c=n_c, sr=sr)
 
@@ -186,15 +202,16 @@ def bsr_pairlist_reduce(a_tiles, b_tiles, pair_a, pair_b, pair_o, *,
     per-output-block vectors (block-rows for axis=1, block-cols for 0).
 
     C tiles never exist: the kernel folds each run's products into one
-    vector per output block.
+    vector per output block.  The pair lists are taken as by
+    :func:`bsr_pairlist`.
     """
     sr = get_semiring(semiring)
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis!r}")
     if cuda_lib.resolve_impl(impl, a_tiles) == "ref":
-        return bsr_pairlist_reduce_ref(a_tiles, b_tiles, pair_a, pair_b,
-                                       pair_o, n_o=n_o, axis=axis,
-                                       semiring=sr)
+        return bsr_pairlist_reduce_ref(a_tiles, b_tiles, *_pair_lists_on(
+            a_tiles, pair_a, pair_b, pair_o), n_o=n_o, axis=axis,
+            semiring=sr)
     return bsr_pairlist_reduce_cuda(a_tiles, b_tiles, pair_a, pair_b, pair_o,
                                     n_o=n_o, axis=axis, sr=sr)
 

@@ -16,6 +16,7 @@ went through the kernels.  The wrappers call it only with a non-empty grid
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,8 +31,8 @@ import torch
 from repro_torch.core.semiring import REGISTRY, Semiring
 
 __all__ = ["LAUNCHES", "SEMIRING_IDS", "build", "check_cuda",
-           "kernel_semiring_id", "launch", "load", "reset_launch_counts",
-           "resolve_impl"]
+           "kernel_semiring_id", "launch", "load", "plain_route",
+           "reset_launch_counts", "resolve_impl"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -197,10 +198,29 @@ def load() -> ctypes.CDLL:
     return _LIB
 
 
+_ROUTE = threading.local()
+
+
+@contextlib.contextmanager
+def plain_route():
+    """In this block (this thread), ``"auto"`` takes every kernel's plain
+    version on CUDA tensors too: the same calls on the plain route, to hold
+    a kernel route's results against."""
+    before = getattr(_ROUTE, "plain", False)
+    _ROUTE.plain = True
+    try:
+        yield
+    finally:
+        _ROUTE.plain = before
+
+
 def resolve_impl(impl: str, t: torch.Tensor) -> str:
     """``"auto"`` follows the tensor's device: the kernel for a CUDA tensor,
-    the plain torch version for a CPU tensor."""
+    the plain torch version for a CPU tensor (and inside
+    :func:`plain_route`)."""
     if impl == "auto":
+        if getattr(_ROUTE, "plain", False):
+            return "ref"
         return "cuda" if t.is_cuda else "ref"
     if impl not in ("cuda", "ref"):
         raise ValueError(f"unknown kernel impl {impl!r}; "

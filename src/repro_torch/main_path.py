@@ -61,6 +61,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .analysis.contracts import CONTRACT_REGISTRY
 from .configs.d4m_bench import make_clustered, make_dataset
 from .core import (MAX_PLUS, MIN_PLUS, PLAN_STATS, PLUS_TIMES, Assoc,
                    AssocTensor, DistAssoc, Keys, KeySpace, Range, spgemm)
@@ -237,15 +238,34 @@ def drive_ingest_fallback(a: AssocTensor, raw, n_insert: int = 65536
             "stats": dict(table.stats), "seconds": clock.seconds}
 
 
-# the collectives each dist operation of drive_dist makes: the numbers the
-# JAX package's @contract declarations give (gather_replicated and
-# to_assoc: one all_gather)
+def _declared(name: str) -> int:
+    """The program collectives the ``@contract`` of entry ``name`` declares
+    (the JAX package's declaration, checked by ``repro_torch.analysis``)."""
+    return CONTRACT_REGISTRY[name].collectives
+
+
+def _by_family(**counts) -> Dict[str, int]:
+    return {k: v for k, v in counts.items() if v}
+
+
+# gather_replicated and to_assoc: one all_gather (no @contract, as in the
+# JAX package)
+_GATHER = 1
+
+# the collectives each dist operation of drive_dist makes: the entries'
+# @contract declarations (a lazy pipeline: those of the entries it fuses)
+_SELECT, _ADD = _declared("DistAssoc.__getitem__"), _declared("DistAssoc.add")
 DIST_COLLECTIVES = {
-    "select": 0, "add": 0, "mul": 0, "setitem": 0, "lazy_select_add": 0,
-    "col_reduce plus_times": 1, "col_reduce max_plus": 1,
-    "row_reduce plus_times": 1, "row_reduce max_plus": 1,
-    "col_degree": 1, "matmul_dense_vec": 1, "lazy_add_sum": 1,
-    "gather_replicated": 1, "to_assoc": 1,
+    "select": _SELECT, "add": _ADD, "mul": _declared("DistAssoc.mul"),
+    "setitem": _declared("DistAssoc.__setitem__"),
+    "lazy_select_add": 2 * _SELECT + _ADD,
+    **{f"{op} {sr}": _declared(f"DistAssoc.{op}")
+       for op in ("col_reduce", "row_reduce")
+       for sr in ("plus_times", "max_plus")},
+    "col_degree": _declared("DistAssoc.col_degree"),
+    "matmul_dense_vec": _declared("DistAssoc.matmul_dense_vec"),
+    "lazy_add_sum": _ADD + _declared("DistAssoc.row_reduce"),
+    "gather_replicated": _GATHER, "to_assoc": _GATHER,
 }
 
 
@@ -333,20 +353,29 @@ def drive_dist(a: DistAssoc, b: DistAssoc, ta: AssocTensor,
 
 
 # the program collectives each operation of drive_dist_product makes at one
-# rank, by collective (no prologue collective runs at one rank): the JAX
+# rank, by collective (no prologue collective runs at one rank): the
 # @contract of each program, gather_replicated's all_gather where the
-# operation gathers (sqout, sqin, and a resident B in the lazy product)
+# operation gathers (sqout, sqin, and a resident B in the lazy product).
+# sqin runs the device layer's product on the gathered array, as in the
+# JAX package; the 2d grid of one rank is (1, 1): pc - 1 = 0 ring shifts
+# (the dist.matmul_2d contract's 3 are pc - 1 of the probe's pc = 4 grid)
+_MATMUL = _by_family(all_reduce=_declared("DistAssoc.matmul"))
+_REDUCE = _declared("DistAssoc.matmul_reduce")
 DIST_PRODUCT_COLLECTIVES = {
-    "A @ B": {}, "coo": {}, "all_to_all": {"all_to_all": 1}, "2d": {},
-    "matmul_reduce0 replicate": {"all_reduce": 1},
-    "matmul_reduce0 all_to_all": {"all_reduce": 1},
-    "sqout_reduce": {"all_reduce": 1, "all_gather": 1},
-    "sqin": {"all_gather": 1}, "sqin_reduce": {"all_gather": 1},
-    "lazy_select_matmul": {"all_gather": 1},
-    "pipeline": {"all_reduce": 1, "all_gather": 1},
-    "uniform plus_times": {}, "uniform min_plus": {},
-    "uniform sqin": {"all_gather": 1},
-    "uniform sqin_reduce": {"all_gather": 1},
+    "A @ B": _MATMUL, "coo": _MATMUL,
+    "all_to_all": {"all_to_all": _declared("dist.matmul_all_to_all")},
+    "2d": {},
+    "matmul_reduce0 replicate": {"all_reduce": _REDUCE},
+    "matmul_reduce0 all_to_all": {
+        "all_reduce": _declared("dist.matmul_reduce_all_to_all")},
+    "sqout_reduce": {"all_reduce": _declared("DistAssoc.sqout"),
+                     "all_gather": _GATHER},
+    "sqin": {"all_gather": _GATHER}, "sqin_reduce": {"all_gather": _GATHER},
+    "lazy_select_matmul": {**_MATMUL, "all_gather": _GATHER},
+    "pipeline": {"all_reduce": _REDUCE, "all_gather": _GATHER},
+    "uniform plus_times": _MATMUL, "uniform min_plus": _MATMUL,
+    "uniform sqin": {"all_gather": _GATHER},
+    "uniform sqin_reduce": {"all_gather": _GATHER},
 }
 
 

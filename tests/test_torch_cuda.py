@@ -721,12 +721,16 @@ def test_empty_inputs_launch_nothing(card):
     assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
 
 
-def test_pairlist_rejects_bad_pairs(card):
+@pytest.mark.parametrize("host", [False, True])
+def test_pairlist_rejects_bad_pairs(card, host):
     """Out-of-range tile indices or unsorted output ids raise before the
-    kernel could read out of bounds."""
+    kernel could read out of bounds: pair lists on the card (read back)
+    and on the host (the planner's numpy arrays, checked there)."""
     t = torch.zeros((2, 128, 128), device=card)
 
     def i32(*x):
+        if host:
+            return np.array(x, np.int32)
         return torch.tensor(x, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="pair lists"):
         bsr_ops.bsr_pairlist(t, t, i32(0, 2), i32(0, 1), i32(0, 0), n_c=1)
@@ -1114,6 +1118,21 @@ def test_dist_matmul_on_nccl(nccl_mesh, card):
         a2a = a.matmul(b, sr, impl="all_to_all")
         assert a2a.local.rows.is_cuda
         assert a2a.to_assoc() == ha.matmul(hb, sr)
+
+
+def test_contracts_hold_on_the_card(nccl_mesh, card):
+    """Every ``@contract``'s programs on the card (the dist ones on a
+    one-rank NCCL mesh), with ``impl="auto"``: no violation — host reads
+    counted with device-to-host copies, peak memory within the budget —
+    and the probes launch range_mask, both pair kernels and rank_count."""
+    from repro_torch.analysis import verify_all
+    reset_launch_counts()
+    res = verify_all(device="cuda", mesh=nccl_mesh)
+    bad = {k: [str(v) for v in vs] for k, vs in res.items() if vs}
+    assert not bad, bad
+    for k in ("range_mask", "bsr_pairlist", "bsr_pairlist_reduce",
+              "rank_count"):
+        assert LAUNCHES[k] >= 1, k
 
 
 def test_serve_device_table_over_http_on_card(card):

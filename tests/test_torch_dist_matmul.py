@@ -386,7 +386,7 @@ _PORT_PROGRAMS = """
 import torch
 from repro_torch.core import dist_assoc as TD
 from repro_torch.core.semiring import get_semiring as port_semiring
-from repro_torch.core.spgemm import plan_matmul
+from repro_torch.core.spgemm import pack_b_tiles, plan_matmul
 
 
 def port_programs(mesh, P, out):
@@ -433,7 +433,8 @@ def port_programs(mesh, P, out):
                                br.astype(np.int64), bc.astype(np.int64),
                                M, K, N, impl="bsr")
             put("bsr", TD._matmul_bsr_prog(sr, plan, t(A["vals"][s][ok]),
-                                           b[2], size, "auto"))
+                                           pack_b_tiles(plan, b[2], sr),
+                                           size, "auto"))
 """
 
 

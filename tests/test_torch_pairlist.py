@@ -116,3 +116,24 @@ def test_reduce_chunks(lengths, chunk, want):
     off, bound = t_bsr.reduce_chunks(runs, sum(lengths), chunk)
     assert off.dtype == torch.int32 and off.tolist() == want
     assert bound == len(lengths) + sum(lengths) // chunk >= want[-1]
+
+
+@pytest.mark.parametrize("reduce", [False, True])
+def test_wrappers_take_host_pair_lists(reduce):
+    """The planner hands the pair lists over as host numpy arrays (the card
+    route checks them there, with no read-back): both wrappers give the
+    same result for them as for int32 tensors."""
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randint(1, 9, (3, 128, 128), generator=gen).float() / 4
+    b = torch.randint(1, 9, (2, 128, 128), generator=gen).float() / 4
+    pa = np.array([0, 2, 1, 1, 2], np.int64)
+    pb = np.array([1, 0, 0, 1, 1], np.int64)
+    px = np.array([0, 0, 1, 2, 2], np.int64)
+
+    def run(*pairs):
+        if reduce:
+            return t_bsr.bsr_pairlist_reduce(a, b, *pairs, n_o=3, axis=0)
+        return t_bsr.bsr_pairlist(a, b, *pairs, n_c=3)
+
+    want = run(*(torch.from_numpy(p.astype(np.int32)) for p in (pa, pb, px)))
+    np.testing.assert_array_equal(run(pa, pb, px).numpy(), want.numpy())
