@@ -7,7 +7,7 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a);
-2. four paths, through the entry points a user calls, each with every
+2. the paths, through the entry points a user calls, each with every
    kernel launch counter set to 0 just before it and read just after:
    * the serve path: qwen3-1.7b at full width (28 layers, d_model 2048,
      1.72e9 seeded random bf16 weights) through
@@ -20,6 +20,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      step's logits against a prefill of the prompt plus that token, layer
      0's attention output by both routes, and the kernel alone at the
      path's shape (plus a window case and a ``q_off > 0`` case);
+   * the families phase (module step 9a), each config through the same
+     serve driver with the counters reset before it: zamba2-7b uncut (81
+     mamba layers, d_model 3584, 112 SSM heads, the shared attention block
+     invoked 14 times with its LoRA ``b`` drawn from N(0, 0.1^2)) and
+     mamba2-130m uncut, 32 greedy tokens each; chatglm3-6b, starcoder2-7b,
+     minicpm-2b and chameleon-34b at full width and 2 layers, 8 tokens
+     each.  Batch 4 x 2048; ``flash_attention`` must launch once per
+     attention layer or shared-block invocation (14 for zamba2, 0 for
+     mamba2, 2 for the dense ones), all on the wgmma route, after one
+     warm-up prefill.  Outside the count: the kernel route's prefill
+     logits against the plain route's, and 128 teacher-forced decode steps
+     against a prefill of 2176 tokens (relative L2 2^-4 each).  mamba2 and
+     zamba2 take both checks on the same weights in fp32 (the flash
+     kernel's fp32 route): at their full depth bf16 rounding alone moves
+     their logits by 9% and 49% on an H100 (the plain route in bf16
+     against fp32, printed beside, not gated).  Then the kernel alone at each config's
+     attention shape (D 112, D 64, GQA 16 and 9) against its plain
+     version, timed beside its bound and SDPA (the ``[serve path] <arch>``
+     lines);
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -226,6 +245,17 @@ SERVE_SEED = 0
 # differences pass through 28 residual layers; relative L2 error of the
 # logits at most 2^-4
 LOGITS_REL_TOL = 2 ** -4
+# the families phase: zamba2-7b and mamba2-130m uncut, the four other dense
+# configs at full width with their depth cut to 2 layers; each serves batch
+# 4 x 2048 and its decode is held against a prefill of the prompt plus
+# FAMILY_TEACHER teacher-forced tokens (128 divides both lengths, so the
+# SSD scan keeps its chunk of 128)
+FAMILY_ARCHS = ("zamba2-7b", "mamba2-130m", "chatglm3-6b", "starcoder2-7b",
+                "minicpm-2b", "chameleon-34b")
+FAMILY_DENSE_LAYERS = 2
+FAMILY_GEN = {"zamba2-7b": 32, "mamba2-130m": 32}     # the dense ones: 8
+FAMILY_TEACHER = 128
+LORA_B_STD = 0.1    # zamba2's LoRA b: a @ b then about wq's own scale
 
 
 def log(*a):
@@ -790,6 +820,218 @@ def serve_phase(dev, report, failures) -> dict:
             "library_ms": lib_ms}
 
 
+def flash_alone(name, b, h, kv, s, d, gen, failures) -> dict:
+    """``flash_attention`` alone at one config's prefill shape (bf16,
+    causal, seeded normal q, k, v): held against its plain version within
+    ``flash_check``'s bounds, and timed beside its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q = torch.randn((b, h, s, d), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, kv, s, d), generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16) for _ in range(2))
+    want = flash_attention_ref(q, k, v, causal=True)
+    got = fa_ops.flash_attention_cuda(q, k, v, causal=True)
+    err, worst, rel = flash_check(got, want, q, k, v, causal=True)
+    del got, want
+    ok = worst <= 1.0 and rel <= 2 ** -7
+    shape = f"q {b} x {h} x {s} x {d}, k/v {b} x {kv} x {s} x {d}"
+    log(f"[kernel check] {'ok  ' if ok else 'FAIL'} flash_attention at "
+        f"{name}'s shape ({shape}, causal, GQA {h // kv}): max |err| "
+        f"{err:.3e}, largest |err| / elementwise bound {worst:.3f} (limit "
+        f"1), relative L2 {rel:.3e} (limit {2 ** -7:.3e})")
+    if not ok:
+        failures.append(f"flash_attention at {name}'s shape: |err|/bound "
+                        f"{worst}, relative L2 {rel}")
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, causal=True),
+                 10)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10)
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    n_ops = 4 * d * visible_pairs(s, s, True) * b * h
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[time] flash_attention at {name}'s shape: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+        f"(scaled_dot_product_attention), kernel / library "
+        f"{ms / lib_ms:.3f}, bound {bound:.4f} ms ({by}; "
+        f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), "
+        f"{100 * bound / ms:.1f}% of bound")
+    if ms < bound:
+        failures.append(f"flash_attention at {name}'s shape: {ms} ms below "
+                        f"its bound {bound} ms")
+    return {"shape": shape, "max_abs_err": err, "err_over_bound": worst,
+            "rel_l2": rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+
+
+def serve_checks(cfg, params, prompts, p):
+    """The route check (the kernel route's prefill logits against the
+    plain route's) and the decode check (``FAMILY_TEACHER`` teacher-forced
+    decode steps after the prompt against one prefill over all those
+    tokens), as relative L2 errors; and the plain route's logits."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    plain, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
+        params, prompts[:, :p])
+    logits, cache = make_prefill_step(cfg)(params, prompts[:, :p])
+    checks = {"prefill logits, kernel vs plain route": rel_err(logits, plain)}
+    cache = serve_lib.repack_cache(cache, p + FAMILY_TEACHER)
+    step = make_serve_step(cfg)
+    for t in range(p, p + FAMILY_TEACHER):
+        logits, cache = step(params, cache, prompts[:, t:t + 1], t)
+    del cache
+    ext_logits, _ = make_prefill_step(cfg)(params, prompts)
+    checks[f"{FAMILY_TEACHER} decode steps vs prefill of "
+           f"{p + FAMILY_TEACHER}"] = rel_err(logits, ext_logits)
+    return checks, plain
+
+
+def to_fp32(tree):
+    """Every floating leaf of a parameter tree cast to fp32, in place (each
+    bf16 leaf is freed as its copy replaces it)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, leaf in list(items):
+        if isinstance(leaf, (dict, list)):
+            to_fp32(leaf)
+        else:
+            tree[key] = leaf.float()
+    return tree
+
+
+def families_phase(dev, report, failures) -> int:
+    """Module step 9a on the card: each config of ``FAMILY_ARCHS`` served
+    through ``repro_torch.launch.serve`` (counted: ``flash_attention`` once
+    per attention layer or shared-block invocation of the prefill, all on
+    the wgmma route), its route and decode checks, and the kernel alone at
+    its shape.  Returns the flash launches of the counted runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    out, flash_launches = {}, 0
+    b, p = SERVE_BATCH, SERVE_PROMPT
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        if cfg.family == "dense":
+            cfg = cfg.replace(n_layers=FAMILY_DENSE_LAYERS)
+        g = FAMILY_GEN.get(arch, 8)
+        t0 = time.perf_counter()
+        gen = M.make_generator(SERVE_SEED, dev)
+        params = M.init(gen, cfg)
+        if "shared_lora" in params:     # b's zero init: a @ b would be 0
+            params["shared_lora"]["b"].normal_(0.0, LORA_B_STD, generator=gen)
+        prompts = torch.randint(0, cfg.vocab, (b, p + FAMILY_TEACHER),
+                                generator=gen, device=dev, dtype=torch.int32)
+        torch.cuda.synchronize()
+        row = {"layers": cfg.n_layers, "params": M.param_count(params),
+               "init_s": time.perf_counter() - t0,
+               "weights_gb": torch.cuda.memory_allocated() / 1e9}
+        want = (M.n_invocations(cfg) if cfg.family == "hybrid"
+                else cfg.n_layers if cfg.family == "dense" else 0)
+
+        # a warm-up prefill outside the count (cuBLAS and the caching
+        # allocator meet these shapes here), then the counted run: prefill,
+        # repack, greedy decode
+        t0 = time.perf_counter()
+        make_prefill_step(cfg)(params, prompts[:, :p])
+        torch.cuda.synchronize()
+        row["cold_prefill_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res = serve_lib.serve(params, cfg, prompts[:, :p], g)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        flash_launches += launches["flash_attention_wgmma"]
+        row.update(prefill_s=res["prefill_s"],
+                   decode_ms_per_token=1e3 * res["decode_s"] / g,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={k: n for k, n in launches.items() if n})
+        step_cache = M.init_cache(cfg, b, 2, device=dev)
+        row["torch_calls_per_decode_step"] = torch_calls(
+            lambda: make_serve_step(cfg)(params, step_cache, prompts[:, :1],
+                                         0))
+        del step_cache
+        log(f"[serve path] {arch}: prefill {row['prefill_s']:.3f} s (cold "
+            f"{row['cold_prefill_s']:.3f} s), decode "
+            f"{row['decode_ms_per_token']:.2f} ms/token, peak device memory "
+            f"{row['peak_mem_gb']:.2f} GB, torch calls per decode step "
+            f"{row['torch_calls_per_decode_step']} ({cfg.family}, "
+            f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{row['params']:,} parameters, weights "
+            f"{row['weights_gb']:.2f} GB; batch {b}, prompt {p}, {g} greedy "
+            f"tokens; flash_attention launches "
+            f"{launches['flash_attention_wgmma']} wgmma / "
+            f"{launches['flash_attention']} fp32, want {want} / 0)")
+        if (launches["flash_attention_wgmma"] != want
+                or launches["flash_attention"] != 0):
+            failures.append(f"{arch}: flash_attention launched "
+                            f"{launches['flash_attention_wgmma']} times on "
+                            f"the wgmma route and "
+                            f"{launches['flash_attention']} on the fp32 "
+                            f"route in one prefill (want {want} and 0)")
+        toks = res["tokens"]
+        if not (toks.shape == (b, g) and bool((toks >= 0).all())
+                and bool((toks < cfg.vocab).all())
+                and bool(torch.isfinite(res["logits"]).all())
+                and bool(torch.isfinite(res["prefill_logits"]).all())):
+            failures.append(f"{arch}: tokens out of range or logits not "
+                            f"finite")
+
+        # the checks: bf16 for the dense configs.  The SSM families' bf16
+        # logits move by tens of percent under bf16 rounding alone (their
+        # spread, printed beside), so theirs run on the same weights in
+        # fp32 (the fp32 flash kernel on the kernel route)
+        kernel_bf16 = res["prefill_logits"]
+        del res
+        if cfg.family == "dense":
+            row["checks"], _ = serve_checks(cfg, params, prompts, p)
+        else:
+            plain_bf16, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
+                params, prompts[:, :p])
+            row["checks"], plain32 = serve_checks(
+                cfg.replace(param_dtype=torch.float32,
+                            compute_dtype=torch.float32),
+                to_fp32(params), prompts, p)
+            row["bf16_spread"] = {
+                "prefill logits, kernel vs plain route": rel_err(
+                    kernel_bf16, plain_bf16),
+                "plain route, bf16 vs fp32": rel_err(plain_bf16, plain32)}
+            log(f"[serve check] {arch} in bf16, not gated: "
+                + ", ".join(f"{k} {v:.3e}"
+                            for k, v in row["bf16_spread"].items()))
+            del plain_bf16, plain32
+        for name, err in row["checks"].items():
+            ok = err <= LOGITS_REL_TOL
+            log(f"[serve check] {'ok  ' if ok else 'FAIL'} {arch} {name}: "
+                f"relative L2 error {err:.3e} (tolerance "
+                f"{LOGITS_REL_TOL:.3e})")
+            if not ok:
+                failures.append(f"{arch} serve check {name}: {err}")
+        del params, kernel_bf16, prompts
+        torch.cuda.empty_cache()
+
+        if cfg.family != "ssm":
+            row["flash"] = flash_alone(arch, b, cfg.n_heads, cfg.n_kv_heads,
+                                       p, cfg.dh, gen, failures)
+            torch.cuda.empty_cache()
+        out[arch] = row
+    report["families"] = out
+    return flash_launches
+
+
 def serve_summary(drv: dict) -> dict:
     """Per serve mix: requests, client latency p50/p99 and throughput,
     the server's exec_s beside the in-process collect() (and its
@@ -934,6 +1176,12 @@ def main() -> int:
     # -- phase 2: the serve path, counted (its checks and kernel 9 follow) ---
     flash_row = serve_phase(dev, report, failures)
     torch.cuda.empty_cache()
+
+    # -- the families phase: the SSM, hybrid and other dense configs --------
+    t0 = time.perf_counter()
+    flash_row["launches"] += families_phase(dev, report, failures)
+    report["families_phase_s"] = time.perf_counter() - t0
+    log(f"[serve path] families phase {report['families_phase_s']:.1f} s")
 
     # the main path, counted
     gen_n, uni_n = args.n_clustered, N_UNIFORM

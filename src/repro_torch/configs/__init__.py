@@ -2,10 +2,11 @@
 D4M benchmark workload in ``d4m_bench``).
 
 ``get_config(name)`` → full published config; ``get_smoke(name)`` → reduced
-same-family config for CPU smoke tests.  The registry names the same ten
-architectures as the JAX package; only those in :data:`PORTED` have a
-config module here yet, and asking for another raises and names the
-ROADMAP step that ports it.
+same-family config for CPU smoke tests; ``shapes_for(name)`` → the
+assigned shape cells.  The registry names the same ten architectures as
+the JAX package; only those in :data:`PORTED` have a config module here
+yet, and asking for another raises and names the ROADMAP step that ports
+it.
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ ARCH_IDS: List[str] = [
     "mamba2_130m",
     "zamba2_7b",
 ]
-PORTED: List[str] = ["qwen3_1_7b"]
+PORTED: List[str] = ["chatglm3_6b", "qwen3_1_7b", "starcoder2_7b",
+                      "minicpm_2b", "chameleon_34b", "mamba2_130m",
+                      "zamba2_7b"]
 
 
 def _normalize(name: str) -> str:
@@ -53,6 +56,20 @@ def get_smoke(name: str) -> ModelConfig:
     return _mod(name).SMOKE
 
 
+def shapes_for(name: str) -> List[ShapeSpec]:
+    """The assigned shape cells for an architecture, with documented skips."""
+    cfg = get_config(name)
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K]
+    if not sub_quadratic_decode(cfg):
+        out.remove(LONG_500K)  # pure full-attention arch
+    return out
+
+
+def sub_quadratic_decode(cfg: ModelConfig) -> bool:
+    """long_500k eligibility: SSM/hybrid state or sliding-window cache."""
+    return cfg.family in ("ssm", "hybrid") or cfg.window is not None
+
+
 __all__ = ["ARCH_IDS", "PORTED", "ModelConfig", "ShapeSpec", "get_config",
-           "get_smoke", "ALL_SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
-           "LONG_500K"]
+           "get_smoke", "shapes_for", "sub_quadratic_decode", "ALL_SHAPES",
+           "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K"]

@@ -17,8 +17,12 @@ Model parameters and decode caches move the same way
 :func:`from_jax_cache`/:func:`to_numpy_cache`).  Both packages keep the
 same leaves under the same names, and a linear weight ``w`` as
 ``[d_in, d_out]`` (``y = x @ w``).  The JAX package stacks the layers on
-axis 0 under ``dense_stack``; the port keeps a list of per-layer dicts.
-numpy has no bfloat16, so bf16 leaves travel as float32 (exact both ways).
+axis 0 under ``dense_stack`` and ``mamba_stack``; the port keeps a list of
+per-layer dicts (the hybrid's ``shared`` block is one layer, and its
+``shared_lora`` stays stacked on the invocation axis in both).  numpy has
+no bfloat16, so bf16 leaves travel as float32 (exact both ways); the
+leaves that the JAX init keeps in fp32 at any ``param_dtype``
+(``models.ssm.FP32_LEAVES``) and the SSM state ``h`` stay fp32.
 """
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ from .core.assoc_tensor import AssocTensor, resolve_device
 from .core.dist_assoc import DistAssoc
 from .core.keyspace import KeySpace
 from .core.mesh import Mesh
+from .models.ssm import FP32_LEAVES
+
+# the parameter stacks that the JAX package stacks on a leading layer axis
+LAYER_STACKS = ("dense_stack", "mamba_stack")
 
 __all__ = ["from_jax_cache", "from_jax_dist_state", "from_jax_params",
            "from_jax_state", "to_numpy_cache", "to_numpy_dist_state",
@@ -102,42 +110,45 @@ def to_numpy_dist_state(d: DistAssoc) -> dict:
 
 # -- model parameters and decode caches ------------------------------------------
 
-def _map(fn, tree):
+def _map(fn, tree, name: str = ""):
+    """``fn(leaf)``, or ``fn(leaf, name)`` with each leaf's own key when
+    ``name`` is given, over a nested dict."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(fn, v, k if name else "") for k, v in tree.items()}
+    return fn(tree, name) if name else fn(tree)
 
 
 def from_jax_params(params_np: dict, cfg, *, device="cuda") -> dict:
     """The port's parameters from the numpy form of a JAX parameter pytree
-    (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``): every
-    leaf cast to ``cfg.param_dtype`` on ``device``, and ``dense_stack``
-    (layers on axis 0) split into a list of per-layer dicts."""
+    (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``): each
+    leaf in ``cfg.param_dtype`` on ``device`` (those of
+    ``models.ssm.FP32_LEAVES`` in fp32), and each layer stack (layers on
+    axis 0) split into a list of per-layer dicts."""
     dev = resolve_device(device)
 
-    def tensor(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(
-            dev, cfg.param_dtype)
+    def tensor(x, key):
+        dtype = torch.float32 if key in FP32_LEAVES else cfg.param_dtype
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
 
     out = {}
     for name, sub in params_np.items():
-        if name == "dense_stack":
-            out[name] = [_map(lambda x, i=i: tensor(np.asarray(x)[i]), sub)
-                         for i in range(cfg.n_layers)]
+        if name in LAYER_STACKS:
+            out[name] = [_map(lambda x, k, i=i: tensor(np.asarray(x)[i], k),
+                              sub, name) for i in range(cfg.n_layers)]
         else:
-            out[name] = _map(tensor, sub)
+            out[name] = _map(tensor, sub, name)
     return out
 
 
 def to_numpy_params(params: dict) -> dict:
     """The inverse of :func:`from_jax_params`: float32 numpy leaves, with
-    ``dense_stack`` stacked on axis 0 as in the JAX package."""
+    each layer stack stacked on axis 0 as in the JAX package."""
     def arr(t):
         return t.detach().float().cpu().numpy()
 
     out = {}
     for name, sub in params.items():
-        if name == "dense_stack":
+        if name in LAYER_STACKS:
             out[name] = _stack([_map(arr, layer) for layer in sub])
         else:
             out[name] = _map(arr, sub)
@@ -152,25 +163,28 @@ def _stack(layers):
 
 
 def from_jax_cache(cache_np: dict, cfg, *, device="cuda") -> dict:
-    """The port's decode cache from the numpy form of a JAX one
-    (``{"dense_stack": {"k", "v": [L,B,Sc,KV,Dh], "len": [L]}}``, the same
-    layout in both packages): ``k``/``v`` in ``cfg.compute_dtype``, ``len``
-    int32."""
+    """The port's decode cache from the numpy form of a JAX one (the same
+    layout in both packages, stacked on the layer or invocation axis): the
+    attention stacks' ``k``/``v`` and the SSM conv tails in
+    ``cfg.compute_dtype``, the SSM state ``h`` in fp32, ``len`` int32."""
     dev = resolve_device(device)
-    out = {}
-    for name, st in cache_np.items():
-        out[name] = {
-            key: torch.from_numpy(np.array(st[key], dtype=np.float32)).to(
-                dev, cfg.compute_dtype) for key in ("k", "v")}
-        out[name]["len"] = torch.from_numpy(
-            np.array(st["len"], dtype=np.int32)).to(dev)
-    return out
+
+    def tensor(x, key):
+        if key == "len":
+            return torch.from_numpy(np.array(x, dtype=np.int32)).to(dev)
+        dtype = torch.float32 if key == "h" else cfg.compute_dtype
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
+
+    return {name: {key: tensor(x, key) for key, x in st.items()}
+            for name, st in cache_np.items()}
 
 
 def to_numpy_cache(cache: dict) -> dict:
-    """The inverse of :func:`from_jax_cache`: float32 ``k``/``v``, int32
+    """The inverse of :func:`from_jax_cache`: float32 tensors, int32
     ``len``."""
-    return {name: {"k": st["k"].float().cpu().numpy(),
-                   "v": st["v"].float().cpu().numpy(),
-                   "len": st["len"].cpu().numpy()}
+    def arr(t):
+        return t.cpu().numpy() if t.dtype == torch.int32 else \
+            t.float().cpu().numpy()
+
+    return {name: {key: arr(t) for key, t in st.items()}
             for name, st in cache.items()}

@@ -2,13 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --batch 4 --prompt-len 2048 --gen 32          # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --device cpu                          # small, on the host
 
 One prefill step runs the whole prompt (the flash-attention kernel on the
 card) and builds a cache of capacity prompt length; the cache is copied
-into a static decode cache of capacity prompt + gen, and a single-token
-serve step is iterated.  Weights are random, drawn from ``--seed``.
+into a static decode cache of capacity prompt + gen (an SSM's state
+carries over as it is), and a single-token serve step is iterated.  Every
+architecture of ``repro_torch.configs.PORTED`` serves.  Weights are
+random, drawn from ``--seed``.
 """
 from __future__ import annotations
 
@@ -30,15 +32,21 @@ def _sync(device: torch.device) -> None:
 
 def repack_cache(cache: Dict[str, Any], capacity: int) -> Dict[str, Any]:
     """A prefill cache (capacity = prompt length) copied into a zeroed
-    decode cache of ``capacity`` slots; ``len`` stays the prompt length."""
+    decode cache of ``capacity`` slots; ``len`` stays the prompt length.
+    Attention stacks (``k``/``v``: [n, B, S, KV, Dh]) are padded; the SSM
+    stack (conv tails and state) carries no sequence axis and passes
+    through unchanged."""
     out = {}
     for name, st in cache.items():
-        n_layers, b, s, kv, dh = st["k"].shape
+        if "k" not in st:
+            out[name] = st
+            continue
+        n, b, s, kv, dh = st["k"].shape
         if capacity < s:
             raise ValueError(f"capacity {capacity} < prompt length {s}")
         new = {}
         for key in ("k", "v"):
-            t = st[key].new_zeros((n_layers, b, capacity, kv, dh))
+            t = st[key].new_zeros((n, b, capacity, kv, dh))
             t[:, :, :s] = st[key]
             new[key] = t
         new["len"] = st["len"].clone()

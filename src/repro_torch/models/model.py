@@ -1,4 +1,4 @@
-"""Model assembly for the ``dense`` family (attention + MLP decoder layers).
+"""Model assembly for the ``dense``, ``ssm`` and ``hybrid`` families.
 
 Public entry points, as in the JAX package:
   * ``init(gen, cfg)``                 → params
@@ -6,13 +6,25 @@ Public entry points, as in the JAX package:
   * ``init_cache(cfg, batch, cache_len, device=...)``
 
 The JAX package stacks the layers' parameters on a leading axis and scans
-over them; here ``params["dense_stack"]`` is a list of per-layer dicts and
-the stack is a Python loop.  Caches keep the JAX layout, stacked on the
-layer axis: ``{"dense_stack": {"k", "v": [L, B, Sc, KV, Dh], "len": [L]}}``.
-The JAX package's sharding constraints (``models/pjit_utils.py``) are hints
-to XLA's partitioner with no meaning on one card, so they are left out.
-Other families (MoE, SSM, hybrid, encoder-decoder) and MLA raise: they are
-not ported yet (ROADMAP.md, module step 9).
+over them; here ``params["dense_stack"]`` and ``params["mamba_stack"]`` are
+lists of per-layer dicts and the stack is a Python loop.  The hybrid
+(zamba2) keeps one ``shared`` attention+MLP block, invoked before every
+``attn_every``-th mamba layer, and its LoRA factors stacked on the
+invocation axis (``shared_lora["a"]``: [n_inv, d, r], ``["b"]``: [n_inv, r,
+H·Dh]), as in the JAX package.  Caches keep the JAX layout, stacked on the
+layer (or invocation) axis:
+
+  * dense: ``{"dense_stack": {"k", "v": [L, B, Sc, KV, Dh], "len": [L]}}``;
+  * ssm: ``{"mamba_stack": {"conv_x": [L, B, K-1, d_inner], "conv_bc":
+    [L, B, K-1, 2·G·N], "h": [L, B, H, N, P] fp32}}``;
+  * hybrid: the ssm cache plus ``"shared_attn": {"k", "v": [n_inv, B, Sc,
+    KV, Dh], "len": [n_inv]}``.
+
+Decode writes every cache tensor in place and returns the same dict.  The
+JAX package's sharding constraints (``models/pjit_utils.py``) are hints to
+XLA's partitioner with no meaning on one card, so they are left out.  MoE,
+MLA, MTP, the encoder-decoder, learned positions and a hybrid attention
+window raise: they are not ported yet (ROADMAP.md, module step 9).
 """
 from __future__ import annotations
 
@@ -23,8 +35,11 @@ import torch
 
 from repro_torch.core.assoc_tensor import resolve_device
 from . import attention as attn
-from .layers import (Params, apply_mlp, apply_norm, embed, init_embedding,
-                     init_mlp, init_norm)
+from . import ssm as ssm_lib
+from .layers import (Params, _normal, apply_mlp, apply_norm, embed,
+                     init_embedding, init_mlp, init_norm)
+
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def make_generator(seed: int, device="cuda") -> torch.Generator:
@@ -34,11 +49,19 @@ def make_generator(seed: int, device="cuda") -> torch.Generator:
 
 
 def _check_ported(cfg) -> None:
-    if (cfg.family != "dense" or cfg.moe or cfg.mla or cfg.mtp
-            or cfg.pos_emb != "rope"):
+    if (cfg.family not in FAMILIES or cfg.moe or cfg.mla or cfg.mtp
+            or cfg.pos_emb != "rope"
+            or (cfg.hybrid or {}).get("attn_window") is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with RoPE and without MoE, "
-            f"MLA or MTP is ported (ROADMAP.md, module step 9)")
+            f"{cfg.name}: only the {'/'.join(FAMILIES)} families with RoPE "
+            f"and without MoE, MLA, MTP or a hybrid attention window are "
+            f"ported (ROADMAP.md, module step 9)")
+
+
+def n_invocations(cfg) -> int:
+    """How often the hybrid's shared block runs: before layers 0, k, 2k..."""
+    every = cfg.hybrid["attn_every"]
+    return (cfg.n_layers + every - 1) // every
 
 
 def _residual_scale(cfg) -> float:
@@ -71,6 +94,19 @@ def apply_decoder_layer(p: Params, cfg, x, *, mode: str, cache, positions,
     return x, new_cache
 
 
+def init_mamba_layer(gen, cfg) -> Params:
+    return {"norm": init_norm(cfg.d_model, kind=cfg.norm,
+                              dtype=cfg.param_dtype, device=gen.device),
+            "mixer": ssm_lib.init_mamba2(gen, cfg)}
+
+
+def apply_mamba_layer(p: Params, cfg, x, *, mode: str, cache):
+    h = apply_norm(p["norm"], x, kind=cfg.norm)
+    out, new_cache = ssm_lib.mamba2_block(p["mixer"], cfg, h, mode=mode,
+                                          cache=cache)
+    return (x + out).to(cfg.compute_dtype), new_cache
+
+
 def init(gen: torch.Generator, cfg) -> Params:
     """Seeded random parameters on the generator's device."""
     _check_ported(cfg)
@@ -81,9 +117,57 @@ def init(gen: torch.Generator, cfg) -> Params:
                                 device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = init_embedding(gen, cfg.vocab, cfg.d_model, dtype=dt)
-    p["dense_stack"] = [init_decoder_layer(gen, cfg)
+    if cfg.family == "dense":
+        p["dense_stack"] = [init_decoder_layer(gen, cfg)
+                            for _ in range(cfg.n_layers)]
+        return p
+    p["mamba_stack"] = [init_mamba_layer(gen, cfg)
                         for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        # one shared attention+MLP block, and a LoRA delta on its wq per
+        # invocation (b starts at zero, as in the JAX package)
+        p["shared"] = init_decoder_layer(gen, cfg)
+        r = cfg.hybrid.get("lora_rank", 0)
+        if r:
+            n_inv = n_invocations(cfg)
+            p["shared_lora"] = {
+                "a": _normal(gen, (n_inv, cfg.d_model, r), 0.01, dt),
+                "b": torch.zeros((n_inv, r, cfg.n_heads * cfg.dh), dtype=dt,
+                                 device=dev)}
     return p
+
+
+class _Stack:
+    """A cache stacked on a leading axis, read slot by slot.  Prefill fills
+    a new stack as slots come; decode writes the given stack in place."""
+
+    def __init__(self, st, n: int, mode: str):
+        self.st, self.n, self.mode = st, n, mode
+        self.new: dict = {}
+        self.lens: list = []
+
+    def slot(self, i: int):
+        if self.st is None:
+            return None
+        return {key: t[i] for key, t in self.st.items()}
+
+    def put(self, i: int, nc) -> None:
+        for key, t in nc.items():
+            if key == "len":
+                self.lens.append(t)
+            elif self.mode == "decode":      # attention wrote its view
+                if t.data_ptr() != self.st[key][i].data_ptr():
+                    self.st[key][i].copy_(t)
+            else:
+                if key not in self.new:
+                    self.new[key] = t.new_empty((self.n,) + t.shape)
+                self.new[key][i] = t
+
+    def result(self):
+        out = dict(self.st if self.mode == "decode" else self.new)
+        if self.lens:
+            out["len"] = torch.stack(self.lens)
+        return out
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
@@ -93,36 +177,24 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
     """tokens [B,S] int → ``(logits [B,S,V] fp32 or hidden, aux, cache)``.
 
     decode mode: S==1, ``cache`` required, ``positions`` = [1] current pos;
-    the cache's ``k``/``v`` are updated in place.
+    every tensor of the cache is updated in place.
     """
     _check_ported(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        if mode == "chunked_prefill":
+            raise NotImplementedError("chunked prefill is not ported yet "
+                                      "(ROADMAP.md, module step 9)")
+        raise ValueError(f"unknown mode {mode!r}")
     x = embed(params["embed"], tokens, scale=cfg.scale_emb).to(cfg.compute_dtype)
     sq = tokens.shape[1]
     if positions is None:
         positions = torch.arange(sq, dtype=torch.int32, device=tokens.device)
-    stack = params["dense_stack"]
-    st = cache["dense_stack"] if cache is not None else None
-    k_all = v_all = None
-    lens = []
-    for i, lp in enumerate(stack):
-        cl = None if st is None else {"k": st["k"][i], "v": st["v"][i],
-                                      "len": st["len"][i]}
-        x, nc = apply_decoder_layer(lp, cfg, x, mode=mode, cache=cl,
-                                    positions=positions)
-        if mode == "prefill":     # one [L, ...] cache, filled layer by layer
-            if k_all is None:
-                k_all = nc["k"].new_empty((len(stack),) + nc["k"].shape)
-                v_all = nc["v"].new_empty((len(stack),) + nc["v"].shape)
-            k_all[i], v_all[i] = nc["k"], nc["v"]
-        if mode in ("prefill", "decode"):
-            lens.append(nc["len"])
-    new_cache = None
-    if mode == "decode":          # st["k"], st["v"] were written in place
-        new_cache = {"dense_stack": {"k": st["k"], "v": st["v"],
-                                     "len": torch.stack(lens)}}
-    elif mode == "prefill":
-        new_cache = {"dense_stack": {"k": k_all, "v": v_all,
-                                     "len": torch.stack(lens)}}
+    if cfg.family == "dense":
+        x, new_cache = _dense_forward(params, cfg, x, mode=mode, cache=cache,
+                                      positions=positions)
+    else:
+        x, new_cache = _mamba_forward(params, cfg, x, mode=mode, cache=cache,
+                                      positions=positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     x = apply_norm(params["final_norm"], x, kind=cfg.norm)
@@ -135,18 +207,85 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
     return logits, aux, new_cache
 
 
+def _dense_forward(params, cfg, x, *, mode, cache, positions):
+    stack = params["dense_stack"]
+    st = _Stack(cache["dense_stack"] if cache is not None else None,
+                len(stack), mode)
+    for i, lp in enumerate(stack):
+        x, nc = apply_decoder_layer(lp, cfg, x, mode=mode, cache=st.slot(i),
+                                    positions=positions)
+        if mode != "train":
+            st.put(i, nc)
+    if mode == "train":
+        return x, None
+    return x, {"dense_stack": st.result()}
+
+
+def _mamba_forward(params, cfg, x, *, mode, cache, positions):
+    """The ssm stack, and for the hybrid (zamba2) the shared block before
+    every ``attn_every``-th layer: ``idx % attn_every == 0``, invocation
+    ``idx // attn_every`` with its own LoRA delta and cache slot."""
+    stack = params["mamba_stack"]
+    hybrid = cfg.family == "hybrid"
+    ms = _Stack(cache["mamba_stack"] if cache is not None else None,
+                len(stack), mode)
+    if hybrid:
+        every = cfg.hybrid["attn_every"]
+        shared, lora = params["shared"], params.get("shared_lora")
+        shared_st = _Stack(cache["shared_attn"] if cache is not None
+                           else None, n_invocations(cfg), mode)
+    for i, lp in enumerate(stack):
+        if hybrid and i % every == 0:
+            inv = i // every
+            pa = (shared if lora is None
+                  else _apply_lora_to_attn(shared, lora, inv))
+            x, nac = apply_decoder_layer(pa, cfg, x, mode=mode,
+                                         cache=shared_st.slot(inv),
+                                         positions=positions)
+            if mode != "train":
+                shared_st.put(inv, nac)
+        x, nc = apply_mamba_layer(lp, cfg, x, mode=mode, cache=ms.slot(i))
+        if mode != "train":
+            ms.put(i, nc)
+    if mode == "train":
+        return x, None
+    new_cache = {"mamba_stack": ms.result()}
+    if hybrid:
+        new_cache["shared_attn"] = shared_st.result()
+    return x, new_cache
+
+
+def _apply_lora_to_attn(pa: Params, lora: Params, inv: int) -> Params:
+    """The shared block with invocation ``inv``'s LoRA delta merged into
+    its wq: ``wq + a @ b``, in the weights' dtype."""
+    wq = dict(pa["attn"]["wq"])
+    wq["w"] = wq["w"] + (lora["a"][inv] @ lora["b"][inv]).to(wq["w"].dtype)
+    return {**pa, "attn": {**pa["attn"], "wq": wq}}
+
+
 def init_cache(cfg, batch: int, cache_len: int, *, device="cuda") -> Params:
-    """Static-shape decode caches, stacked on the layer axis."""
+    """Static-shape decode caches, stacked on the layer (or invocation)
+    axis."""
     _check_ported(cfg)
     if cfg.window is not None:
         raise NotImplementedError("sliding-window ring caches are not ported "
                                   "yet (ROADMAP.md, module step 9)")
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.dh)
-    return {"dense_stack": {
-        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-        "len": torch.zeros((cfg.n_layers,), dtype=torch.int32, device=dev)}}
+
+    def kv_cache(n: int):
+        shape = (n, batch, cache_len, cfg.n_kv_heads, cfg.dh)
+        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+                "len": torch.zeros((n,), dtype=torch.int32, device=dev)}
+
+    if cfg.family == "dense":
+        return {"dense_stack": kv_cache(cfg.n_layers)}
+    per = ssm_lib.init_ssm_cache(cfg, batch, device=dev)
+    out = {"mamba_stack": {key: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
+                           for key, t in per.items()}}
+    if cfg.family == "hybrid":
+        out["shared_attn"] = kv_cache(n_invocations(cfg))
+    return out
 
 
 def param_count(params: Params) -> int:
@@ -160,5 +299,6 @@ def param_count(params: Params) -> int:
     return walk(params)
 
 
-__all__ = ["apply_decoder_layer", "forward", "init", "init_cache",
-           "init_decoder_layer", "make_generator", "param_count"]
+__all__ = ["apply_decoder_layer", "apply_mamba_layer", "forward", "init",
+           "init_cache", "init_decoder_layer", "init_mamba_layer",
+           "make_generator", "n_invocations", "param_count"]

@@ -392,7 +392,11 @@ def test_port_imports_without_jax():
             "repro_torch.kernels.sorted_merge, repro_torch.ingest, "
             "repro_torch.kernels.segment_reduce, "
             "repro_torch.kernels.flash_attention, repro_torch.configs, "
-            "repro_torch.models.model, repro_torch.launch.serve; "
+            "repro_torch.models.model, repro_torch.models.ssm, "
+            "repro_torch.configs.chatglm3_6b, repro_torch.configs.starcoder2_7b, "
+            "repro_torch.configs.minicpm_2b, repro_torch.configs.chameleon_34b, "
+            "repro_torch.configs.mamba2_130m, repro_torch.configs.zamba2_7b, "
+            "repro_torch.launch.serve; "
             "bad = [m for m, v in sys.modules.items() if v is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))]; "
             "assert not bad, bad")

@@ -779,6 +779,11 @@ FLASH_CARD_CASES = [
     (1, 4, 2, 384, 384, 128, True, 200, 0),       # window edge inside a tile
     (2, 8, 2, 192, 640, 128, True, None, 448),    # q_off, Sq < Sk
     (1, 2, 1, 400, 100, 64, False, 16, 0),        # q tiles with no key tile
+    (1, 32, 32, 512, 512, 112, True, None, 0),    # D 112 (zamba2-7b): TMA
+    (2, 4, 4, 300, 300, 112, True, None, 0),      # zero-fills past D; ragged
+    (1, 36, 36, 384, 384, 64, True, None, 0),     # D 64, MHA 36 (minicpm-2b)
+    (1, 32, 2, 256, 256, 128, True, None, 0),     # GQA 16 (chatglm3-6b)
+    (1, 36, 4, 256, 256, 128, True, None, 0),     # GQA 9 (starcoder2-7b)
 ]
 
 
@@ -845,6 +850,38 @@ def test_serve_path_on_card(card):
     want = plain["prefill_logits"]
     err = float((res["prefill_logits"] - want).abs().max())
     assert err <= 2 ** -5 * float(want.abs().max()), err
+
+
+# starcoder2-7b's SMOKE head dim is 12, below the kernel's multiple of 16;
+# chip_smoke.py serves it at full width (D 128)
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "minicpm-2b", "chameleon-34b",
+                                  "mamba2-130m", "zamba2-7b"])
+def test_families_serve_path_on_card(card, arch):
+    """The SMOKE configs of module step 9a served on the card: one flash
+    launch per attention layer or shared-block invocation in the prefill
+    (bf16: the wgmma route), none for mamba2, and the kernel route's
+    logits within bf16 rounding of the plain route's (relative L2 2^-4,
+    the bound chip_smoke.py uses)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve as TSV
+    from repro_torch.models import model as TM
+    cfg = get_smoke(arch)
+    params = TM.init(TM.make_generator(0, card), cfg)
+    if "shared_lora" in params:
+        params["shared_lora"]["b"].normal_()
+    prompts = torch.randint(0, cfg.vocab, (2, 64), device=card,
+                            dtype=torch.int32)
+    reset_launch_counts()
+    res = TSV.serve(params, cfg, prompts, 4)
+    want_launches = {"dense": cfg.n_layers, "ssm": 0,
+                     "hybrid": -(-cfg.n_layers // (cfg.hybrid or {}).get(
+                         "attn_every", 1))}[cfg.family]
+    assert LAUNCHES["flash_attention_wgmma"] == want_launches
+    assert LAUNCHES["flash_attention"] == 0
+    assert res["tokens"].shape == (2, 4)
+    plain = TSV.serve(params, cfg.replace(attn_impl="ref"), prompts, 4)
+    got, want = res["prefill_logits"], plain["prefill_logits"]
+    assert float((got - want).norm() / want.norm()) <= 2 ** -4
 
 
 # -- segment scan -------------------------------------------------------------------

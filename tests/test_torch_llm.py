@@ -30,7 +30,7 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro_torch import convert
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.configs import ARCH_IDS, PORTED, get_config, get_smoke
 from repro_torch.kernels.flash_attention import ops as t_flash
 from repro_torch.kernels.flash_attention.ref import (bf16_error_bound,
                                                      flash_attention_ref)
@@ -113,9 +113,10 @@ def test_registry_names_and_refusals():
     assert len(ARCH_IDS) == 10
     with pytest.raises(KeyError):
         get_config("gpt-5")
-    for arch in ARCH_IDS:
-        if arch == "qwen3_1_7b":
-            continue
+    unported = [arch for arch in ARCH_IDS if arch not in PORTED]
+    assert unported == ["whisper_medium", "deepseek_v3_671b",
+                        "mixtral_8x22b"]
+    for arch in unported:
         with pytest.raises(NotImplementedError, match="module step 9"):
             get_smoke(arch)
 
@@ -410,11 +411,23 @@ def test_not_ported_paths_raise(smoke_models):
             fn()
     with pytest.raises(NotImplementedError, match="module step 9"):
         TS.make_prefill_step(tc.replace(prefill_chunk=2))
-    for bad in (dict(family="moe"), dict(family="ssm"),
-                dict(family="hybrid"), dict(family="encdec"),
-                dict(pos_emb="learned")):
+    for bad in (dict(family="moe"), dict(family="encdec"),
+                dict(moe={"n_experts": 4}), dict(mla={"kv_lora_rank": 8}),
+                dict(mtp=True), dict(pos_emb="learned"), dict(window=4)):
         with pytest.raises(NotImplementedError, match="module step 9"):
             TM.init_cache(tc.replace(**bad), 1, 4, device="cpu")
+    zamba = get_smoke("zamba2-7b")
+    with pytest.raises(NotImplementedError, match="module step 9"):
+        TM.init_cache(zamba.replace(hybrid={**zamba.hybrid,
+                                            "attn_window": 16}),
+                      1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="module step 9"):
+        TM.forward(tparams, tc, torch.zeros(1, 4, dtype=torch.int32),
+                   mode="chunked_prefill")
+    for ported in ("ssm", "hybrid"):       # ported since module step 9a
+        arch = {"ssm": "mamba2-130m", "hybrid": "zamba2-7b"}[ported]
+        assert get_smoke(arch).family == ported
+        assert TM.init_cache(get_smoke(arch), 1, 4, device="cpu")
     if not torch.cuda.is_available():    # the default device is the card
         with pytest.raises(RuntimeError, match="device='cuda'"):
             TM.make_generator(0)
