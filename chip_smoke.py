@@ -20,25 +20,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      step's logits against a prefill of the prompt plus that token, layer
      0's attention output by both routes, and the kernel alone at the
      path's shape (plus a window case and a ``q_off > 0`` case);
-   * the families phase (module step 9a), each config through the same
-     serve driver with the counters reset before it: zamba2-7b uncut (81
-     mamba layers, d_model 3584, 112 SSM heads, the shared attention block
-     invoked 14 times with its LoRA ``b`` drawn from N(0, 0.1^2)) and
-     mamba2-130m uncut, 32 greedy tokens each; chatglm3-6b, starcoder2-7b,
-     minicpm-2b and chameleon-34b at full width and 2 layers, 8 tokens
-     each.  Batch 4 x 2048; ``flash_attention`` must launch once per
-     attention layer or shared-block invocation (14 for zamba2, 0 for
-     mamba2, 2 for the dense ones), all on the wgmma route, after one
-     warm-up prefill.  Outside the count: the kernel route's prefill
-     logits against the plain route's, and 128 teacher-forced decode steps
-     against a prefill of 2176 tokens (relative L2 2^-4 each).  mamba2 and
-     zamba2 take both checks on the same weights in fp32 (the flash
-     kernel's fp32 route): at their full depth bf16 rounding alone moves
-     their logits by 9% and 49% on an H100 (the plain route in bf16
-     against fp32, printed beside, not gated).  Then the kernel alone at each config's
-     attention shape (D 112, D 64, GQA 16 and 9) against its plain
-     version, timed beside its bound and SDPA (the ``[serve path] <arch>``
-     lines);
+   * the families phase (module steps 9a-9b), each config through the
+     same serve driver with the counters reset before it: zamba2-7b uncut
+     (81 mamba layers, d_model 3584, 112 SSM heads, the shared attention
+     block invoked 14 times with its LoRA ``b`` drawn from N(0, 0.1^2))
+     and mamba2-130m uncut, 32 greedy tokens each; chatglm3-6b,
+     starcoder2-7b, minicpm-2b and chameleon-34b at full width and 2
+     layers, 8 tokens each, all at batch 4 x 2048; mixtral-8x22b at full
+     width and 2 layers (attention with a 4096 window and ring caches, 8
+     experts top-2 at capacity factor 1.25), batch 2 x 6144, 32 tokens.
+     ``flash_attention`` must launch once per attention layer or
+     shared-block invocation (14 for zamba2, 0 for mamba2, 2 for the dense
+     ones and mixtral), all on the wgmma route, after one warm-up prefill;
+     for mixtral the share of routed (token, expert) entries its prefill
+     dropped is printed per layer, and decode must drop none.  Outside the
+     count: the kernel route's prefill logits against the plain route's
+     (for mixtral with the (token, layer) routes whose experts differ
+     between the two), and 128 teacher-forced decode steps against a
+     prefill of the prompt plus those tokens (relative L2 2^-4 each;
+     mixtral's across its ring's wrap and at a capacity no expert can
+     exceed on both sides, since a prefill may drop what decode never
+     does).  mamba2 and zamba2 take both checks on the same weights in
+     fp32 (the flash kernel's fp32 route): at their full depth bf16
+     rounding alone moves their logits by 9% and 49% on an H100 (the plain
+     route in bf16 against fp32, printed beside, not gated).  Then the
+     kernel alone at each config's attention shape (D 112, D 64, GQA 16
+     and 9; mixtral's GQA 6 with its window, SDPA given the window as a
+     boolean mask) against its plain version, timed beside its bound and
+     SDPA (the ``[serve path] <arch>`` lines);
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -251,9 +260,17 @@ LOGITS_REL_TOL = 2 ** -4
 # FAMILY_TEACHER teacher-forced tokens (128 divides both lengths, so the
 # SSD scan keeps its chunk of 128)
 FAMILY_ARCHS = ("zamba2-7b", "mamba2-130m", "chatglm3-6b", "starcoder2-7b",
-                "minicpm-2b", "chameleon-34b")
+                "minicpm-2b", "chameleon-34b", "mixtral-8x22b")
 FAMILY_DENSE_LAYERS = 2
-FAMILY_GEN = {"zamba2-7b": 32, "mamba2-130m": 32}     # the dense ones: 8
+# mixtral-8x22b (module step 9b) at full width and FAMILY_DENSE_LAYERS
+# layers, with traffic of its own: a prompt of one and a half windows (4096
+# + 2048), so that the prefill's window mask cuts the rows of the last 2048
+# queries, its ring cache starts at slot 2048 and every decode step
+# overwrites a slot; batch 2 keeps the decode check's no-drop prefill (C = S
+# at capacity factor n_experts / top_k) within the card even in fp32
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 6144, 32
+FAMILY_GEN = {"zamba2-7b": 32, "mamba2-130m": 32,      # the dense ones: 8
+              "mixtral-8x22b": MOE_GEN}
 FAMILY_TEACHER = 128
 LORA_B_STD = 0.1    # zamba2's LoRA b: a @ b then about wq's own scale
 
@@ -820,10 +837,23 @@ def serve_phase(dev, report, failures) -> dict:
             "library_ms": lib_ms}
 
 
-def flash_alone(name, b, h, kv, s, d, gen, failures) -> dict:
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend that ``scaled_dot_product_attention``'s dispatcher picks
+    for these inputs, an explicit mask and ``enable_gqa``."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, attn_mask=mask, dropout_p=0.0, is_causal=False, scale=None,
+        enable_gqa=True)).name
+
+
+def flash_alone(name, b, h, kv, s, d, gen, failures, window=None) -> dict:
     """``flash_attention`` alone at one config's prefill shape (bf16,
-    causal, seeded normal q, k, v): held against its plain version within
-    ``flash_check``'s bounds, and timed beside its bound and SDPA."""
+    causal, with the config's sliding window if it has one; seeded normal
+    q, k, v): held against its plain version within ``flash_check``'s
+    bounds, and timed beside its bound and SDPA.  SDPA has no window
+    argument, so a window goes to it as an explicit boolean mask (the
+    backend its dispatcher picks for that is printed)."""
     import torch
     import torch.nn.functional as F
 
@@ -833,34 +863,49 @@ def flash_alone(name, b, h, kv, s, d, gen, failures) -> dict:
                     dtype=torch.bfloat16)
     k, v = (torch.randn((b, kv, s, d), generator=gen, device=DEVICE,
                         dtype=torch.bfloat16) for _ in range(2))
-    want = flash_attention_ref(q, k, v, causal=True)
-    got = fa_ops.flash_attention_cuda(q, k, v, causal=True)
-    err, worst, rel = flash_check(got, want, q, k, v, causal=True)
+    masks = dict(causal=True, window=window)
+    want = flash_attention_ref(q, k, v, **masks)
+    got = fa_ops.flash_attention_cuda(q, k, v, **masks)
+    err, worst, rel = flash_check(got, want, q, k, v, **masks)
     del got, want
     ok = worst <= 1.0 and rel <= 2 ** -7
-    shape = f"q {b} x {h} x {s} x {d}, k/v {b} x {kv} x {s} x {d}"
+    shape = (f"q {b} x {h} x {s} x {d}, k/v {b} x {kv} x {s} x {d}, causal"
+             + (f", window {window}" if window else ""))
     log(f"[kernel check] {'ok  ' if ok else 'FAIL'} flash_attention at "
-        f"{name}'s shape ({shape}, causal, GQA {h // kv}): max |err| "
+        f"{name}'s shape ({shape}, GQA {h // kv}): max |err| "
         f"{err:.3e}, largest |err| / elementwise bound {worst:.3f} (limit "
         f"1), relative L2 {rel:.3e} (limit {2 ** -7:.3e})")
     if not ok:
         failures.append(f"flash_attention at {name}'s shape: |err|/bound "
                         f"{worst}, relative L2 {rel}")
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, causal=True),
-                 10)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), 2)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 10)
+    if window is None:
+        backend = "is_causal"
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=DEVICE)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                                 < window)
+        backend = f"boolean mask, {sdpa_backend(q, k, v, mask)}"
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **masks), 10)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **masks), 2)
+    lib_ms = cuda_ms(library, 10)
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    n_ops = 4 * d * visible_pairs(s, s, True) * b * h
+    n_ops = 4 * d * visible_pairs(s, s, True, window=window) * b * h
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_FLOP_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
     log(f"[time] flash_attention at {name}'s shape: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-        f"(scaled_dot_product_attention), kernel / library "
+        f"(scaled_dot_product_attention, {backend}), kernel / library "
         f"{ms / lib_ms:.3f}, bound {bound:.4f} ms ({by}; "
         f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), "
         f"{100 * bound / ms:.1f}% of bound")
@@ -869,30 +914,52 @@ def flash_alone(name, b, h, kv, s, d, gen, failures) -> dict:
                         f"its bound {bound} ms")
     return {"shape": shape, "max_abs_err": err, "err_over_bound": worst,
             "rel_l2": rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+            "library_ms": lib_ms, "library": backend, "bound_ms": bound,
+            "bound_by": by}
 
 
-def serve_checks(cfg, params, prompts, p):
+def serve_checks(cfg, params, prompts, p, decode_cfg=None):
     """The route check (the kernel route's prefill logits against the
     plain route's) and the decode check (``FAMILY_TEACHER`` teacher-forced
     decode steps after the prompt against one prefill over all those
-    tokens), as relative L2 errors; and the plain route's logits."""
+    tokens), as relative L2 errors; the plain route's logits; and, for a
+    MoE config, the (token, layer) routes whose set of experts differs
+    between the two routes' prefills (None without MoE).  The decode check
+    runs at ``decode_cfg`` on both sides (default ``cfg``): a MoE config
+    passes one whose capacity no expert can exceed, since a prefill may
+    drop entries that decode, one token at a time, never drops."""
+    import torch
+
     from repro_torch.launch import serve as serve_lib
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe as moe_lib
 
-    plain, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
-        params, prompts[:, :p])
-    logits, cache = make_prefill_step(cfg)(params, prompts[:, :p])
+    decode_cfg = decode_cfg or cfg
+    with moe_lib.routing_log() as plain_routes:
+        plain, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
+            params, prompts[:, :p])
+    with moe_lib.routing_log() as kernel_routes:
+        logits, cache = make_prefill_step(cfg)(params, prompts[:, :p])
     checks = {"prefill logits, kernel vs plain route": rel_err(logits, plain)}
-    cache = serve_lib.repack_cache(cache, p + FAMILY_TEACHER)
-    step = make_serve_step(cfg)
+    flips = None
+    if cfg.moe:
+        flips = [int((torch.sort(a["idx"], -1).values
+                      != torch.sort(b["idx"], -1).values).any(-1).sum())
+                 for a, b in zip(kernel_routes, plain_routes)]
+    del plain_routes, kernel_routes
+    if decode_cfg is not cfg:
+        del cache
+        logits, cache = make_prefill_step(decode_cfg)(params, prompts[:, :p])
+    cache = serve_lib.repack_cache(cache, p + FAMILY_TEACHER,
+                                   window=serve_lib.attention_window(cfg))
+    step = make_serve_step(decode_cfg)
     for t in range(p, p + FAMILY_TEACHER):
         logits, cache = step(params, cache, prompts[:, t:t + 1], t)
     del cache
-    ext_logits, _ = make_prefill_step(cfg)(params, prompts)
+    ext_logits, _ = make_prefill_step(decode_cfg)(params, prompts)
     checks[f"{FAMILY_TEACHER} decode steps vs prefill of "
            f"{p + FAMILY_TEACHER}"] = rel_err(logits, ext_logits)
-    return checks, plain
+    return checks, plain, flips
 
 
 def to_fp32(tree):
@@ -908,11 +975,14 @@ def to_fp32(tree):
 
 
 def families_phase(dev, report, failures) -> int:
-    """Module step 9a on the card: each config of ``FAMILY_ARCHS`` served
-    through ``repro_torch.launch.serve`` (counted: ``flash_attention`` once
-    per attention layer or shared-block invocation of the prefill, all on
-    the wgmma route), its route and decode checks, and the kernel alone at
-    its shape.  Returns the flash launches of the counted runs."""
+    """Module steps 9a-9b on the card: each config of ``FAMILY_ARCHS``
+    served through ``repro_torch.launch.serve`` (counted: ``flash_attention``
+    once per attention layer or shared-block invocation of the prefill, all
+    on the wgmma route), its route and decode checks, and the kernel alone
+    at its shape.  For mixtral-8x22b also the share of routed (token,
+    expert) entries that the served prefill dropped at capacity, per layer,
+    and the routes whose experts differ between the check's two attention
+    routes.  Returns the flash launches of the counted runs."""
     import torch
 
     from repro_torch.configs import get_config
@@ -920,13 +990,15 @@ def families_phase(dev, report, failures) -> int:
     from repro_torch.launch import serve as serve_lib
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
 
     out, flash_launches = {}, 0
-    b, p = SERVE_BATCH, SERVE_PROMPT
     for arch in FAMILY_ARCHS:
         cfg = get_config(arch)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             cfg = cfg.replace(n_layers=FAMILY_DENSE_LAYERS)
+        b, p = ((MOE_BATCH, MOE_PROMPT) if cfg.family == "moe"
+                else (SERVE_BATCH, SERVE_PROMPT))
         g = FAMILY_GEN.get(arch, 8)
         t0 = time.perf_counter()
         gen = M.make_generator(SERVE_SEED, dev)
@@ -940,7 +1012,7 @@ def families_phase(dev, report, failures) -> int:
                "init_s": time.perf_counter() - t0,
                "weights_gb": torch.cuda.memory_allocated() / 1e9}
         want = (M.n_invocations(cfg) if cfg.family == "hybrid"
-                else cfg.n_layers if cfg.family == "dense" else 0)
+                else 0 if cfg.family == "ssm" else cfg.n_layers)
 
         # a warm-up prefill outside the count (cuBLAS and the caching
         # allocator meet these shapes here), then the counted run: prefill,
@@ -951,7 +1023,8 @@ def families_phase(dev, report, failures) -> int:
         row["cold_prefill_s"] = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        res = serve_lib.serve(params, cfg, prompts[:, :p], g)
+        with moe_lib.routing_log() as routes:
+            res = serve_lib.serve(params, cfg, prompts[:, :p], g)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         flash_launches += launches["flash_attention_wgmma"]
@@ -982,6 +1055,23 @@ def families_phase(dev, report, failures) -> int:
                             f"the wgmma route and "
                             f"{launches['flash_attention']} on the fp32 "
                             f"route in one prefill (want {want} and 0)")
+        if cfg.moe:
+            # the prefill's records come first, one a layer; then decode's
+            n_moe = len(params["moe_stack"])
+            row["dropped_share"] = [int(r["dropped"]) / r["routed"]
+                                    for r in routes[:n_moe]]
+            decode_drops = sum(int(r["dropped"]) for r in routes[n_moe:])
+            log(f"[serve path] {arch}: routed (token, expert) entries the "
+                f"prefill dropped at capacity factor "
+                f"{cfg.moe['capacity_factor']}, per layer: "
+                + ", ".join(f"{100 * x:.3f}%" for x in row["dropped_share"])
+                + f" (of {routes[0]['routed']:,} each); decode dropped "
+                f"{decode_drops}")
+            if decode_drops or len(routes) != n_moe * (g + 1):
+                failures.append(f"{arch}: {len(routes)} MoE calls, decode "
+                                f"dropped {decode_drops} entries (want "
+                                f"{n_moe * (g + 1)} and 0)")
+        del routes
         toks = res["tokens"]
         if not (toks.shape == (b, g) and bool((toks >= 0).all())
                 and bool((toks < cfg.vocab).all())
@@ -990,18 +1080,31 @@ def families_phase(dev, report, failures) -> int:
             failures.append(f"{arch}: tokens out of range or logits not "
                             f"finite")
 
-        # the checks: bf16 for the dense configs.  The SSM families' bf16
-        # logits move by tens of percent under bf16 rounding alone (their
-        # spread, printed beside), so theirs run on the same weights in
-        # fp32 (the fp32 flash kernel on the kernel route)
+        # the checks: bf16 for the dense and MoE configs.  The SSM
+        # families' bf16 logits move by tens of percent under bf16 rounding
+        # alone (their spread, printed beside), so theirs run on the same
+        # weights in fp32 (the fp32 flash kernel on the kernel route).
+        # mixtral's decode check runs without drops on both sides
         kernel_bf16 = res["prefill_logits"]
         del res
-        if cfg.family == "dense":
-            row["checks"], _ = serve_checks(cfg, params, prompts, p)
+        if cfg.family in ("dense", "moe"):
+            no_drop = None
+            if cfg.moe:
+                m = cfg.moe
+                no_drop = cfg.replace(moe={
+                    **m, "capacity_factor": m["n_experts"] / m["top_k"]})
+            row["checks"], _, flips = serve_checks(cfg, params, prompts, p,
+                                                   no_drop)
+            if flips is not None:
+                row["route_flips"] = flips
+                log(f"[serve check] {arch}: (token, layer) routes whose "
+                    f"top-{cfg.moe['top_k']} experts differ between the "
+                    f"kernel and the plain route's prefill, per layer: "
+                    f"{flips} (of {b * p} tokens each)")
         else:
             plain_bf16, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
                 params, prompts[:, :p])
-            row["checks"], plain32 = serve_checks(
+            row["checks"], plain32, _ = serve_checks(
                 cfg.replace(param_dtype=torch.float32,
                             compute_dtype=torch.float32),
                 to_fp32(params), prompts, p)
@@ -1025,7 +1128,7 @@ def families_phase(dev, report, failures) -> int:
 
         if cfg.family != "ssm":
             row["flash"] = flash_alone(arch, b, cfg.n_heads, cfg.n_kv_heads,
-                                       p, cfg.dh, gen, failures)
+                                       p, cfg.dh, gen, failures, cfg.window)
             torch.cuda.empty_cache()
         out[arch] = row
     report["families"] = out

@@ -17,12 +17,15 @@ Model parameters and decode caches move the same way
 :func:`from_jax_cache`/:func:`to_numpy_cache`).  Both packages keep the
 same leaves under the same names, and a linear weight ``w`` as
 ``[d_in, d_out]`` (``y = x @ w``).  The JAX package stacks the layers on
-axis 0 under ``dense_stack`` and ``mamba_stack``; the port keeps a list of
-per-layer dicts (the hybrid's ``shared`` block is one layer, and its
+axis 0 under ``dense_stack``, ``moe_stack`` and ``mamba_stack``; the port
+keeps a list of per-layer dicts, as long as the stack's leading axis (a
+moe config's ``first_dense`` layers are its ``dense_stack``, the rest its
+``moe_stack``; the hybrid's ``shared`` block is one layer, and its
 ``shared_lora`` stays stacked on the invocation axis in both).  numpy has
 no bfloat16, so bf16 leaves travel as float32 (exact both ways); the
 leaves that the JAX init keeps in fp32 at any ``param_dtype``
-(``models.ssm.FP32_LEAVES``) and the SSM state ``h`` stay fp32.
+(``models.layers.FP32_LEAVES``: the SSM mixer's and the MoE router's) and
+the SSM state ``h`` stay fp32.
 """
 from __future__ import annotations
 
@@ -35,10 +38,10 @@ from .core.assoc_tensor import AssocTensor, resolve_device
 from .core.dist_assoc import DistAssoc
 from .core.keyspace import KeySpace
 from .core.mesh import Mesh
-from .models.ssm import FP32_LEAVES
+from .models.layers import FP32_LEAVES
 
 # the parameter stacks that the JAX package stacks on a leading layer axis
-LAYER_STACKS = ("dense_stack", "mamba_stack")
+LAYER_STACKS = ("dense_stack", "moe_stack", "mamba_stack")
 
 __all__ = ["from_jax_cache", "from_jax_dist_state", "from_jax_params",
            "from_jax_state", "to_numpy_cache", "to_numpy_dist_state",
@@ -122,8 +125,9 @@ def from_jax_params(params_np: dict, cfg, *, device="cuda") -> dict:
     """The port's parameters from the numpy form of a JAX parameter pytree
     (``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``): each
     leaf in ``cfg.param_dtype`` on ``device`` (those of
-    ``models.ssm.FP32_LEAVES`` in fp32), and each layer stack (layers on
-    axis 0) split into a list of per-layer dicts."""
+    ``models.layers.FP32_LEAVES`` in fp32), and each layer stack (layers on
+    axis 0) split into a list of per-layer dicts, one for each entry of
+    its leading axis."""
     dev = resolve_device(device)
 
     def tensor(x, key):
@@ -133,8 +137,9 @@ def from_jax_params(params_np: dict, cfg, *, device="cuda") -> dict:
     out = {}
     for name, sub in params_np.items():
         if name in LAYER_STACKS:
+            n = len(_first_leaf(sub))
             out[name] = [_map(lambda x, k, i=i: tensor(np.asarray(x)[i], k),
-                              sub, name) for i in range(cfg.n_layers)]
+                              sub, name) for i in range(n)]
         else:
             out[name] = _map(tensor, sub, name)
     return out
@@ -153,6 +158,12 @@ def to_numpy_params(params: dict) -> dict:
         else:
             out[name] = _map(arr, sub)
     return out
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def _stack(layers):

@@ -6,11 +6,12 @@
         --smoke --device cpu                          # small, on the host
 
 One prefill step runs the whole prompt (the flash-attention kernel on the
-card) and builds a cache of capacity prompt length; the cache is copied
-into a static decode cache of capacity prompt + gen (an SSM's state
-carries over as it is), and a single-token serve step is iterated.  Every
-architecture of ``repro_torch.configs.PORTED`` serves.  Weights are
-random, drawn from ``--seed``.
+card) and builds a cache of capacity prompt length (a sliding window's
+ring: ``window`` slots); the cache is copied into a static decode cache of
+capacity prompt + gen (a ring and an SSM's state carry over as they are),
+and a single-token serve step is iterated.  Every architecture of
+``repro_torch.configs.PORTED`` serves.  Weights are random, drawn from
+``--seed``.
 """
 from __future__ import annotations
 
@@ -30,15 +31,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def repack_cache(cache: Dict[str, Any], capacity: int) -> Dict[str, Any]:
+def attention_window(cfg):
+    """The sliding window of the config's attention caches: ``cfg.window``,
+    or the hybrid's ``hybrid["attn_window"]`` for its shared block; None
+    without one."""
+    return cfg.window or (cfg.hybrid or {}).get("attn_window")
+
+
+def repack_cache(cache: Dict[str, Any], capacity: int, *,
+                 window=None) -> Dict[str, Any]:
     """A prefill cache (capacity = prompt length) copied into a zeroed
     decode cache of ``capacity`` slots; ``len`` stays the prompt length.
     Attention stacks (``k``/``v``: [n, B, S, KV, Dh]) are padded; the SSM
     stack (conv tails and state) carries no sequence axis and passes
-    through unchanged."""
+    through unchanged, and so does a ring cache of ``window`` slots (a
+    sliding window's: decode writes slot ``pos % slots``, so padding would
+    move every slot) — what the JAX package's ``init_cache`` does with
+    ``min(cache_len, window)``."""
     out = {}
     for name, st in cache.items():
-        if "k" not in st:
+        if "k" not in st or (window is not None
+                             and st["k"].shape[2] == window):
             out[name] = st
             continue
         n, b, s, kv, dh = st["k"].shape
@@ -66,7 +79,7 @@ def serve(params, cfg, prompts: torch.Tensor, gen: int) -> Dict[str, Any]:
     serve_step = S.make_serve_step(cfg)
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, prompts)
-    cache = repack_cache(cache, p + gen)
+    cache = repack_cache(cache, p + gen, window=attention_window(cfg))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits

@@ -1,9 +1,11 @@
-"""Step builders: prefill and serve (one decode step).
+"""Step builders: prefill and serve (one decode step), for every family of
+``models/model.py`` (dense, MoE with or without a sliding window, SSM,
+hybrid).
 
-The JAX package's ``launch/steps.py`` also builds the train step and the
-jitted, sharded variants for its dry-run; those have no port yet
-(ROADMAP.md, module step 9).  PyTorch runs eagerly, so each builder returns
-a plain function.
+The JAX package's ``launch/steps.py`` also builds the train step, the
+chunked prefill and the jitted, sharded variants for its dry-run; those
+have no port yet (ROADMAP.md, module step 9).  PyTorch runs eagerly, so
+each builder returns a plain function.
 """
 from __future__ import annotations
 

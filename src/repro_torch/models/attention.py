@@ -10,8 +10,12 @@ tensors), as the JAX package's ``"pallas"`` does on a TPU.
 
 Decode writes K/V at the cache cursor into a static-shape cache in place
 (the JAX package returns a new cache and donates the old one; the port
-saves the copy).  Sliding-window ring caches, chunked prefill,
-cross-attention and MLA are not ported yet (ROADMAP.md, module step 9).
+saves the copy).  With a sliding window (``cfg.window``) the cache is a
+ring of ``window`` slots: a prefill keeps the last ``min(window, S)``
+tokens, position ``pos`` in slot ``pos % window`` (the slots not written
+stay zero), and decode writes slot ``pos % window``, as in the JAX
+package.  Chunked prefill, cross-attention and MLA are not ported yet
+(ROADMAP.md, module step 9).
 """
 from __future__ import annotations
 
@@ -137,8 +141,6 @@ def gqa_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
     window = cfg.window
     if mode == "chunked_prefill":
         raise NotImplementedError(f"chunked prefill is {_TODO}")
-    if window is not None and mode != "train":
-        raise NotImplementedError(f"sliding-window ring caches are {_TODO}")
     if positions is None:
         positions = torch.arange(sq, dtype=torch.int32, device=x.device)
     q, k, v = gqa_qkv(p, cfg, x, positions)
@@ -150,6 +152,8 @@ def gqa_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
             chunk=cfg.attn_chunk)
         new_cache = None
         if mode == "prefill":
+            if window is not None:
+                k, v = _ring(k, window), _ring(v, window)
             new_cache = {"k": k, "v": v,
                          "len": torch.tensor(sq, dtype=torch.int32,
                                              device=x.device)}
@@ -163,7 +167,7 @@ def gqa_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
         raise ValueError("decode mode needs a cache")
     pos = cache["len"]            # int32 scalar tensor: tokens cached so far
     sc = cache["k"].shape[1]
-    slot = pos.reshape(1).long()
+    slot = (pos % sc if window is not None else pos).reshape(1).long()
     k_cache = cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     v_cache = cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
     k_pos = _cache_positions(pos, sc, window, device=x.device)
@@ -173,6 +177,17 @@ def gqa_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
         causal=True, window=window, k_valid_len=valid, impl=cfg.attn_impl)
     out = linear(p["wo"], out.reshape(b, sq, -1))
     return out, {"k": k_cache, "v": v_cache, "len": pos + 1}
+
+
+def _ring(t: torch.Tensor, window: int) -> torch.Tensor:
+    """A prefill's K or V [B, S, KV, Dh] as a ring cache of ``window``
+    slots: the last ``min(window, S)`` tokens, position ``pos`` in slot
+    ``pos % window``, zeros in the slots not written."""
+    sq = t.shape[1]
+    cap = min(window, sq)
+    slots = (torch.arange(cap, device=t.device) + (sq - cap)) % window
+    ring = t.new_zeros((t.shape[0], window) + t.shape[2:])
+    return ring.index_copy_(1, slots, t[:, sq - cap:])
 
 
 def _cache_positions(pos, cache_size: int, window: Optional[int], *,

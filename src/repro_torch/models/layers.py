@@ -18,6 +18,10 @@ import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
+# the leaves that the JAX init keeps in fp32 at any param_dtype: the SSM
+# mixer's (models/ssm.py) and the MoE router's (models/moe.py)
+FP32_LEAVES = ("dt_bias", "a_log", "d_skip", "router", "e_bias")
+
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, dtype=torch.float32,

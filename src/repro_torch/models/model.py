@@ -1,4 +1,5 @@
-"""Model assembly for the ``dense``, ``ssm`` and ``hybrid`` families.
+"""Model assembly for the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families.
 
 Public entry points, as in the JAX package:
   * ``init(gen, cfg)``                 → params
@@ -6,25 +7,32 @@ Public entry points, as in the JAX package:
   * ``init_cache(cfg, batch, cache_len, device=...)``
 
 The JAX package stacks the layers' parameters on a leading axis and scans
-over them; here ``params["dense_stack"]`` and ``params["mamba_stack"]`` are
-lists of per-layer dicts and the stack is a Python loop.  The hybrid
-(zamba2) keeps one ``shared`` attention+MLP block, invoked before every
-``attn_every``-th mamba layer, and its LoRA factors stacked on the
-invocation axis (``shared_lora["a"]``: [n_inv, d, r], ``["b"]``: [n_inv, r,
-H·Dh]), as in the JAX package.  Caches keep the JAX layout, stacked on the
-layer (or invocation) axis:
+over them; here ``params["dense_stack"]``, ``params["moe_stack"]`` and
+``params["mamba_stack"]`` are lists of per-layer dicts and the stack is a
+Python loop.  A ``moe`` config runs its ``first_dense`` leading layers from
+``dense_stack`` and the rest, attention + MoE (``models/moe.py``), from
+``moe_stack``; ``forward``'s ``aux`` is the sum of their load-balancing
+losses.  The hybrid (zamba2) keeps one ``shared`` attention+MLP block,
+invoked before every ``attn_every``-th mamba layer, and its LoRA factors
+stacked on the invocation axis (``shared_lora["a"]``: [n_inv, d, r],
+``["b"]``: [n_inv, r, H·Dh]), as in the JAX package.  Caches keep the JAX
+layout, stacked on the layer (or invocation) axis:
 
-  * dense: ``{"dense_stack": {"k", "v": [L, B, Sc, KV, Dh], "len": [L]}}``;
+  * dense/moe: ``{"dense_stack"|"moe_stack": {"k", "v": [L, B, Sc, KV,
+    Dh], "len": [L]}}``;
   * ssm: ``{"mamba_stack": {"conv_x": [L, B, K-1, d_inner], "conv_bc":
     [L, B, K-1, 2·G·N], "h": [L, B, H, N, P] fp32}}``;
   * hybrid: the ssm cache plus ``"shared_attn": {"k", "v": [n_inv, B, Sc,
     KV, Dh], "len": [n_inv]}``.
 
+With a sliding window (``cfg.window``, or the hybrid's
+``hybrid["attn_window"]`` for its shared block) each attention cache is a
+ring of ``Sc = min(cache_len, window)`` slots (``models/attention.py``).
 Decode writes every cache tensor in place and returns the same dict.  The
 JAX package's sharding constraints (``models/pjit_utils.py``) are hints to
-XLA's partitioner with no meaning on one card, so they are left out.  MoE,
-MLA, MTP, the encoder-decoder, learned positions and a hybrid attention
-window raise: they are not ported yet (ROADMAP.md, module step 9).
+XLA's partitioner with no meaning on one card, so they are left out.  MLA,
+MTP, the encoder-decoder and learned positions raise: they are not ported
+yet (ROADMAP.md, module step 9).
 """
 from __future__ import annotations
 
@@ -35,11 +43,12 @@ import torch
 
 from repro_torch.core.assoc_tensor import resolve_device
 from . import attention as attn
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (Params, _normal, apply_mlp, apply_norm, embed,
                      init_embedding, init_mlp, init_norm)
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def make_generator(seed: int, device="cuda") -> torch.Generator:
@@ -49,13 +58,11 @@ def make_generator(seed: int, device="cuda") -> torch.Generator:
 
 
 def _check_ported(cfg) -> None:
-    if (cfg.family not in FAMILIES or cfg.moe or cfg.mla or cfg.mtp
-            or cfg.pos_emb != "rope"
-            or (cfg.hybrid or {}).get("attn_window") is not None):
+    if (cfg.family not in FAMILIES or cfg.mla or cfg.mtp
+            or cfg.pos_emb != "rope"):
         raise NotImplementedError(
             f"{cfg.name}: only the {'/'.join(FAMILIES)} families with RoPE "
-            f"and without MoE, MLA, MTP or a hybrid attention window are "
-            f"ported (ROADMAP.md, module step 9)")
+            f"and without MLA or MTP are ported (ROADMAP.md, module step 9)")
 
 
 def n_invocations(cfg) -> int:
@@ -70,19 +77,26 @@ def _residual_scale(cfg) -> float:
     return cfg.scale_depth / math.sqrt(cfg.n_layers)
 
 
-def init_decoder_layer(gen, cfg) -> Params:
+def init_decoder_layer(gen, cfg, *, use_moe: bool = False) -> Params:
     dt, dev = cfg.param_dtype, gen.device
-    return {"attn_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
-                                   device=dev),
-            "attn": attn.init_gqa(gen, cfg),
-            "mlp_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
-                                  device=dev),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, act=cfg.act,
-                            dtype=dt, bias=cfg.attn_bias)}
+    p = {"attn_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
+                                device=dev),
+         "attn": attn.init_gqa(gen, cfg),
+         "mlp_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
+                               device=dev)}
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, act=cfg.act,
+                            dtype=dt, bias=cfg.attn_bias)
+    return p
 
 
 def apply_decoder_layer(p: Params, cfg, x, *, mode: str, cache, positions,
-                        causal: bool = True):
+                        use_moe: bool = False, causal: bool = True):
+    """→ ``(x, new_cache, aux, load)``: ``aux`` the MoE layer's
+    load-balancing loss and ``load`` its expert load (0.0 and None for an
+    MLP layer)."""
     rs = _residual_scale(cfg)
     h = apply_norm(p["attn_norm"], x, kind=cfg.norm)
     a_out, new_cache = attn.gqa_attention(p["attn"], cfg, h, mode=mode,
@@ -90,8 +104,12 @@ def apply_decoder_layer(p: Params, cfg, x, *, mode: str, cache, positions,
                                           causal=causal)
     x = (x + a_out * rs).to(cfg.compute_dtype)
     h = apply_norm(p["mlp_norm"], x, kind=cfg.norm)
-    x = (x + apply_mlp(p["mlp"], h, act=cfg.act) * rs).to(cfg.compute_dtype)
-    return x, new_cache
+    if use_moe:
+        m_out, aux, load = moe_lib.apply_moe(p["moe"], cfg, h)
+    else:
+        m_out, aux, load = apply_mlp(p["mlp"], h, act=cfg.act), 0.0, None
+    x = (x + m_out * rs).to(cfg.compute_dtype)
+    return x, new_cache, aux, load
 
 
 def init_mamba_layer(gen, cfg) -> Params:
@@ -107,6 +125,12 @@ def apply_mamba_layer(p: Params, cfg, x, *, mode: str, cache):
     return (x + out).to(cfg.compute_dtype), new_cache
 
 
+def _n_dense(cfg) -> int:
+    """The leading MLP layers: all of a dense config's, a moe config's
+    ``first_dense``."""
+    return cfg.moe.get("first_dense", 0) if cfg.moe else cfg.n_layers
+
+
 def init(gen: torch.Generator, cfg) -> Params:
     """Seeded random parameters on the generator's device."""
     _check_ported(cfg)
@@ -117,9 +141,14 @@ def init(gen: torch.Generator, cfg) -> Params:
                                 device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = init_embedding(gen, cfg.vocab, cfg.d_model, dtype=dt)
-    if cfg.family == "dense":
-        p["dense_stack"] = [init_decoder_layer(gen, cfg)
-                            for _ in range(cfg.n_layers)]
+    if cfg.family in ("dense", "moe"):
+        n_dense = _n_dense(cfg)
+        if n_dense:
+            p["dense_stack"] = [init_decoder_layer(gen, cfg)
+                                for _ in range(n_dense)]
+        if cfg.n_layers > n_dense:
+            p["moe_stack"] = [init_decoder_layer(gen, cfg, use_moe=True)
+                              for _ in range(cfg.n_layers - n_dense)]
         return p
     p["mamba_stack"] = [init_mamba_layer(gen, cfg)
                         for _ in range(cfg.n_layers)]
@@ -189,13 +218,9 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
     sq = tokens.shape[1]
     if positions is None:
         positions = torch.arange(sq, dtype=torch.int32, device=tokens.device)
-    if cfg.family == "dense":
-        x, new_cache = _dense_forward(params, cfg, x, mode=mode, cache=cache,
-                                      positions=positions)
-    else:
-        x, new_cache = _mamba_forward(params, cfg, x, mode=mode, cache=cache,
-                                      positions=positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    fwd = _dense_forward if cfg.family in ("dense", "moe") else _mamba_forward
+    x, aux, new_cache = fwd(params, cfg, x, mode=mode, cache=cache,
+                            positions=positions)
 
     x = apply_norm(params["final_norm"], x, kind=cfg.norm)
     if return_hidden:
@@ -208,17 +233,27 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
 
 
 def _dense_forward(params, cfg, x, *, mode, cache, positions):
-    stack = params["dense_stack"]
-    st = _Stack(cache["dense_stack"] if cache is not None else None,
-                len(stack), mode)
-    for i, lp in enumerate(stack):
-        x, nc = apply_decoder_layer(lp, cfg, x, mode=mode, cache=st.slot(i),
-                                    positions=positions)
+    """The ``dense_stack`` (MLP layers), then the ``moe_stack`` (MoE
+    layers); the sum of the layers' aux losses."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = {}
+    for name, use_moe in (("dense_stack", False), ("moe_stack", True)):
+        if name not in params:
+            continue
+        stack = params[name]
+        st = _Stack(cache[name] if cache is not None else None, len(stack),
+                    mode)
+        for i, lp in enumerate(stack):
+            x, nc, a, _ = apply_decoder_layer(
+                lp, cfg, x, mode=mode, cache=st.slot(i), positions=positions,
+                use_moe=use_moe)
+            if use_moe:
+                aux = aux + a
+            if mode != "train":
+                st.put(i, nc)
         if mode != "train":
-            st.put(i, nc)
-    if mode == "train":
-        return x, None
-    return x, {"dense_stack": st.result()}
+            new_cache[name] = st.result()
+    return x, aux, (new_cache if mode != "train" else None)
 
 
 def _mamba_forward(params, cfg, x, *, mode, cache, positions):
@@ -230,6 +265,8 @@ def _mamba_forward(params, cfg, x, *, mode, cache, positions):
     ms = _Stack(cache["mamba_stack"] if cache is not None else None,
                 len(stack), mode)
     if hybrid:
+        window = cfg.hybrid.get("attn_window")
+        hy_cfg = cfg.replace(window=window) if window else cfg
         every = cfg.hybrid["attn_every"]
         shared, lora = params["shared"], params.get("shared_lora")
         shared_st = _Stack(cache["shared_attn"] if cache is not None
@@ -239,20 +276,21 @@ def _mamba_forward(params, cfg, x, *, mode, cache, positions):
             inv = i // every
             pa = (shared if lora is None
                   else _apply_lora_to_attn(shared, lora, inv))
-            x, nac = apply_decoder_layer(pa, cfg, x, mode=mode,
-                                         cache=shared_st.slot(inv),
-                                         positions=positions)
+            x, nac, _, _ = apply_decoder_layer(pa, hy_cfg, x, mode=mode,
+                                               cache=shared_st.slot(inv),
+                                               positions=positions)
             if mode != "train":
                 shared_st.put(inv, nac)
         x, nc = apply_mamba_layer(lp, cfg, x, mode=mode, cache=ms.slot(i))
         if mode != "train":
             ms.put(i, nc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
     if mode == "train":
-        return x, None
+        return x, aux, None
     new_cache = {"mamba_stack": ms.result()}
     if hybrid:
         new_cache["shared_attn"] = shared_st.result()
-    return x, new_cache
+    return x, aux, new_cache
 
 
 def _apply_lora_to_attn(pa: Params, lora: Params, inv: int) -> Params:
@@ -265,26 +303,29 @@ def _apply_lora_to_attn(pa: Params, lora: Params, inv: int) -> Params:
 
 def init_cache(cfg, batch: int, cache_len: int, *, device="cuda") -> Params:
     """Static-shape decode caches, stacked on the layer (or invocation)
-    axis."""
+    axis; an attention cache with a sliding window holds ``min(cache_len,
+    window)`` ring slots."""
     _check_ported(cfg)
-    if cfg.window is not None:
-        raise NotImplementedError("sliding-window ring caches are not ported "
-                                  "yet (ROADMAP.md, module step 9)")
     dev = resolve_device(device)
 
-    def kv_cache(n: int):
-        shape = (n, batch, cache_len, cfg.n_kv_heads, cfg.dh)
+    def kv_cache(n: int, window=None):
+        sc = min(cache_len, window) if window else cache_len
+        shape = (n, batch, sc, cfg.n_kv_heads, cfg.dh)
         return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
                 "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
                 "len": torch.zeros((n,), dtype=torch.int32, device=dev)}
 
-    if cfg.family == "dense":
-        return {"dense_stack": kv_cache(cfg.n_layers)}
+    if cfg.family in ("dense", "moe"):
+        n_dense = _n_dense(cfg)
+        sizes = {"dense_stack": n_dense, "moe_stack": cfg.n_layers - n_dense}
+        return {name: kv_cache(n, cfg.window) for name, n in sizes.items()
+                if n}
     per = ssm_lib.init_ssm_cache(cfg, batch, device=dev)
     out = {"mamba_stack": {key: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
                            for key, t in per.items()}}
     if cfg.family == "hybrid":
-        out["shared_attn"] = kv_cache(n_invocations(cfg))
+        out["shared_attn"] = kv_cache(n_invocations(cfg),
+                                      cfg.hybrid.get("attn_window"))
     return out
 
 

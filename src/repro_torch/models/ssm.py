@@ -19,7 +19,7 @@ Q 128, 112 heads, N 64, P 64) that is the intra-chunk decay, [B, C, G, R,
 Q, Q] fp32: 470 MB per layer, freed before the next.
 
 ``dt_bias``, ``a_log``, ``d_skip`` and the state ``h`` are fp32 whatever
-``param_dtype`` is (:data:`FP32_LEAVES`), and the scan runs in fp32.
+``param_dtype`` is (``layers.FP32_LEAVES``), and the scan runs in fp32.
 Chunked prefill (a prompt in windows over a carried state) is not ported
 yet (ROADMAP.md, module step 9).
 """
@@ -31,9 +31,6 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Params, _normal, init_linear, linear, rms_norm_simple
-
-# the mixer's leaves that the JAX init keeps in fp32 at any param_dtype
-FP32_LEAVES = ("dt_bias", "a_log", "d_skip")
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -221,4 +218,4 @@ def init_ssm_cache(cfg, batch: int, *, device) -> Dict[str, torch.Tensor]:
     }
 
 
-__all__ = ["FP32_LEAVES", "init_mamba2", "init_ssm_cache", "mamba2_block"]
+__all__ = ["init_mamba2", "init_ssm_cache", "mamba2_block"]

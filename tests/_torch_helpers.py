@@ -57,6 +57,40 @@ def assert_same_assoc(t, j):
         np.testing.assert_array_equal(x, y)
 
 
+def warm_jax(calls, workers=4):
+    """Make ``calls`` (into the JAX package) on ``workers`` threads and
+    drop what they return or raise.  XLA compiles with the GIL released, so
+    the programs that a module's tests are about to call compile side by
+    side, and each test then finds its programs compiled."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def quiet(call):
+        try:
+            call()
+        except Exception:  # noqa: BLE001 -- the test makes the call again
+            pass
+
+    with ThreadPoolExecutor(workers) as ex:
+        list(ex.map(quiet, calls))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_jax_compiles():
+    """The JAX package's programs compile with XLA's backend optimisations
+    off while a port test module runs, and as before after it.  Its
+    reference results come from small programs that mostly run once, so
+    compiling them is most of their time; switching the optimisations off
+    changes no result and shortens that time.  (``jax_optimization_level``
+    stays as it is: it is part of JAX's cache keys, and the programs that
+    the JAX package's own tests compiled earlier would compile again.)"""
+    import jax
+    name = "jax_disable_most_optimizations"
+    old = jax.config.values[name]
+    jax.config.update(name, True)
+    yield
+    jax.config.update(name, old)
+
+
 @pytest.fixture(autouse=True)
 def _reset_port_stats():
     """Every port test starts from zeroed port counters (the repo's
@@ -111,7 +145,8 @@ class SpmdRun:
         env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
         env["OMP_NUM_THREADS"] = "1"
         jax_env = dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS=(
-            f"--xla_force_host_platform_device_count={world}"))
+            f"--xla_force_host_platform_device_count={world}"),
+            JAX_DISABLE_MOST_OPTIMIZATIONS="1")
         self.timeout = timeout
         self.jax_out = tmp / "jax.npz"
         self.outs = [tmp / f"rank{r}.npz" for r in range(world)]

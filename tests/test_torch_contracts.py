@@ -33,6 +33,7 @@ from repro_torch.analysis import probes as probes_mod
 from repro_torch.core import select as select_mod
 from repro_torch.core.collectives import all_reduce
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (_reset_port_stats,  # noqa: F401
                             SpmdRun, cpu_mesh)
 

@@ -20,6 +20,7 @@ import repro_torch.core.coo as tcoo
 import repro_torch.core.sorted_ops as tso
 from repro_torch.convert import from_jax_state, to_numpy_state
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (SEMIRINGS, _reset_port_stats,  # noqa: F401
                             assert_same, assert_same_assoc, assert_same_tensor,
                             keys, np_of)
@@ -393,6 +394,7 @@ def test_port_imports_without_jax():
             "repro_torch.kernels.segment_reduce, "
             "repro_torch.kernels.flash_attention, repro_torch.configs, "
             "repro_torch.models.model, repro_torch.models.ssm, "
+            "repro_torch.models.moe, repro_torch.configs.mixtral_8x22b, "
             "repro_torch.configs.chatglm3_6b, repro_torch.configs.starcoder2_7b, "
             "repro_torch.configs.minicpm_2b, repro_torch.configs.chameleon_34b, "
             "repro_torch.configs.mamba2_130m, repro_torch.configs.zamba2_7b, "

@@ -784,6 +784,11 @@ FLASH_CARD_CASES = [
     (1, 36, 36, 384, 384, 64, True, None, 0),     # D 64, MHA 36 (minicpm-2b)
     (1, 32, 2, 256, 256, 128, True, None, 0),     # GQA 16 (chatglm3-6b)
     (1, 36, 4, 256, 256, 128, True, None, 0),     # GQA 9 (starcoder2-7b)
+    # GQA 6 with a window of 1024 (mixtral-8x22b's 48/8 heads, its 4096
+    # window scaled down): rows whose first visible key is not tile-aligned,
+    # tiles skipped below k_lo, fully masked first tiles for late rows
+    (1, 12, 2, 1536, 1536, 128, True, 1024, 0),
+    (2, 6, 1, 640, 1664, 128, True, 1024, 1024),  # the same, q_off > 0
 ]
 
 
@@ -879,6 +884,32 @@ def test_families_serve_path_on_card(card, arch):
     assert LAUNCHES["flash_attention_wgmma"] == want_launches
     assert LAUNCHES["flash_attention"] == 0
     assert res["tokens"].shape == (2, 4)
+    plain = TSV.serve(params, cfg.replace(attn_impl="ref"), prompts, 4)
+    got, want = res["prefill_logits"], plain["prefill_logits"]
+    assert float((got - want).norm() / want.norm()) <= 2 ** -4
+
+
+def test_mixtral_serve_path_on_card(card):
+    """mixtral-8x22b's SMOKE config (window 64, 4 experts top-2) served on
+    the card with a prompt of 96 tokens, past its window: one windowed
+    flash launch per layer in the prefill, a ring cache of 64 slots
+    carried through the repack, and the kernel route's logits within bf16
+    rounding of the plain route's (relative L2 2^-4)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve as TSV
+    from repro_torch.models import model as TM
+    cfg = get_smoke("mixtral-8x22b")
+    params = TM.init(TM.make_generator(0, card), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 96), device=card,
+                            dtype=torch.int32)
+    reset_launch_counts()
+    res = TSV.serve(params, cfg, prompts, 4)
+    assert LAUNCHES["flash_attention_wgmma"] == cfg.n_layers
+    assert LAUNCHES["flash_attention"] == 0
+    assert res["tokens"].shape == (2, 4)
+    cache = res["cache"]["moe_stack"]
+    assert cache["k"].shape[2] == cfg.window
+    assert cache["len"].tolist() == [100] * cfg.n_layers
     plain = TSV.serve(params, cfg.replace(attn_impl="ref"), prompts, 4)
     got, want = res["prefill_logits"], plain["prefill_logits"]
     assert float((got - want).norm() / want.norm()) <= 2 ** -4

@@ -38,6 +38,7 @@ from repro_torch.core import COLLECTIVE_STATS, DistAssoc
 from repro_torch.core.collectives import collective_count
 from repro_torch.core.mesh import Mesh
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (_reset_port_stats,  # noqa: F401
                             SpmdRun, cpu_mesh)
 

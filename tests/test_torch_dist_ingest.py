@@ -28,6 +28,7 @@ from repro_torch import main_path
 from repro_torch.core.collectives import collective_count
 from repro_torch.ingest import IngestTable
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (_reset_port_stats,  # noqa: F401
                             SpmdRun, cpu_mesh)
 

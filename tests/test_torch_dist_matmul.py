@@ -38,6 +38,7 @@ from repro.core.coo import bucket_coo_by_range as j_bucket
 from repro_torch.core.collectives import COLLECTIVE_STATS, PROLOGUE_STATS
 from repro_torch.core.coo import SENT, bucket_coo_by_range
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (_reset_port_stats,  # noqa: F401
                             SpmdRun, cpu_mesh)
 

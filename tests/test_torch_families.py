@@ -21,6 +21,8 @@ op).  There each block is held at ``2^-6`` on the JAX block's own input
 a relative L2 error of ``2^-4``, the bound that ``chip_smoke.py`` puts on
 two bf16 routes of one model.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,13 +39,16 @@ from repro_torch.configs import (PORTED, get_config, get_smoke, shapes_for,
                                  sub_quadratic_decode)
 from repro_torch.launch import serve as TSV
 from repro_torch.launch import steps as TS
+from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
-from _torch_helpers import _reset_port_stats  # noqa: F401
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
+from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
 
 DENSE = ["chatglm3-6b", "starcoder2-7b", "minicpm-2b", "chameleon-34b"]
 SSM_FAMILIES = ["mamba2-130m", "zamba2-7b"]
 ARCHS = DENSE + SSM_FAMILIES
+DTYPES = ["f32", "bf16"]
 F32_TOL = 1e-4
 LOGITS_REL_TOL = 2 ** -4
 J_ROUTE = {"ref": "reference", "auto": "pallas"}
@@ -103,16 +108,24 @@ def _lora_b(jparams, jc):
 def models():
     """``get(arch, dtype)`` → (JAX config, port config, JAX params, port
     params), made once per module: the JAX init at that dtype, carried
-    across by ``convert.from_jax_params``."""
+    across by ``convert.from_jax_params``.  The JAX init draws in f32 and
+    casts each leaf but those it keeps in fp32 (``layers.FP32_LEAVES``),
+    so the bf16 parameters are the f32 ones cast (the same arrays, one
+    compiled init fewer per config)."""
     made = {}
 
     def get(arch, dtype):
         if (arch, dtype) not in made:
             jc, tc = configs(arch, dtype)
-            jp = jax.jit(lambda key: JM.init(key, jc)[0])(
-                jax.random.PRNGKey(0))
-            if "shared_lora" in jp:
-                jp = _lora_b(jp, jc)
+            if dtype == "bf16":
+                jp = jax.tree_util.tree_map_with_path(
+                    lambda path, a: a if path[-1].key in TL.FP32_LEAVES
+                    else a.astype(jnp.bfloat16), get(arch, "f32")[2])
+            else:
+                jp = jax.jit(lambda key: JM.init(key, jc)[0])(
+                    jax.random.PRNGKey(0))
+                if "shared_lora" in jp:
+                    jp = _lora_b(jp, jc)
             pnp = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
             made[arch, dtype] = (jc, tc, jp, convert.from_jax_params(
                 pnp, tc, device="cpu"))
@@ -140,6 +153,62 @@ def _assert_cache_close(got_np, want, dtype):
             else:
                 assert_close(got_np[name][key], w, dtype)
 
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(kind, arch, dtype, route=None):
+    """The JAX package's compiled ``kind`` ("train", "prefill" on ``route``
+    or the config's own, "serve") for one config, made once, so that the
+    warm-up below and the tests call the same function."""
+    jc, _ = configs(arch, dtype)
+    if kind == "train":
+        return jax.jit(lambda p, t: JM.forward(p, jc, t, mode="train"))
+    if kind == "prefill":
+        return jax.jit(JS.make_prefill_step(
+            jc if route is None else jc.replace(attn_impl=J_ROUTE[route])))
+    return jax.jit(JS.make_serve_step(jc))
+
+
+def _pad_jax_cache(jcache, extra):
+    """Each attention stack of a JAX cache padded by ``extra`` slots."""
+    pad = ((0, 0), (0, 0), (0, extra), (0, 0), (0, 0))
+    return {name: ({"k": jnp.pad(st["k"], pad), "v": jnp.pad(st["v"], pad),
+                    "len": st["len"]} if "k" in st else st)
+            for name, st in jcache.items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_programs_compiled(models):
+    """The parameters, then the JAX side of the parametrised forward,
+    prefill and decode comparisons, made first on threads so that their
+    programs compile side by side; each test then makes the same calls
+    (cache hits) and compares as before."""
+    def params(arch):
+        for dtype in DTYPES:
+            models(arch, dtype)
+
+    warm_jax([functools.partial(params, a) for a in ARCHS])
+
+    def decode(arch, dtype, jp, toks):
+        _, jcache = _jax_step("prefill", arch, dtype)(jp, toks[:, :12])
+        _jax_step("serve", arch, dtype)(jp, _pad_jax_cache(jcache, 4),
+                                        toks[:, 12:13], jnp.int32(12))
+
+    calls = []
+    for arch in ARCHS:
+        for dtype in DTYPES:
+            jc, _, jp, _ = models(arch, dtype)
+            calls.append(functools.partial(
+                _jax_step("train", arch, dtype), jp,
+                jnp.asarray(_tokens(0, 2, 64, jc.vocab))))
+            calls += [functools.partial(
+                _jax_step("prefill", arch, dtype, route), jp,
+                jnp.asarray(_tokens(1, 2, 64, jc.vocab)))
+                for route in J_ROUTE]
+            calls.append(functools.partial(
+                decode, arch, dtype, jp,
+                jnp.asarray(_tokens(2, 2, 16, jc.vocab))))
+    warm_jax(calls)
 
 # -- configs ------------------------------------------------------------------------
 
@@ -181,14 +250,13 @@ def test_init_cache_matches_jax(arch):
 
 # -- the forward, the steps ---------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_train_matches_jax(models, arch, dtype):
     """Logits at every position, on the plain attention route."""
     jc, tc, jp, tp = models(arch, dtype)
     toks = _tokens(0, 2, 64, jc.vocab)
-    want, _, _ = jax.jit(lambda p, t: JM.forward(p, jc, t, mode="train"))(
-        jp, jnp.asarray(toks))
+    want, _, _ = _jax_step("train", arch, dtype)(jp, jnp.asarray(toks))
     got, aux, cache = TM.forward(tp, tc.replace(attn_impl="ref"),
                                  torch.from_numpy(toks), mode="train")
     assert cache is None and float(aux) == 0.0
@@ -197,7 +265,7 @@ def test_forward_train_matches_jax(models, arch, dtype):
 
 
 @pytest.mark.parametrize("route", ["ref", "auto"])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_step_matches_jax(models, arch, dtype, route):
     """Last-position logits and the whole cache, each attention route
@@ -205,8 +273,8 @@ def test_prefill_step_matches_jax(models, arch, dtype, route):
     the CPU in both packages)."""
     jc, tc, jp, tp = models(arch, dtype)
     toks = _tokens(1, 2, 64, jc.vocab)
-    jl, jcache = jax.jit(JS.make_prefill_step(
-        jc.replace(attn_impl=J_ROUTE[route])))(jp, jnp.asarray(toks))
+    jl, jcache = _jax_step("prefill", arch, dtype, route)(
+        jp, jnp.asarray(toks))
     tl, tcache = TS.make_prefill_step(tc.replace(attn_impl=route))(
         tp, torch.from_numpy(toks))
     assert tl.dtype == torch.float32 and tl.shape == (2, jc.vocab)
@@ -216,7 +284,7 @@ def test_prefill_step_matches_jax(models, arch, dtype, route):
     _assert_cache_close(convert.to_numpy_cache(tcache), jcache, dtype)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_steps_match_jax(models, arch, dtype):
     """A JAX prefill of 12 tokens carried across (repacked to capacity 16
@@ -224,13 +292,11 @@ def test_decode_steps_match_jax(models, arch, dtype):
     final cache."""
     jc, tc, jp, tp = models(arch, dtype)
     toks = _tokens(2, 2, 16, jc.vocab)
-    _, jcache = jax.jit(JS.make_prefill_step(jc))(jp, jnp.asarray(toks[:, :12]))
-    jcache = {name: ({"k": jnp.pad(st["k"], pad), "v": jnp.pad(st["v"], pad),
-                      "len": st["len"]} if "k" in st else st)
-              for name, st in jcache.items()
-              for pad in [((0, 0), (0, 0), (0, 4), (0, 0), (0, 0))]}
+    _, jcache = _jax_step("prefill", arch, dtype)(jp,
+                                                  jnp.asarray(toks[:, :12]))
+    jcache = _pad_jax_cache(jcache, 4)
     tcache = convert.from_jax_cache(_cache_np(jcache), tc, device="cpu")
-    jstep = jax.jit(JS.make_serve_step(jc))
+    jstep = _jax_step("serve", arch, dtype)
     tstep = TS.make_serve_step(tc)
     for t in range(12, 16):
         jl, jcache = jstep(jp, jcache, jnp.asarray(toks[:, t:t + 1]),
@@ -326,15 +392,15 @@ def test_hybrid_bf16_layer_by_layer(models, hybrid_walk):
             pa = JM._apply_lora_to_attn(jp["shared"], jp["shared_lora"], i)
             tpa = TM._apply_lora_to_attn(tp["shared"], tp["shared_lora"], i)
             assert_close(tpa["attn"]["wq"]["w"], pa["attn"]["wq"]["w"], "bf16")
-            got, c = TM.apply_decoder_layer(tpa, tc, tx, mode="prefill",
-                                            cache=None, positions=tpos)
+            got, c, _, _ = TM.apply_decoder_layer(tpa, tc, tx, mode="prefill",
+                                                  cache=None, positions=tpos)
             c = {"k": torch.nn.functional.pad(c["k"], (0, 0, 0, 0, 0, 1)),
                  "v": torch.nn.functional.pad(c["v"], (0, 0, 0, 0, 0, 1)),
                  "len": c["len"]}
             for key in ("k", "v"):       # before decode writes slot 32
                 assert_close(c[key], wcache[key], "bf16")
-            gd, gdcache = TM.apply_decoder_layer(tpa, tc, txd, mode="decode",
-                                                 cache=c, positions=dpos)
+            gd, gdcache, _, _ = TM.apply_decoder_layer(
+                tpa, tc, txd, mode="decode", cache=c, positions=dpos)
         else:
             lp = tp["mamba_stack"][i]
             got, c = TM.apply_mamba_layer(lp, tc, tx, mode="prefill",

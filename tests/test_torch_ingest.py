@@ -22,6 +22,7 @@ from repro_torch.ingest import Compactor, IngestTable
 from repro_torch.ingest import merge as tmerge
 from repro_torch.kernels import LAUNCHES
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (_reset_port_stats,  # noqa: F401
                             assert_same_assoc, assert_same_tensor)
 

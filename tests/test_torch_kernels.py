@@ -5,6 +5,8 @@ semiring, plus the port's dispatch rules.
 The CUDA kernels themselves need a card: ``test_torch_cuda.py`` holds them
 against these plain versions there (``chip_smoke.py`` does too, at the main
 path's shapes)."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +32,9 @@ from repro_torch.kernels.semiring_matmul.ref import semiring_matmul_ref as t_sm_
 from repro_torch.kernels.sorted_merge import ops as t_rc
 from repro_torch.kernels.sorted_merge.ref import rank_count_ref as t_rc_ref
 
-from _torch_helpers import SEMIRINGS, _reset_port_stats, assert_same  # noqa: F401
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
+from _torch_helpers import (SEMIRINGS, _reset_port_stats,  # noqa: F401
+                            assert_same, warm_jax)
 
 SENT = 2 ** 31 - 1
 
@@ -43,6 +47,51 @@ def _values(rng, shape, sr, floats):
          else rng.integers(1, 5, shape)).astype(np.float32)
     v[rng.random(shape) < 0.35] = REGISTRY[sr].zero
     return v
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_programs_compiled():
+    """The JAX side of the parametrised kernel comparisons (each oracle and
+    each Pallas body in interpret mode), run first on threads so that
+    their programs compile side by side; each test then makes the same
+    calls."""
+    P = functools.partial
+    calls = []
+    for sr in SEMIRINGS:
+        for shape in SM_SHAPES:
+            a, b = (jnp.asarray(x) for x in _sm_case(sr, shape))
+            calls += [P(j_sm_ref, a, b, semiring=sr),
+                      P(j_sm.semiring_matmul, a, b, semiring=sr,
+                        impl="interpret")]
+        fl = sr == "plus_times"
+        a, b, pa, pb, pc, n_c = _pairlist_case(np.random.default_rng(11),
+                                               sr, fl)
+        args = [jnp.asarray(x) for x in (a, b, pa, pb, pc)]
+        calls += [P(j_bsr_ref.bsr_pairlist_ref, *args, n_c=n_c, semiring=sr),
+                  P(j_bsr.bsr_pairlist, *args, n_c=n_c, semiring=sr,
+                    impl="interpret")]
+        for axis in (0, 1):
+            a, b, pa, pb, po, n_o = _pairlist_case(
+                np.random.default_rng(12 + axis), sr, fl)
+            args = [jnp.asarray(x) for x in (a, b, pa, pb, po)]
+            kw = {"n_o": n_o, "axis": axis, "semiring": sr}
+            calls += [P(j_bsr_ref.bsr_pairlist_reduce_ref, *args, **kw),
+                      P(j_bsr.bsr_pairlist_reduce, *args, impl="interpret",
+                        **kw)]
+            args = [jnp.asarray(x) for x in _spgemm_reduce_case(sr, axis)]
+            calls += [P(j_bsr_ref.bsr_spgemm_reduce_ref, *args, axis=axis,
+                        semiring=sr),
+                      P(j_bsr.bsr_spgemm_reduce, *args, axis=axis,
+                        semiring=sr, impl="interpret")]
+        args = [jnp.asarray(x) for x in _spgemm_case(sr)]
+        calls += [P(j_bsr_ref.bsr_spgemm_ref, *args, semiring=sr),
+                  P(j_bsr.bsr_spgemm, *args, semiring=sr, impl="interpret")]
+    for ni, si, nj, sj in _RANK_CASES:
+        i, j = (jnp.asarray(x) for x in _rank_case(ni, si, nj, sj))
+        calls.append(P(j_rc_ref, i, j))
+        if nj:
+            calls.append(P(j_rc.rank_count, i, j, impl="interpret"))
+    warm_jax(calls)
 
 
 # -- range_mask --------------------------------------------------------------------
@@ -94,14 +143,20 @@ def test_range_mask_gated_bytes(case):
 
 # -- semiring_matmul ---------------------------------------------------------------
 
-@pytest.mark.parametrize("sr", SEMIRINGS)
-@pytest.mark.parametrize("shape", [(32, 48, 16), (130, 70, 150)])
-def test_semiring_matmul_ref_matches(sr, shape):
+SM_SHAPES = [(32, 48, 16), (130, 70, 150)]
+
+
+def _sm_case(sr, shape):
     m, k, n = shape
     rng = np.random.default_rng(m + k)
     floats = sr == "plus_times"
-    a = _values(rng, (m, k), sr, floats)
-    b = _values(rng, (k, n), sr, floats)
+    return _values(rng, (m, k), sr, floats), _values(rng, (k, n), sr, floats)
+
+
+@pytest.mark.parametrize("sr", SEMIRINGS)
+@pytest.mark.parametrize("shape", SM_SHAPES)
+def test_semiring_matmul_ref_matches(sr, shape):
+    a, b = _sm_case(sr, shape)
     got = t_sm_ref(torch.from_numpy(a), torch.from_numpy(b), semiring=sr)
     assert_same(got, j_sm_ref(jnp.asarray(a), jnp.asarray(b), semiring=sr),
                 sr)
@@ -140,8 +195,8 @@ def _pairlist_case(rng, sr, floats, n_a=2, n_b=3, n_pairs=5):
 
 @pytest.mark.parametrize("sr", SEMIRINGS)
 def test_bsr_pairlist_ref_matches(sr):
-    rng = np.random.default_rng(11)
-    a, b, pa, pb, pc, n_c = _pairlist_case(rng, sr, sr == "plus_times")
+    a, b, pa, pb, pc, n_c = _pairlist_case(np.random.default_rng(11), sr,
+                                           sr == "plus_times")
     t_args = [torch.from_numpy(x) for x in (a, b, pa, pb, pc)]
     j_args = [jnp.asarray(x) for x in (a, b, pa, pb, pc)]
     got = t_bsr_ref.bsr_pairlist_ref(*t_args, n_c=n_c, semiring=sr)
@@ -155,8 +210,8 @@ def test_bsr_pairlist_ref_matches(sr):
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("sr", SEMIRINGS)
 def test_bsr_pairlist_reduce_ref_matches(sr, axis):
-    rng = np.random.default_rng(12 + axis)
-    a, b, pa, pb, po, n_o = _pairlist_case(rng, sr, sr == "plus_times")
+    a, b, pa, pb, po, n_o = _pairlist_case(np.random.default_rng(12 + axis),
+                                           sr, sr == "plus_times")
     t_args = [torch.from_numpy(x) for x in (a, b, pa, pb, po)]
     j_args = [jnp.asarray(x) for x in (a, b, pa, pb, po)]
     got = t_bsr_ref.bsr_pairlist_reduce_ref(*t_args, n_o=n_o, axis=axis,
@@ -170,14 +225,18 @@ def test_bsr_pairlist_reduce_ref_matches(sr, axis):
                                           semiring=sr), got, sr)
 
 
+def _spgemm_reduce_case(sr, axis):
+    rng = np.random.default_rng(21 + axis)
+    floats = sr == "plus_times"
+    return (_values(rng, (256, 256), sr, floats),
+            np.array([[1, 0], [1, 1]], np.int32),
+            _values(rng, (256, 128), sr, floats))
+
+
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("sr", SEMIRINGS)
 def test_bsr_spgemm_reduce_ref_matches(sr, axis):
-    rng = np.random.default_rng(21 + axis)
-    floats = sr == "plus_times"
-    a = _values(rng, (256, 256), sr, floats)
-    b = _values(rng, (256, 128), sr, floats)
-    mask = np.array([[1, 0], [1, 1]], np.int32)
+    a, mask, b = _spgemm_reduce_case(sr, axis)
     got = t_bsr_ref.bsr_spgemm_reduce_ref(
         torch.from_numpy(a), torch.from_numpy(mask), torch.from_numpy(b),
         axis=axis, semiring=sr)
@@ -192,15 +251,19 @@ def test_bsr_spgemm_reduce_ref_matches(sr, axis):
         axis=axis, semiring=sr), got, sr)
 
 
+def _spgemm_case(sr):
+    rng = np.random.default_rng(25)
+    floats = sr == "plus_times"
+    return (_values(rng, (256, 384), sr, floats),
+            np.array([[1, 0, 1], [0, 0, 0]], np.int32),
+            _values(rng, (384, 128), sr, floats))
+
+
 @pytest.mark.parametrize("sr", SEMIRINGS)
 def test_bsr_spgemm_ref_matches(sr):
     """The materializing block-masked product: A's absent tiles hold values
     that must not count."""
-    rng = np.random.default_rng(25)
-    floats = sr == "plus_times"
-    a = _values(rng, (256, 384), sr, floats)
-    b = _values(rng, (384, 128), sr, floats)
-    mask = np.array([[1, 0, 1], [0, 0, 0]], np.int32)
+    a, mask, b = _spgemm_case(sr)
     t_args = [torch.from_numpy(x) for x in (a, mask, b)]
     j_args = [jnp.asarray(x) for x in (a, mask, b)]
     got = t_bsr_ref.bsr_spgemm_ref(*t_args, semiring=sr)
@@ -229,15 +292,18 @@ def _sorted_keys(rng, n, n_sent):
 # (1) JAX pads both sides to block multiples: ni, nj off the multiples
 # (2) the trap: sentinel entries of i, where the Pallas path counts its own
 #     pad sentinels in hit and differs from searchsorted
+def _rank_case(ni, si, nj, sj):
+    rng = np.random.default_rng(ni + nj)
+    return _sorted_keys(rng, ni, si), _sorted_keys(rng, nj, sj)
+
+
 _RANK_CASES = [(5, 2, 6, 4), (1, 0, 1, 0), (37, 5, 29, 0), (600, 40, 520, 100),
                (8, 0, 0, 0)]
 
 
 @pytest.mark.parametrize("ni,si,nj,sj", _RANK_CASES)
 def test_rank_count_ref_matches(ni, si, nj, sj):
-    rng = np.random.default_rng(ni + nj)
-    i = _sorted_keys(rng, ni, si)
-    j = _sorted_keys(rng, nj, sj)
+    i, j = _rank_case(ni, si, nj, sj)
     got = t_rc_ref(torch.from_numpy(i), torch.from_numpy(j))
     want = j_rc_ref(jnp.asarray(i), jnp.asarray(j))
     for g, w in zip(got, want):            # every entry, sentinels included

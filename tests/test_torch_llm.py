@@ -40,6 +40,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, np_of  # noqa: F401
 
 ARCH = "qwen3-1.7b"
@@ -114,8 +115,7 @@ def test_registry_names_and_refusals():
     with pytest.raises(KeyError):
         get_config("gpt-5")
     unported = [arch for arch in ARCH_IDS if arch not in PORTED]
-    assert unported == ["whisper_medium", "deepseek_v3_671b",
-                        "mixtral_8x22b"]
+    assert unported == ["whisper_medium", "deepseek_v3_671b"]
     for arch in unported:
         with pytest.raises(NotImplementedError, match="module step 9"):
             get_smoke(arch)
@@ -403,29 +403,37 @@ def test_not_ported_paths_raise(smoke_models):
     tp = tparams["dense_stack"][0]["attn"]
     with pytest.raises(NotImplementedError, match="module step 9"):
         TA.gqa_attention(tp, tc, x, mode="chunked_prefill", cache={})
-    with pytest.raises(NotImplementedError, match="module step 9"):
-        TA.gqa_attention(tp, tc.replace(window=4), x, mode="prefill")
     for fn in (TA.cross_attention, TA.encode_cross_kv, TA.init_mla,
                TA.mla_attention):
         with pytest.raises(NotImplementedError, match="module step 9"):
             fn()
     with pytest.raises(NotImplementedError, match="module step 9"):
         TS.make_prefill_step(tc.replace(prefill_chunk=2))
-    for bad in (dict(family="moe"), dict(family="encdec"),
-                dict(moe={"n_experts": 4}), dict(mla={"kv_lora_rank": 8}),
-                dict(mtp=True), dict(pos_emb="learned"), dict(window=4)):
+    for bad in (dict(family="encdec"), dict(mla={"kv_lora_rank": 8}),
+                dict(mtp=True), dict(pos_emb="learned")):
         with pytest.raises(NotImplementedError, match="module step 9"):
             TM.init_cache(tc.replace(**bad), 1, 4, device="cpu")
+    # ported since module step 9b: a window (a ring of min(len, window)
+    # slots, also on the hybrid's shared block) and the moe family
+    assert TM.init_cache(tc.replace(window=4), 1, 6, device="cpu")[
+        "dense_stack"]["k"].shape[2] == 4
+    out, cache = TA.gqa_attention(tp, tc.replace(window=4), x, mode="prefill")
+    assert out.shape == x.shape and cache["k"].shape[1] == 4
     zamba = get_smoke("zamba2-7b")
-    with pytest.raises(NotImplementedError, match="module step 9"):
-        TM.init_cache(zamba.replace(hybrid={**zamba.hybrid,
-                                            "attn_window": 16}),
-                      1, 4, device="cpu")
+    assert TM.init_cache(zamba.replace(hybrid={**zamba.hybrid,
+                                               "attn_window": 2}),
+                         1, 4, device="cpu")["shared_attn"]["k"].shape[2] == 2
+    moe = get_smoke("mixtral-8x22b")
+    assert TM.init_cache(moe, 1, 4, device="cpu")["moe_stack"]["k"].shape[2] \
+        == 4
+    assert "moe" in TM.init(TM.make_generator(0, "cpu"),
+                            moe.replace(family="moe"))["moe_stack"][0]
     with pytest.raises(NotImplementedError, match="module step 9"):
         TM.forward(tparams, tc, torch.zeros(1, 4, dtype=torch.int32),
                    mode="chunked_prefill")
-    for ported in ("ssm", "hybrid"):       # ported since module step 9a
-        arch = {"ssm": "mamba2-130m", "hybrid": "zamba2-7b"}[ported]
+    for ported in ("ssm", "hybrid", "moe"):   # ported in steps 9a and 9b
+        arch = {"ssm": "mamba2-130m", "hybrid": "zamba2-7b",
+                "moe": "mixtral-8x22b"}[ported]
         assert get_smoke(arch).family == ported
         assert TM.init_cache(get_smoke(arch), 1, 4, device="cpu")
     if not torch.cuda.is_available():    # the default device is the card

@@ -12,6 +12,8 @@ absent tiles, as the Pallas kernels do, while the plain versions ⊗ the
 semiring zero, so B's non-finite rows lie in a k tile present in every
 block-row (``masked_ring_nonfinite_operands``).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,8 @@ from repro_torch.kernels.bsr_spgemm import ref as t_bsr_ref
 from repro_torch.kernels.semiring_matmul.ref import (ring_nonfinite_operands,
                                                      semiring_matmul_ref)
 
-from _torch_helpers import _reset_port_stats  # noqa: F401
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
+from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
 
 RING = ("max_plus", "min_plus", "max_min", "max_times", "and_or")
 M, K, N = 128, 256, 128
@@ -54,6 +57,41 @@ def tiles_of(a, b):
     pb = (kk * nj + j).reshape(-1).astype(np.int32)
     pc = (i * nj + j).reshape(-1).astype(np.int32)
     return at.contiguous(), bt.contiguous(), pa, pb, pc, mi * nj
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_programs_compiled():
+    """The Pallas bodies (interpret mode) of the tests below, run first on
+    threads so that their programs compile side by side; each test then
+    makes the same calls."""
+    P = functools.partial
+
+    def jnp_of(*xs):
+        return [jnp.asarray(x.numpy() if torch.is_tensor(x) else x)
+                for x in xs]
+
+    a, b = jnp_of(*operands(1))
+    masked = [jnp_of(*t_bsr_ref.masked_ring_nonfinite_operands(
+        256, K, N, torch.Generator().manual_seed(seed), "cpu"))
+        for seed in (2, 3)]
+    *pairs, n_c = tiles_of(*operands(4))
+    at, bt, pa, pb, pc = jnp_of(*pairs)
+    rt, rb, ra, rpb, rpc, _ = tiles_of(*operands(5))
+    red = jnp_of(rt, rb, ra, rpb, np.zeros_like(rpc))
+    calls = []
+    for sr in RING:
+        calls += [P(j_sm.semiring_matmul, a, b, semiring=sr,
+                    impl="interpret"),
+                  P(j_bsr.bsr_spgemm, *masked[0], semiring=sr,
+                    impl="interpret"),
+                  P(j_bsr.bsr_pairlist, at, bt, pa, pb, pc, n_c=n_c,
+                    semiring=sr, impl="interpret")]
+        calls += [P(f, *args, axis=axis, semiring=sr, impl="interpret", **kw)
+                  for axis in (0, 1)
+                  for f, args, kw in ((j_bsr.bsr_spgemm_reduce, masked[1], {}),
+                                      (j_bsr.bsr_pairlist_reduce, red,
+                                       {"n_o": 1}))]
+    warm_jax(calls)
 
 
 @pytest.mark.parametrize("sr", RING)

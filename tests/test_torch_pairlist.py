@@ -18,6 +18,7 @@ from repro_torch.core import REGISTRY
 from repro_torch.kernels.bsr_spgemm import ops as t_bsr
 from repro_torch.kernels.bsr_spgemm import ref as t_bsr_ref
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import SEMIRINGS, assert_same
 
 

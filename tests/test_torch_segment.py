@@ -9,6 +9,8 @@ block boundaries; and the CUDA kernel's order model
 version, so sums agree to 1e-5.  The CUDA kernel runs in
 ``test_torch_cuda.py`` on a card.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,8 @@ from repro_torch.kernels.segment_reduce import ops as t_ops
 from repro_torch.kernels.segment_reduce import ref as t_ref_mod
 from repro_torch.kernels.segment_reduce.ref import segment_scan_ref as t_ref
 
-from _torch_helpers import _reset_port_stats  # noqa: F401
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
+from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
 
 COMBINES = ("sum", "min", "max")
 t_ref_bound = t_ref_mod.segment_scan_sum_bound
@@ -46,18 +49,24 @@ def assert_scan(got, want, combine):
         np.testing.assert_array_equal(got, want)
 
 
+SCAN_CASES = [(1, 1), (255, 40), (1000, 600), (2100, 300), (3000, 900)]
+
+
+def scan_pallas_runs(n):
+    """The Pallas kernel (interpret mode) takes a padded size that is at
+    most 1024 or a multiple of 1024 (its wrapper asserts so at 2100)."""
+    return -(-n // 256) * 256 <= 1024 or -(-n // 256) % 4 == 0
+
+
 @pytest.mark.parametrize("combine", COMBINES)
-@pytest.mark.parametrize("n,max_run", [(1, 1), (255, 40), (1000, 600),
-                                       (2100, 300), (3000, 900)])
+@pytest.mark.parametrize("n,max_run", SCAN_CASES)
 def test_segment_scan_matches_jax(n, max_run, combine):
     keys, vals = runs_input(n, n, max_run)
     got = t_ops.segment_scan(torch.from_numpy(keys), torch.from_numpy(vals),
                              combine=combine).numpy()
     assert_scan(got, j_ref(jnp.asarray(keys), jnp.asarray(vals),
                            combine=combine), combine)
-    # the Pallas kernel (interpret mode) takes a padded size that is at
-    # most 1024 or a multiple of 1024 (its wrapper asserts so at 2100)
-    if -(-n // 256) * 256 <= 1024 or -(-n // 256) % 4 == 0:
+    if scan_pallas_runs(n):
         pallas = j_ops.segment_scan(jnp.asarray(keys), jnp.asarray(vals),
                                     combine=combine, impl="interpret")
         assert_scan(got, pallas, combine)
@@ -155,6 +164,30 @@ def exact_scan(keys, vals):
     return out
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_programs_compiled():
+    """The JAX side of the parametrised scans (the oracle and the Pallas
+    kernel in interpret mode), run first on threads so that their programs
+    compile side by side; each test then makes the same calls."""
+    inputs = [(runs_input(n, n, max_run), n, COMBINES)
+              for n, max_run in SCAN_CASES]
+    for n, max_run, tile in TILED_CASES:
+        for quarters in (False, True):
+            combines = COMBINES if quarters else ("min", "max")
+            inputs.append((tiled_input(n, max_run, n + tile, quarters,
+                                       specials=True), n, combines))
+    calls = []
+    for (keys, vals), n, combines in inputs:
+        jk, jv = jnp.asarray(keys), jnp.asarray(vals)
+        for combine in combines:
+            calls.append(functools.partial(j_ref, jk, jv, combine=combine))
+            if n <= 20000 and scan_pallas_runs(n):
+                calls.append(functools.partial(
+                    j_ops.segment_scan, jk, jv, combine=combine,
+                    impl="interpret"))
+    warm_jax(calls)
+
+
 @pytest.mark.parametrize("combine", COMBINES)
 @pytest.mark.parametrize("n,max_run,tile", TILED_CASES)
 def test_tiled_ref_matches_jax(n, max_run, tile, combine):
@@ -171,8 +204,7 @@ def test_tiled_ref_matches_jax(n, max_run, tile, combine):
             continue                    # rounding: the bound test below
         want = j_ref(jnp.asarray(keys), jnp.asarray(vals), combine=combine)
         np.testing.assert_array_equal(got.numpy(), want)
-        padded = -(-n // 256) * 256
-        if n <= 20000 and (padded <= 1024 or padded % 1024 == 0):
+        if n <= 20000 and scan_pallas_runs(n):
             np.testing.assert_array_equal(got.numpy(), j_ops.segment_scan(
                 jnp.asarray(keys), jnp.asarray(vals), combine=combine,
                 impl="interpret"))

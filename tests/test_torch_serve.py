@@ -22,6 +22,7 @@ from repro_torch.serve import (D4MClient, Engine, ServerError, TableRef,
                                ingest_to_wire, start_server, to_wire)
 from repro_torch.serve.registry import generate_triples, load_triples_file
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, cpu_mesh  # noqa: F401
 
 RTOL = 1e-5

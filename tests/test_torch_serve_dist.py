@@ -23,6 +23,7 @@ import pytest
 
 from repro.core import Assoc as HostAssoc
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (_reset_port_stats,  # noqa: F401
                             SpmdRun, cpu_mesh)
 

@@ -12,6 +12,7 @@ from repro_torch import main_path
 from repro_torch.configs.d4m_bench import make_clustered, make_dataset
 from repro_torch.core import spgemm as tsp
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (_reset_port_stats,  # noqa: F401
                             assert_same, assert_same_tensor)
 

@@ -2,6 +2,7 @@
 against the JAX package and the host ``Assoc``: the dense, bsr and coo
 strategies, selection fusion through ``a_keep``/``b_keep``, the capacity
 overflow contract and the host planner."""
+import functools
 import warnings
 
 import numpy as np
@@ -13,16 +14,20 @@ import repro.core.spgemm as jsp
 import repro_torch.core as T
 import repro_torch.core.spgemm as tsp
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import (SEMIRINGS, _reset_port_stats,  # noqa: F401
                             assert_same, assert_same_assoc, assert_same_tensor,
-                            keys)
+                            keys, warm_jax)
 
 IMPLS = ("dense", "bsr", "coo", "auto")
 
 
-def _operands(seed, n=300, k=330, floats=False):
+@functools.lru_cache(maxsize=None)
+def _operands(seed, n=300, k=330, floats=False, port_only=False):
     """Two arrays over ~3 tiles of keys each (so the bsr path has several
-    tiles and pairs), through both packages and the host Assoc."""
+    tiles and pairs), through both packages and the host Assoc (the port's
+    alone with ``port_only``); made once per arguments, as no test changes
+    them."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(2):
@@ -30,8 +35,59 @@ def _operands(seed, n=300, k=330, floats=False):
         v = (rng.uniform(0.5, 1.5, n) if floats
              else rng.integers(1, 5, n).astype(float))
         out.append((T.AssocTensor.from_triples(r, c, v, device="cpu"),
-                    J.AssocTensor.from_triples(r, c, v), J.Assoc(r, c, v)))
+                    None if port_only else J.AssocTensor.from_triples(r, c, v),
+                    None if port_only else J.Assoc(r, c, v)))
     return out
+
+
+def _keeps(ta, tb, seed=5):
+    """The keep masks of ``test_keep_masks_match``."""
+    rng = np.random.default_rng(seed)
+    return (rng.random(int(ta.nnz)) < 0.6, rng.random(int(tb.nnz)) < 0.6)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_programs_compiled():
+    """The JAX package's side of the module's parametrised comparisons,
+    run first on threads so that its programs compile side by side; each
+    test then makes the same calls and compares as before."""
+    ops = {s: _operands(s) for s in (1, 3, 4, 6, 9)}
+    (_, ja2, _), (_, jb2, _) = _operands(2, floats=True)
+    (_, ja1, _), (_, jb1, _) = ops[1]
+    (_, ja3, _), (_, jb3, _) = ops[3]
+    (ta4, ja4, _), (tb4, jb4, _) = ops[4]
+    (ta6, ja6, _), (_, jb6, _) = ops[6]
+    (_, ja9, _), _ = ops[9]
+    a_keep, b_keep = _keeps(ta4, tb4)
+    a6 = np.random.default_rng(7).random(int(ta6.nnz)) < 0.5
+    calls = [functools.partial(jsp.matmul, ja1, jb1, sr, impl=impl)
+             for sr in SEMIRINGS for impl in IMPLS]
+    calls += [functools.partial(jsp.matmul, ja2, jb2, impl=impl)
+              for impl in ("dense", "bsr", "coo")]
+    calls += [functools.partial(jsp.matmul, ja6, jb6, "min_plus", impl=impl,
+                                out_capacity=24)
+              for impl in ("dense", "bsr", "coo")]
+    calls += [functools.partial(jsp.matmul_reduce, ja3, jb3, axis, sr,
+                                impl=impl)
+              for sr in SEMIRINGS for impl in IMPLS for axis in (0, 1)]
+    calls += [functools.partial(jsp.matmul_reduce, ja6, jb6, axis, sr,
+                                impl="dense", kernel_impl="interpret", **kw)
+              for sr in SEMIRINGS for axis in (0, 1)
+              for kw in ({}, {"a_keep": a6})]
+    for sr in ("plus_times", "min_plus", "max_min"):
+        for impl in IMPLS:
+            kw = {"impl": impl, "a_keep": a_keep, "b_keep": b_keep}
+            calls.append(functools.partial(jsp.matmul, ja4, jb4, sr, **kw))
+            calls += [functools.partial(jsp.matmul_reduce, ja4, jb4, axis,
+                                        sr, **kw) for axis in (0, 1)]
+    for sr in ("plus_times", "max_plus"):
+        calls += [functools.partial(ja9.sqin, sr),
+                  functools.partial(ja9.sqout, sr)]
+        calls += [functools.partial(f, sr, reduce=axis)
+                  for f in (ja9.sqout, ja9.sqin) for axis in (0, 1)]
+    with warnings.catch_warnings():     # the overflow's, which its test
+        warnings.simplefilter("ignore", RuntimeWarning)  # records itself
+        warm_jax(calls)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -87,9 +143,7 @@ def test_dense_matmul_reduce_matches_pallas_interpret(sr, axis):
 def test_keep_masks_match(sr, impl):
     """Selection fusion: host keep masks slice the operands' entry lists."""
     (ta, ja, _), (tb, jb, _) = _operands(4)
-    rng = np.random.default_rng(5)
-    a_keep = rng.random(int(ta.nnz)) < 0.6
-    b_keep = rng.random(int(tb.nnz)) < 0.6
+    a_keep, b_keep = _keeps(ta, tb)
     assert_same_tensor(
         tsp.matmul(ta, tb, sr, impl=impl, a_keep=a_keep, b_keep=b_keep),
         jsp.matmul(ja, jb, sr, impl=impl, a_keep=a_keep, b_keep=b_keep),
@@ -122,7 +176,7 @@ def test_overflow_matches(impl):
 
 
 def test_plan_and_estimate_match():
-    (ta, _, _), (tb, _, _) = _operands(7)
+    (ta, _, _), (tb, _, _) = _operands(7, port_only=True)
     ta, tb, ks = tsp._contraction_aligned(ta, tb, T.PLUS_TIMES)
     ra, ca, _ = tsp._valid_host(ta)
     rb, cb, _ = tsp._valid_host(tb)
@@ -178,7 +232,7 @@ def test_sq_idioms_match(sr):
 
 
 def test_bad_impl_raises():
-    (ta, _, _), (tb, _, _) = _operands(10, n=20, k=20)
+    (ta, _, _), (tb, _, _) = _operands(10, n=20, k=20, port_only=True)
     with pytest.raises(ValueError, match="impl"):
         tsp.matmul(ta, tb, impl="pallas")
     with pytest.raises(ValueError, match="impl"):
@@ -193,7 +247,7 @@ def test_bad_impl_raises():
 def test_stage_timing_records_each_stage(impl, stages):
     """Stage spans change no result, cover every stage the strategy runs,
     and are off outside ``stage_timing``."""
-    (ta, _, _), (tb, _, _) = _operands(11)
+    (ta, _, _), (tb, _, _) = _operands(11, port_only=True)
     want = tsp.matmul(ta, tb, impl=impl)
     with tsp.stage_timing() as ms:
         got = tsp.matmul(ta, tb, impl=impl)
@@ -205,7 +259,7 @@ def test_stage_timing_records_each_stage(impl, stages):
 
 
 def test_stage_timing_dense_matmul_reduce():
-    (ta, _, _), (tb, _, _) = _operands(12)
+    (ta, _, _), (tb, _, _) = _operands(12, port_only=True)
     want = tsp.matmul_reduce(ta, tb, 0, impl="dense")
     with tsp.stage_timing() as ms:
         got = tsp.matmul_reduce(ta, tb, 0, impl="dense")
@@ -214,7 +268,7 @@ def test_stage_timing_dense_matmul_reduce():
 
 
 def test_stage_timing_matmul_reduce():
-    (ta, _, _), (tb, _, _) = _operands(12)
+    (ta, _, _), (tb, _, _) = _operands(12, port_only=True)
     want = tsp.matmul_reduce(ta, tb, 1, impl="bsr")
     with tsp.stage_timing() as ms:
         got = tsp.matmul_reduce(ta, tb, 1, impl="bsr")

@@ -20,12 +20,16 @@ from repro.models import model as JM
 from repro.models import ssm as JSSM
 from repro_torch import convert
 from repro_torch.configs import get_smoke
+from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TSSM
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats  # noqa: F401
 
 ARCH = "mamba2-130m"
+# the SSM mixer's share of the leaves kept in fp32 (layers.FP32_LEAVES)
+MIXER_FP32_LEAVES = ("dt_bias", "a_log", "d_skip")
 F32_TOL = 1e-4
 
 
@@ -80,7 +84,8 @@ def _x(seed, shape, dtype):
 
 def test_fp32_leaves_stay_fp32(mixers):
     jc, tc, jp, tp = mixers["bf16"]
-    for key in TSSM.FP32_LEAVES:
+    assert set(MIXER_FP32_LEAVES) <= set(TL.FP32_LEAVES)
+    for key in MIXER_FP32_LEAVES:
         assert jp[key].dtype == jnp.float32
         assert tp[key].dtype == torch.float32
     assert tp["in_x"]["w"].dtype == torch.bfloat16
@@ -88,7 +93,7 @@ def test_fp32_leaves_stay_fp32(mixers):
     got = TSSM.init_mamba2(torch.Generator().manual_seed(0), tc)
     assert convert._map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), got) \
         == jax.tree.map(lambda a: (a.shape, str(a.dtype)), jp)
-    for key in TSSM.FP32_LEAVES:
+    for key in MIXER_FP32_LEAVES:
         assert got[key].dtype == torch.float32
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(jp[key]))
 

@@ -21,6 +21,7 @@ from repro_torch.serve.wire import (TableRef, WireError, WIRE_VERSION,
                                     sel_from_wire, sel_to_wire, table_names,
                                     to_wire)
 
+from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats  # noqa: F401
 
 
