@@ -17,10 +17,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      its bf16 wgmma route (``flash_attention_wgmma``).  Then, outside
      the count: the kernel route's prefill logits against the plain
      route's (``attn_impl="ref"``) on the same weights, the first decode
-     step's logits against a prefill of the prompt plus that token, layer
-     0's attention output by both routes, and the kernel alone at the
-     path's shape (plus a window case and a ``q_off > 0`` case);
-   * the families phase (module steps 9a-9b), each config through the
+     step's logits against a prefill of the prompt plus that token, a
+     chunked prefill of the prompt in two windows of 1024 (56 wgmma
+     launches, the second window at ``q_off`` 1024) against the one-shot
+     prefill, layer 0's attention output by both routes, and the kernel
+     alone at the path's shape (plus a window case and a ``q_off > 0``
+     case);
+   * the families phase (module steps 9a-9c), each config through the
      same serve driver with the counters reset before it: zamba2-7b uncut
      (81 mamba layers, d_model 3584, 112 SSM heads, the shared attention
      block invoked 14 times with its LoRA ``b`` drawn from N(0, 0.1^2))
@@ -28,26 +31,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
      starcoder2-7b, minicpm-2b and chameleon-34b at full width and 2
      layers, 8 tokens each, all at batch 4 x 2048; mixtral-8x22b at full
      width and 2 layers (attention with a 4096 window and ring caches, 8
-     experts top-2 at capacity factor 1.25), batch 2 x 6144, 32 tokens.
+     experts top-2 at capacity factor 1.25), batch 2 x 6144, 32 tokens;
+     deepseek-v3-671b at full width and 4 of its 61 layers (MLA, the three
+     dense layers and one MoE layer of 256 experts top-8 with the sigmoid
+     router and a shared expert; its MTP block built, not run), batch 2 x
+     8192 through its own ``prefill_chunk`` of 4096, 32 tokens.
      ``flash_attention`` must launch once per attention layer or
-     shared-block invocation (14 for zamba2, 0 for mamba2, 2 for the dense
-     ones and mixtral), all on the wgmma route, after one warm-up prefill;
-     for mixtral the share of routed (token, expert) entries its prefill
-     dropped is printed per layer, and decode must drop none.  Outside the
+     shared-block invocation and prefill chunk (14 for zamba2, 0 for
+     mamba2, 2 for the dense ones and mixtral, 8 for deepseek-v3), all on
+     the wgmma route, after one warm-up prefill; for the MoE configs the
+     share of routed (token, expert) entries the prefill dropped is
+     printed per layer, and decode must drop none.  Outside the
      count: the kernel route's prefill logits against the plain route's
      (for mixtral with the (token, layer) routes whose experts differ
      between the two), and 128 teacher-forced decode steps against a
      prefill of the prompt plus those tokens (relative L2 2^-4 each;
      mixtral's across its ring's wrap and at a capacity no expert can
      exceed on both sides, since a prefill may drop what decode never
-     does).  mamba2 and zamba2 take both checks on the same weights in
+     does; deepseek-v3's decode check prefills in chunks of 128, since a
+     no-drop capacity over a 4096-token chunk needs a 30 GB dispatch
+     buffer).  mamba2 and zamba2 take both checks on the same weights in
      fp32 (the flash kernel's fp32 route): at their full depth bf16
      rounding alone moves their logits by 9% and 49% on an H100 (the plain
      route in bf16 against fp32, printed beside, not gated).  Then the
      kernel alone at each config's attention shape (D 112, D 64, GQA 16
      and 9; mixtral's GQA 6 with its window, SDPA given the window as a
-     boolean mask) against its plain version, timed beside its bound and
-     SDPA (the ``[serve path] <arch>`` lines);
+     boolean mask; deepseek-v3's two prefill chunks at q/k head dim 192
+     and v head dim 128, the second at ``q_off`` 4096 over 8192 keys, SDPA
+     given that offset as a boolean mask, the plain version run over 16
+     blocks of heads) against its plain version, timed beside its bound
+     and SDPA (the ``[serve path] <arch>`` lines);
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -260,7 +273,8 @@ LOGITS_REL_TOL = 2 ** -4
 # FAMILY_TEACHER teacher-forced tokens (128 divides both lengths, so the
 # SSD scan keeps its chunk of 128)
 FAMILY_ARCHS = ("zamba2-7b", "mamba2-130m", "chatglm3-6b", "starcoder2-7b",
-                "minicpm-2b", "chameleon-34b", "mixtral-8x22b")
+                "minicpm-2b", "chameleon-34b", "mixtral-8x22b",
+                "deepseek-v3-671b")
 FAMILY_DENSE_LAYERS = 2
 # mixtral-8x22b (module step 9b) at full width and FAMILY_DENSE_LAYERS
 # layers, with traffic of its own: a prompt of one and a half windows (4096
@@ -269,8 +283,24 @@ FAMILY_DENSE_LAYERS = 2
 # overwrites a slot; batch 2 keeps the decode check's no-drop prefill (C = S
 # at capacity factor n_experts / top_k) within the card even in fp32
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 6144, 32
+# deepseek-v3-671b (module step 9c) at full width and 4 of its 61 layers:
+# the three dense layers before its first MoE layer and one MoE layer (57
+# cut).  Batch 2 x 8192 runs through the config's own prefill_chunk of
+# 4096, so the second chunk attends at q_off 4096 over 8192 keys.  Its
+# decode check prefills in chunks of 128: at the no-drop capacity (C =
+# chunk) a 4096-token chunk's dispatch buffer alone would be [256, 2 x 4096,
+# 7168] bf16, 30 GB, and 128 divides both 8192 and 8192 + FAMILY_TEACHER
+MLA_ARCH = "deepseek-v3-671b"
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 2, 8192, 32
+MLA_DECODE_CHUNK = 128
+FAMILY_LAYERS = {MLA_ARCH: 4}             # the other dense and MoE ones: 2
+FAMILY_TRAFFIC = {"mixtral-8x22b": (MOE_BATCH, MOE_PROMPT),
+                  MLA_ARCH: (MLA_BATCH, MLA_PROMPT)}   # the others: 4 x 2048
 FAMILY_GEN = {"zamba2-7b": 32, "mamba2-130m": 32,      # the dense ones: 8
-              "mixtral-8x22b": MOE_GEN}
+              "mixtral-8x22b": MOE_GEN, MLA_ARCH: MLA_GEN}
+# the serve path's prompt in two windows (qwen3-1.7b's chunked prefill,
+# held to its one-shot prefill)
+SERVE_PREFILL_CHUNK = 1024
 FAMILY_TEACHER = 128
 LORA_B_STD = 0.1    # zamba2's LoRA b: a @ b then about wq's own scale
 
@@ -751,6 +781,27 @@ def serve_phase(dev, report, failures) -> dict:
     del ext_cache
     checks["decode step vs prefill of prompt + token"] = rel_err(
         one["logits"], ext_logits)
+    # chunked (window-wise) prefill: the prompt in windows of
+    # SERVE_PREFILL_CHUNK, the second at q_off 1024 under GQA, against the
+    # one-shot prefill; flash launches once per layer and window
+    reset_launch_counts()
+    chunk_logits, chunk_cache = make_prefill_step(
+        cfg.replace(prefill_chunk=SERVE_PREFILL_CHUNK))(params, prompts)
+    torch.cuda.synchronize()
+    n_windows = p // SERVE_PREFILL_CHUNK
+    chunk_launches = (LAUNCHES["flash_attention_wgmma"],
+                      LAUNCHES["flash_attention"])
+    del chunk_cache
+    checks[f"chunked prefill ({n_windows} x {SERVE_PREFILL_CHUNK}) vs "
+           f"one-shot"] = rel_err(chunk_logits, res["prefill_logits"])
+    log(f"[serve check] chunked prefill of {SERVE_ARCH}: flash_attention "
+        f"launches {chunk_launches[0]} wgmma / {chunk_launches[1]} fp32, "
+        f"want {n_windows * cfg.n_layers} / 0")
+    out["chunked_prefill_launches"] = chunk_launches[0]
+    if chunk_launches != (n_windows * cfg.n_layers, 0):
+        failures.append(f"chunked prefill of {SERVE_ARCH}: flash launches "
+                        f"{chunk_launches} (want "
+                        f"{(n_windows * cfg.n_layers, 0)})")
     for name, err in checks.items():
         ok = err <= LOGITS_REL_TOL
         log(f"[serve check] {'ok  ' if ok else 'FAIL'} {name}: relative L2 "
@@ -761,7 +812,7 @@ def serve_phase(dev, report, failures) -> dict:
         f"logits: {agree:.3f}")
     out["checks"] = checks
     out["argmax_agreement"] = agree
-    del res, one, plain_logits, ext_logits
+    del res, one, plain_logits, ext_logits, chunk_logits
 
     # layer 0's attention output by both routes
     lp = params["dense_stack"][0]
@@ -847,70 +898,111 @@ def sdpa_backend(q, k, v, mask) -> str:
         enable_gqa=True)).name
 
 
-def flash_alone(name, b, h, kv, s, d, gen, failures, window=None) -> dict:
+def heads_sliced(fn, q, k, v, n):
+    """``fn(q, k, v)`` over ``n`` blocks of heads (q's and k/v's split
+    alike, so a GQA group stays whole), concatenated on the head axis: the
+    plain version's fp32 scores at MLA's chunk shape are 34 GB whole."""
+    if n == 1:
+        return fn(q, k, v)
+    import torch
+    hq, hk = q.shape[1] // n, k.shape[1] // n
+    return torch.cat([fn(q[:, i * hq:(i + 1) * hq], k[:, i * hk:(i + 1) * hk],
+                         v[:, i * hk:(i + 1) * hk]) for i in range(n)], dim=1)
+
+
+def flash_alone(name, b, h, kv, s, d, gen, failures, window=None, *,
+                dv=None, sk=None, q_off=0, slices=1, label=None) -> dict:
     """``flash_attention`` alone at one config's prefill shape (bf16,
     causal, with the config's sliding window if it has one; seeded normal
-    q, k, v): held against its plain version within ``flash_check``'s
-    bounds, and timed beside its bound and SDPA.  SDPA has no window
-    argument, so a window goes to it as an explicit boolean mask (the
-    backend its dispatcher picks for that is printed)."""
+    q [b, h, s, d], k [b, kv, sk, d] and v [b, kv, sk, dv], queries from
+    ``q_off``): held against its plain version within ``flash_check``'s
+    bounds, and timed beside its bound and SDPA.  SDPA has no window or
+    query offset argument (``is_causal`` aligns the diagonal top-left), so
+    a window or an offset goes to it as an explicit boolean mask (the
+    backend its dispatcher picks for that is printed).  ``slices`` > 1
+    runs the plain version (and the bound) over that many blocks of
+    heads, timed as one call of all of them."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    dv, sk = dv or d, sk or s
     q = torch.randn((b, h, s, d), generator=gen, device=DEVICE,
                     dtype=torch.bfloat16)
-    k, v = (torch.randn((b, kv, s, d), generator=gen, device=DEVICE,
-                        dtype=torch.bfloat16) for _ in range(2))
-    masks = dict(causal=True, window=window)
-    want = flash_attention_ref(q, k, v, **masks)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, kv, sk, dv), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    masks = dict(causal=True, window=window, q_off=q_off)
+
+    def plain(qq, kk, vv):
+        return flash_attention_ref(qq, kk, vv, **masks)
+    want = heads_sliced(plain, q, k, v, slices)
     got = fa_ops.flash_attention_cuda(q, k, v, **masks)
-    err, worst, rel = flash_check(got, want, q, k, v, **masks)
+    parts = [flash_check(*(x[:, i * (h // slices):(i + 1) * (h // slices)]
+                           for x in (got, want, q)),
+                         k[:, i * (kv // slices):(i + 1) * (kv // slices)],
+                         v[:, i * (kv // slices):(i + 1) * (kv // slices)],
+                         **masks) for i in range(slices)]
+    err, worst = max(p[0] for p in parts), max(p[1] for p in parts)
+    rel = rel_err(got, want)
     del got, want
     ok = worst <= 1.0 and rel <= 2 ** -7
-    shape = (f"q {b} x {h} x {s} x {d}, k/v {b} x {kv} x {s} x {d}, causal"
-             + (f", window {window}" if window else ""))
+    shape = (f"q {b} x {h} x {s} x {d}, k {b} x {kv} x {sk} x {d}, v "
+             f"{b} x {kv} x {sk} x {dv}, causal"
+             + (f", window {window}" if window else "")
+             + (f", q_off {q_off}" if q_off else ""))
+    label = label or f"{name}'s shape"
     log(f"[kernel check] {'ok  ' if ok else 'FAIL'} flash_attention at "
-        f"{name}'s shape ({shape}, GQA {h // kv}): max |err| "
+        f"{label} ({shape}, GQA {h // kv}): max |err| "
         f"{err:.3e}, largest |err| / elementwise bound {worst:.3f} (limit "
         f"1), relative L2 {rel:.3e} (limit {2 ** -7:.3e})")
     if not ok:
-        failures.append(f"flash_attention at {name}'s shape: |err|/bound "
+        failures.append(f"flash_attention at {label}: |err|/bound "
                         f"{worst}, relative L2 {rel}")
     torch.cuda.synchronize()
-    if window is None:
+    if window is None and q_off == 0 and sk == s:
         backend = "is_causal"
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
     else:
-        pos = torch.arange(s, device=DEVICE)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
-                                                 < window)
+        qpos = q_off + torch.arange(s, device=DEVICE)[:, None]
+        kpos = torch.arange(sk, device=DEVICE)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= (qpos - kpos) < window
         backend = f"boolean mask, {sdpa_backend(q, k, v, mask)}"
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
     ms = cuda_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **masks), 10)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **masks), 2)
-    lib_ms = cuda_ms(library, 10)
-    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    n_ops = 4 * d * visible_pairs(s, s, True, window=window) * b * h
+    plain_ms = cuda_ms(lambda: heads_sliced(plain, q, k, v, slices), 2)
+    try:
+        lib_ms = cuda_ms(library, 10)
+    except RuntimeError as exc:       # no SDPA backend takes these inputs
+        lib_ms, backend = None, f"{backend}: {str(exc).splitlines()[0]}"
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + b * h * s * dv)
+    n_ops = (2 * (d + dv) * visible_pairs(s, sk, True, window=window,
+                                          q_off=q_off) * b * h)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_FLOP_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"[time] flash_attention at {name}'s shape: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-        f"(scaled_dot_product_attention, {backend}), kernel / library "
-        f"{ms / lib_ms:.3f}, bound {bound:.4f} ms ({by}; "
+    lib = ("n/a" if lib_ms is None
+           else f"{lib_ms:.4f} ms (scaled_dot_product_attention, {backend}), "
+           f"kernel / library {ms / lib_ms:.3f}")
+    log(f"[time] flash_attention at {label}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms"
+        + (f" ({slices} blocks of heads)" if slices > 1 else "")
+        + f", library {lib}, bound {bound:.4f} ms ({by}; "
         f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), "
         f"{100 * bound / ms:.1f}% of bound")
     if ms < bound:
-        failures.append(f"flash_attention at {name}'s shape: {ms} ms below "
+        failures.append(f"flash_attention at {label}: {ms} ms below "
                         f"its bound {bound} ms")
     return {"shape": shape, "max_abs_err": err, "err_over_bound": worst,
             "rel_l2": rel, "ms": ms, "plain_ms": plain_ms,
@@ -975,11 +1067,12 @@ def to_fp32(tree):
 
 
 def families_phase(dev, report, failures) -> int:
-    """Module steps 9a-9b on the card: each config of ``FAMILY_ARCHS``
+    """Module steps 9a-9c on the card: each config of ``FAMILY_ARCHS``
     served through ``repro_torch.launch.serve`` (counted: ``flash_attention``
-    once per attention layer or shared-block invocation of the prefill, all
-    on the wgmma route), its route and decode checks, and the kernel alone
-    at its shape.  For mixtral-8x22b also the share of routed (token,
+    once per attention layer or shared-block invocation of the prefill, and
+    per prefill chunk where the config prefills window by window, all on
+    the wgmma route), its route and decode checks, and the kernel alone
+    at its shape (deepseek-v3: at both chunks' shapes).  For mixtral-8x22b also the share of routed (token,
     expert) entries that the served prefill dropped at capacity, per layer,
     and the routes whose experts differ between the check's two attention
     routes.  Returns the flash launches of the counted runs."""
@@ -995,11 +1088,13 @@ def families_phase(dev, report, failures) -> int:
     out, flash_launches = {}, 0
     for arch in FAMILY_ARCHS:
         cfg = get_config(arch)
+        full_layers = cfg.n_layers
         if cfg.family in ("dense", "moe"):
-            cfg = cfg.replace(n_layers=FAMILY_DENSE_LAYERS)
-        b, p = ((MOE_BATCH, MOE_PROMPT) if cfg.family == "moe"
-                else (SERVE_BATCH, SERVE_PROMPT))
+            cfg = cfg.replace(n_layers=FAMILY_LAYERS.get(
+                arch, FAMILY_DENSE_LAYERS))
+        b, p = FAMILY_TRAFFIC.get(arch, (SERVE_BATCH, SERVE_PROMPT))
         g = FAMILY_GEN.get(arch, 8)
+        n_chunks = p // cfg.prefill_chunk if cfg.prefill_chunk else 1
         t0 = time.perf_counter()
         gen = M.make_generator(SERVE_SEED, dev)
         params = M.init(gen, cfg)
@@ -1011,8 +1106,12 @@ def families_phase(dev, report, failures) -> int:
         row = {"layers": cfg.n_layers, "params": M.param_count(params),
                "init_s": time.perf_counter() - t0,
                "weights_gb": torch.cuda.memory_allocated() / 1e9}
-        want = (M.n_invocations(cfg) if cfg.family == "hybrid"
-                else 0 if cfg.family == "ssm" else cfg.n_layers)
+        want = n_chunks * (M.n_invocations(cfg) if cfg.family == "hybrid"
+                           else 0 if cfg.family == "ssm" else cfg.n_layers)
+        cut = (f", {full_layers - cfg.n_layers} of {full_layers} layers cut"
+               if cfg.n_layers < full_layers else "")
+        chunked = (f", prefill in {n_chunks} chunks of {cfg.prefill_chunk}"
+                   if cfg.prefill_chunk else "")
 
         # a warm-up prefill outside the count (cuBLAS and the caching
         # allocator meet these shapes here), then the counted run: prefill,
@@ -1042,10 +1141,10 @@ def families_phase(dev, report, failures) -> int:
             f"{row['decode_ms_per_token']:.2f} ms/token, peak device memory "
             f"{row['peak_mem_gb']:.2f} GB, torch calls per decode step "
             f"{row['torch_calls_per_decode_step']} ({cfg.family}, "
-            f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
             f"{row['params']:,} parameters, weights "
-            f"{row['weights_gb']:.2f} GB; batch {b}, prompt {p}, {g} greedy "
-            f"tokens; flash_attention launches "
+            f"{row['weights_gb']:.2f} GB; batch {b}, prompt {p}{chunked}, "
+            f"{g} greedy tokens; flash_attention launches "
             f"{launches['flash_attention_wgmma']} wgmma / "
             f"{launches['flash_attention']} fp32, want {want} / 0)")
         if (launches["flash_attention_wgmma"] != want
@@ -1056,21 +1155,30 @@ def families_phase(dev, report, failures) -> int:
                             f"{launches['flash_attention']} on the fp32 "
                             f"route in one prefill (want {want} and 0)")
         if cfg.moe:
-            # the prefill's records come first, one a layer; then decode's
+            # the prefill's records come first, chunk by chunk and in a
+            # chunk one a layer; then decode's
             n_moe = len(params["moe_stack"])
-            row["dropped_share"] = [int(r["dropped"]) / r["routed"]
-                                    for r in routes[:n_moe]]
-            decode_drops = sum(int(r["dropped"]) for r in routes[n_moe:])
+            n_pre = n_moe * n_chunks
+            pre = routes[:n_pre]
+            m = cfg.moe
+            cap = max(1, round(p // n_chunks * m["top_k"] / m["n_experts"]
+                               * m["capacity_factor"]))
+            row["dropped_share"] = [
+                sum(int(r["dropped"]) for r in pre[i::n_moe])
+                / sum(r["routed"] for r in pre[i::n_moe])
+                for i in range(n_moe)]
+            decode_drops = sum(int(r["dropped"]) for r in routes[n_pre:])
             log(f"[serve path] {arch}: routed (token, expert) entries the "
                 f"prefill dropped at capacity factor "
-                f"{cfg.moe['capacity_factor']}, per layer: "
+                f"{m['capacity_factor']} (C = {cap} per {p // n_chunks}-token "
+                f"chunk), per layer: "
                 + ", ".join(f"{100 * x:.3f}%" for x in row["dropped_share"])
-                + f" (of {routes[0]['routed']:,} each); decode dropped "
-                f"{decode_drops}")
-            if decode_drops or len(routes) != n_moe * (g + 1):
+                + f" (of {sum(r['routed'] for r in pre[::n_moe]):,} each); "
+                f"decode dropped {decode_drops}")
+            if decode_drops or len(routes) != n_moe * (n_chunks + g):
                 failures.append(f"{arch}: {len(routes)} MoE calls, decode "
                                 f"dropped {decode_drops} entries (want "
-                                f"{n_moe * (g + 1)} and 0)")
+                                f"{n_moe * (n_chunks + g)} and 0)")
         del routes
         toks = res["tokens"]
         if not (toks.shape == (b, g) and bool((toks >= 0).all())
@@ -1093,14 +1201,17 @@ def families_phase(dev, report, failures) -> int:
                 m = cfg.moe
                 no_drop = cfg.replace(moe={
                     **m, "capacity_factor": m["n_experts"] / m["top_k"]})
+                if cfg.prefill_chunk:
+                    no_drop = no_drop.replace(prefill_chunk=MLA_DECODE_CHUNK)
             row["checks"], _, flips = serve_checks(cfg, params, prompts, p,
                                                    no_drop)
             if flips is not None:
                 row["route_flips"] = flips
                 log(f"[serve check] {arch}: (token, layer) routes whose "
                     f"top-{cfg.moe['top_k']} experts differ between the "
-                    f"kernel and the plain route's prefill, per layer: "
-                    f"{flips} (of {b * p} tokens each)")
+                    f"kernel and the plain route's prefill, per MoE call "
+                    f"(chunk by chunk, a layer each): {flips} (of "
+                    f"{b * p // n_chunks} tokens each)")
         else:
             plain_bf16, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
                 params, prompts[:, :p])
@@ -1126,7 +1237,17 @@ def families_phase(dev, report, failures) -> int:
         del params, kernel_bf16, prompts
         torch.cuda.empty_cache()
 
-        if cfg.family != "ssm":
+        if cfg.mla:
+            # MLA's prefill chunks: q/k 192 = qk_nope + qk_rope, v 128
+            m = cfg.mla
+            c = cfg.prefill_chunk
+            row["flash"] = [flash_alone(
+                arch, b, cfg.n_heads, cfg.n_heads, c,
+                m["qk_nope_dim"] + m["qk_rope_dim"], gen, failures,
+                dv=m["v_head_dim"], sk=c * (i + 1), q_off=c * i, slices=16,
+                label=f"{arch}'s chunk {i + 1}") for i in range(n_chunks)]
+            torch.cuda.empty_cache()
+        elif cfg.family != "ssm":
             row["flash"] = flash_alone(arch, b, cfg.n_heads, cfg.n_kv_heads,
                                        p, cfg.dh, gen, failures, cfg.window)
             torch.cuda.empty_cache()

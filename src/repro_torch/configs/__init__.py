@@ -30,7 +30,7 @@ ARCH_IDS: List[str] = [
 ]
 PORTED: List[str] = ["chatglm3_6b", "qwen3_1_7b", "starcoder2_7b",
                       "minicpm_2b", "chameleon_34b", "mamba2_130m",
-                      "zamba2_7b", "mixtral_8x22b"]
+                      "zamba2_7b", "mixtral_8x22b", "deepseek_v3_671b"]
 
 
 def _normalize(name: str) -> str:

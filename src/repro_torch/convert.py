@@ -21,7 +21,8 @@ axis 0 under ``dense_stack``, ``moe_stack`` and ``mamba_stack``; the port
 keeps a list of per-layer dicts, as long as the stack's leading axis (a
 moe config's ``first_dense`` layers are its ``dense_stack``, the rest its
 ``moe_stack``; the hybrid's ``shared`` block is one layer, and its
-``shared_lora`` stays stacked on the invocation axis in both).  numpy has
+``shared_lora`` stays stacked on the invocation axis in both; deepseek-v3's
+``mtp`` block is one unstacked subtree in both).  numpy has
 no bfloat16, so bf16 leaves travel as float32 (exact both ways); the
 leaves that the JAX init keeps in fp32 at any ``param_dtype``
 (``models.layers.FP32_LEAVES``: the SSM mixer's and the MoE router's) and
@@ -176,8 +177,9 @@ def _stack(layers):
 def from_jax_cache(cache_np: dict, cfg, *, device="cuda") -> dict:
     """The port's decode cache from the numpy form of a JAX one (the same
     layout in both packages, stacked on the layer or invocation axis): the
-    attention stacks' ``k``/``v`` and the SSM conv tails in
-    ``cfg.compute_dtype``, the SSM state ``h`` in fp32, ``len`` int32."""
+    attention stacks' ``k``/``v`` (MLA's ``ckv``/``kr``) and the SSM conv
+    tails in ``cfg.compute_dtype``, the SSM state ``h`` in fp32, ``len``
+    int32."""
     dev = resolve_device(device)
 
     def tensor(x, key):

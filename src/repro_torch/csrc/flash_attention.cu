@@ -6,10 +6,12 @@
 // Replaces flash_attention_pallas
 // (src/repro/kernels/flash_attention/flash_attention.py) for fp32 inputs.
 //
-// q is [B, H, Sq, D], k and v [B, KV, Sk, D], o [B, H, Sq, D], each with
-// any strides over (b, h, s) and D contiguous, so the model's [B, S, H, D]
-// tensors go in and come out without a transpose copy.  Query row i sits
-// at position q_off + i, key j at j; q-head h reads kv-head h / (H / KV).
+// q is [B, H, Sq, D], k [B, KV, Sk, D], v [B, KV, Sk, Dv], o [B, H, Sq,
+// Dv], each with any strides over (b, h, s) and the last axis contiguous,
+// so the model's [B, S, H, D] tensors go in and come out without a
+// transpose copy.  Query row i sits at position q_off + i, key j at j;
+// q-head h reads kv-head h / (H / KV).  D = Dv takes 16 ... 128 in steps
+// of 16; (D, Dv) = (192, 128) is MLA's prefill.
 // One 128-thread block owns one (b, h, 64-row q tile); each of its four
 // warps owns 16 query rows.  The block walks the 64-key tiles in a loop
 // (the TPU kernel's sequential grid axis ik): K and V tiles are staged in
@@ -55,22 +57,25 @@ struct Params {
 
 // Shared memory of one block, in bytes from the base: Q, K, V tiles with
 // rows padded by 16 bytes, then fp32 scores (and P) per warp.
-template <int D>
+template <int D, int DV>
 struct Layout {
-  static constexpr int LD = D + 4;    // Q/K/V row stride, floats
+  static constexpr int LD = D + 4;    // Q/K row stride, floats
+  static constexpr int LDV = DV + 4;  // V row stride
   static constexpr int LDS = BK + 4;  // score row stride
   static constexpr int TILE = BQ * LD * 4;
-  static constexpr int S_OFF = 3 * TILE;
+  static constexpr int V_OFF = 2 * TILE;
+  static constexpr int S_OFF = V_OFF + BQ * LDV * 4;
   static constexpr int BYTES = S_OFF + WARPS * 16 * LDS * 4;
 };
 
-// rows [0, 64) of a tile from global rows with stride ld_g (elements);
-// rows at or past `valid` are zero.  16-byte copies.
+// rows [0, 64) of a tile of D columns from global rows with stride ld_g
+// (elements) into rows of D + 4 floats; rows at or past `valid` are zero.
+// 16-byte copies.
 template <int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           long long ld_g, int valid) {
   constexpr int CH = D / 4;
-  constexpr int LD = Layout<D>::LD;
+  constexpr int LD = D + 4;
   for (int idx = threadIdx.x; idx < 64 * CH; idx += THREADS) {
     const int r = idx / CH, c = idx % CH;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -79,15 +84,15 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* 
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
-  using L = Layout<D>;
-  constexpr int LD = L::LD, LDS = L::LDS;
-  constexpr int NT = D / 16;  // 16-wide column tiles of the output
+  using L = Layout<D, DV>;
+  constexpr int LD = L::LD, LDV = L::LDV, LDS = L::LDS;
+  constexpr int NT = DV / 16;  // 16-wide column tiles of the output
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = reinterpret_cast<float*>(smem + L::TILE);
-  float* Vs = reinterpret_cast<float*>(smem + 2 * L::TILE);
+  float* Vs = reinterpret_cast<float*>(smem + L::V_OFF);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = lane >> 1, half = lane & 1;  // this lane's row and column half
@@ -116,7 +121,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();  // Q is in; the previous tile's K and V are no longer read
     load_tile<D>(Ks, kg + k0 * p.ks[2], p.ks[2], p.Sk - k0);
-    load_tile<D>(Vs, vg + k0 * p.vs[2], p.vs[2], p.Sk - k0);
+    load_tile<DV>(Vs, vg + k0 * p.vs[2], p.vs[2], p.Sk - k0);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows, into Sw
@@ -161,7 +166,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
     // acc += P V
     for (int c = 0; c < BK; ++c) {
       const float pc = Sw[r * LDS + c];
-      const float* vr = Vs + c * LD + half * 8;
+      const float* vr = Vs + c * LDV + half * 8;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -178,24 +183,25 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
     for (int j = 0; j < 8; ++j) og[nt * 16 + j] = acc[nt * 8 + j] / lc;
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_t(const Params& p, int B, cudaStream_t stream) {
-  const int bytes = Layout<D>::BYTES;
+  const int bytes = Layout<D, DV>::BYTES;
   cudaError_t e =
-      cudaFuncSetAttribute(flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cudaFuncSetAttribute(flash_fwd<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_fwd<D><<<grid, THREADS, bytes, stream>>>(p);
+  flash_fwd<D, DV><<<grid, THREADS, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // fp32 q, k, v, o.  strides: 12 element strides, (b, h, s) of q, k, v and
-// o in that order.  window <= 0: no window.  Sq, Sk >= 1.
+// o in that order.  window <= 0: no window.  Sq, Sk >= 1.  (D, Dv): D = Dv
+// a multiple of 16 up to 128, or (192, 128).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const long long* strides, int B, int H, int KV, int Sq,
-                                      int Sk, int D, int causal, int window, int q_off,
+                                      int Sk, int D, int Dv, int causal, int window, int q_off,
                                       float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
@@ -219,6 +225,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.q_off = q_off;
   p.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == 192 && Dv == 128) return launch_t<192, 128>(p, B, st);
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16: return launch_t<16>(p, B, st);
     case 32: return launch_t<32>(p, B, st);

@@ -105,9 +105,9 @@ _SIGNATURES = {
     "rank_count_launch": (_P, _P, _P, _P, _I, _I, _P),
     "segment_scan_launch": (_I, _P, _P, _P, _LL, _P, _LL, ctypes.c_uint, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _P),
+                               _I, _I, _I, _I, _F, _P),
     "flash_attention_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _I, _F, _P),
+                                     _I, _I, _I, _I, _I, _F, _P),
 }
 
 _LOCK = threading.Lock()          # guards the one-time build and load

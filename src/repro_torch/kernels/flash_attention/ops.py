@@ -6,7 +6,8 @@ The kernel route follows the dtype alone: bf16 goes to the Hopper kernel
 counted as ``flash_attention_wgmma``), fp32 to the CUDA-core kernel
 (``csrc/flash_attention.cu``; counted as ``flash_attention``).  A launch
 that fails raises: neither route gives way to the other or to the plain
-version.
+version.  The q/k head dim D and the v head dim Dv may differ: both
+routes take D = Dv and MLA's (192, 128) (:func:`head_dims`).
 
 ``repro_torch.models.attention.chunked_attention`` calls
 :func:`flash_attention` when ``cfg.attn_impl`` is ``"auto"`` or ``"cuda"``
@@ -14,13 +15,14 @@ with [B, S, H, D] tensors.  ``impl="auto"`` launches the kernel on CUDA
 tensors and runs the plain version on CPU tensors.  Decode (a query over a
 cache, ``k_valid_len`` given) never comes here: ``chunked_attention`` keeps
 it on its own plain path, as the JAX package keeps it off the kernel, which
-targets the S² train/prefill work.
+targets the S² train/prefill work.  A chunked prefill comes here with
+``q_off`` set to its cache cursor (``models/attention.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,37 +41,53 @@ def kernel_route(dtype: torch.dtype) -> str:
     return ROUTES[dtype]
 
 
+def head_dims(d: int, dv: int) -> Tuple[int, int]:
+    """The kernel instance (DQ, DV) that takes q/k head dim ``d`` and v
+    head dim ``dv``: each a multiple of 16; D = Dv up to 128 (the bf16
+    route pads it to 64 or 128), or MLA's (192, 128).  Any other pair
+    raises ``ValueError`` naming it: no instance computes it."""
+    if d % 16 == 0 and 16 <= d <= 128 and dv == d:
+        return (64, 64) if d <= 64 else (128, 128)
+    if (d, dv) == (192, 128):
+        return 192, 128
+    raise ValueError(f"no flash_attention instance takes head dims (q/k "
+                     f"{d}, v {dv}): the instances are D = Dv, a multiple "
+                     f"of 16 up to 128, and (192, 128)")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          sm_scale: Optional[float] = None, q_off: int = 0,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel: q [B,H,Sq,D], k/v [B,KV,Sk,D] (any strides over the first
-    three axes, D contiguous; bf16 or fp32, all one dtype; D a multiple of
-    16 up to 128) → o [B,H,Sq,D], written into ``out`` if given (a view of
-    the same shape, for example a transposed [B,Sq,H,D] tensor, with
-    16-byte aligned rows).  bf16 launches the wgmma kernel, fp32 the
-    CUDA-core kernel (:func:`kernel_route`)."""
+    """The kernel: q [B,H,Sq,D], k [B,KV,Sk,D], v [B,KV,Sk,Dv] (any strides
+    over the first three axes, the last contiguous; bf16 or fp32, all one
+    dtype; (D, Dv) as :func:`head_dims` takes them) → o [B,H,Sq,Dv],
+    written into ``out`` if given (a view of that shape, for example a
+    transposed [B,Sq,H,Dv] tensor, with 16-byte aligned rows).  bf16
+    launches the wgmma kernel, fp32 the CUDA-core kernel
+    (:func:`kernel_route`)."""
     cuda_lib.check_cuda(q, k, v)
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_cuda takes bf16 or fp32 q, k, v of "
                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     b, h, sq, d = q.shape
     _, kv, sk, _ = k.shape
+    dv = v.shape[3]
     if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
-        raise ValueError(f"q {tuple(q.shape)} does not match k/v "
+        raise ValueError(f"q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)} (H a multiple of KV)")
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"head dim {d} must be a multiple of 16 up to 128")
+    head_dims(d, dv)
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be at least 1")
     if out is None:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    elif out.shape != q.shape or out.dtype != q.dtype:
+        out = q.new_empty((b, h, sq, dv))
+    elif out.shape != (b, h, sq, dv) or out.dtype != q.dtype:
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not match "
-                         f"q {tuple(q.shape)} {q.dtype}")
+                         f"[B,H,Sq,Dv] {(b, h, sq, dv)} {q.dtype}")
     cuda_lib.check_cuda(out)
     size = q.element_size()
 
@@ -89,7 +107,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     cuda_lib.launch(kernel_route(q.dtype), q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                    b, h, kv, sq, sk, d, int(causal),
+                    b, h, kv, sq, sk, d, dv, int(causal),
                     -1 if window is None else int(window), int(q_off),
                     float(scale), cuda_lib.stream_ptr(q))
     return out
@@ -99,17 +117,18 @@ def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None, impl: str = "auto",
                     q_off: int = 0) -> torch.Tensor:
-    """Model-layout entry: q [B,Sq,H,D], k/v [B,Sk,KV,D] → [B,Sq,H,D].
+    """Model-layout entry: q [B,Sq,H,D], k [B,Sk,KV,D], v [B,Sk,KV,Dv] →
+    [B,Sq,H,Dv].
 
-    Assumes contiguous positions starting at ``q_off`` (the position
-    arrays are accepted for signature parity with the plain path).
+    Assumes contiguous positions: queries from ``q_off``, keys from 0 (the
+    position arrays are accepted for signature parity with the plain path).
     """
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if cuda_lib.resolve_impl(impl, q) == "ref":
         return flash_attention_ref(qt, kt, vt, causal=causal, window=window,
                                    sm_scale=sm_scale,
                                    q_off=q_off).transpose(1, 2)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = q.new_empty(q.shape[:3] + v.shape[3:])
     flash_attention_cuda(qt, kt, vt, causal=causal, window=window,
                          sm_scale=sm_scale, q_off=q_off,
                          out=out.transpose(1, 2))

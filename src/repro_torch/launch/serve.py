@@ -4,12 +4,16 @@
         --batch 4 --prompt-len 2048 --gen 32          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --device cpu                          # small, on the host
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --smoke --device cpu --prefill-chunk 8        # window by window
 
 One prefill step runs the whole prompt (the flash-attention kernel on the
-card) and builds a cache of capacity prompt length (a sliding window's
-ring: ``window`` slots); the cache is copied into a static decode cache of
-capacity prompt + gen (a ring and an SSM's state carry over as they are),
-and a single-token serve step is iterated.  Every architecture of
+card; window by window through the cache when the config sets
+``prefill_chunk``, as deepseek-v3's does) and builds a cache of capacity
+prompt length (a sliding window's ring: ``window`` slots); the cache is
+copied into a static decode cache of capacity prompt + gen (a ring and an
+SSM's state carry over as they are), and a single-token serve step is
+iterated.  Every architecture of
 ``repro_torch.configs.PORTED`` serves.  Weights are random, drawn from
 ``--seed``.
 """
@@ -42,7 +46,8 @@ def repack_cache(cache: Dict[str, Any], capacity: int, *,
                  window=None) -> Dict[str, Any]:
     """A prefill cache (capacity = prompt length) copied into a zeroed
     decode cache of ``capacity`` slots; ``len`` stays the prompt length.
-    Attention stacks (``k``/``v``: [n, B, S, KV, Dh]) are padded; the SSM
+    Attention stacks (``k``/``v``: [n, B, S, KV, Dh]; MLA's ``ckv``/``kr``:
+    [n, B, S, width]) are padded on their sequence axis; the SSM
     stack (conv tails and state) carries no sequence axis and passes
     through unchanged, and so does a ring cache of ``window`` slots (a
     sliding window's: decode writes slot ``pos % slots``, so padding would
@@ -50,18 +55,19 @@ def repack_cache(cache: Dict[str, Any], capacity: int, *,
     ``min(cache_len, window)``."""
     out = {}
     for name, st in cache.items():
-        if "k" not in st or (window is not None
-                             and st["k"].shape[2] == window):
+        seq = [key for key in ("k", "v", "ckv", "kr") if key in st]
+        if not seq or (window is not None and "k" in st
+                       and st["k"].shape[2] == window):
             out[name] = st
             continue
-        n, b, s, kv, dh = st["k"].shape
+        s = st[seq[0]].shape[2]
         if capacity < s:
             raise ValueError(f"capacity {capacity} < prompt length {s}")
         new = {}
-        for key in ("k", "v"):
-            t = st[key].new_zeros((n, b, capacity, kv, dh))
-            t[:, :, :s] = st[key]
-            new[key] = t
+        for key in seq:
+            t = st[key]
+            new[key] = t.new_zeros(t.shape[:2] + (capacity,) + t.shape[3:])
+            new[key][:, :, :s] = t
         new["len"] = st["len"].clone()
         out[name] = new
     return out
@@ -107,10 +113,15 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prefill window by window, this many tokens at a "
+                    "time (default: the config's prefill_chunk)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(remat="none")
+    if args.prefill_chunk is not None:
+        cfg = cfg.replace(prefill_chunk=args.prefill_chunk or None)
     gen = M.make_generator(args.seed, args.device)
     dev = gen.device
     params = M.init(gen, cfg)

@@ -1,11 +1,12 @@
-"""Step builders: prefill and serve (one decode step), for every family of
-``models/model.py`` (dense, MoE with or without a sliding window, SSM,
-hybrid).
+"""Step builders: prefill (one-shot, or chunked window by window when the
+config sets ``prefill_chunk``) and serve (one decode step), for every
+family of ``models/model.py`` (dense, MoE with or without a sliding window
+or MLA, SSM, hybrid).
 
-The JAX package's ``launch/steps.py`` also builds the train step, the
-chunked prefill and the jitted, sharded variants for its dry-run; those
-have no port yet (ROADMAP.md, module step 9).  PyTorch runs eagerly, so
-each builder returns a plain function.
+The JAX package's ``launch/steps.py`` also builds the train step and the
+jitted, sharded variants for its dry-run; those have no port yet
+(ROADMAP.md, module step 9).  PyTorch runs eagerly, so each builder
+returns a plain function.
 """
 from __future__ import annotations
 
@@ -26,11 +27,10 @@ def _unembed_last(params, cfg: ModelConfig, hidden: torch.Tensor):
 
 def make_prefill_step(cfg: ModelConfig):
     """(params, tokens [B,S]) → (last-position logits [B,V] fp32, cache with
-    capacity S)."""
+    capacity S); with ``cfg.prefill_chunk`` set, window by window
+    (:func:`_make_chunked_prefill_step`)."""
     if cfg.prefill_chunk:
-        raise NotImplementedError(
-            "chunked (window-wise) prefill is not ported yet (ROADMAP.md, "
-            "module step 9)")
+        return _make_chunked_prefill_step(cfg, cfg.prefill_chunk)
 
     def prefill_step(params, tokens, enc_inputs=None):
         if enc_inputs is not None:
@@ -40,6 +40,34 @@ def make_prefill_step(cfg: ModelConfig):
         # tensor would be 2.5 GB at batch 4 × 2048 × 151,936 in fp32
         hidden, _, cache = M.forward(params, cfg, tokens, mode="prefill",
                                      return_hidden=True)
+        return _unembed_last(params, cfg, hidden), cache
+    return prefill_step
+
+
+def _make_chunked_prefill_step(cfg: ModelConfig, chunk: int):
+    """Window-wise prefill: the cache is allocated at capacity S and the
+    prompt runs through it ``chunk`` tokens at a time, so live activations
+    are O(chunk) instead of O(S) (deepseek-v3's published path).  Not for
+    encoder-decoder configs or sliding windows, as in the JAX package."""
+    if cfg.family == "encdec" or cfg.encdec is not None \
+            or cfg.window is not None:
+        raise ValueError(f"{cfg.name}: chunked prefill takes no "
+                         f"encoder-decoder and no sliding window")
+
+    def prefill_step(params, tokens, enc_inputs=None):
+        if enc_inputs is not None:
+            raise ValueError("chunked prefill takes no encoder inputs")
+        b, s = tokens.shape
+        if s % chunk:
+            raise ValueError(f"prompt length {s} is not a multiple of "
+                             f"prefill_chunk {chunk}")
+        cache = M.init_cache(cfg, b, s, device=tokens.device)
+        ar = torch.arange(chunk, dtype=torch.int32, device=tokens.device)
+        for pos0 in range(0, s, chunk):
+            hidden, _, cache = M.forward(
+                params, cfg, tokens[:, pos0:pos0 + chunk],
+                mode="chunked_prefill", cache=cache, positions=ar + pos0,
+                return_hidden=True, cursor=pos0)
         return _unembed_last(params, cfg, hidden), cache
     return prefill_step
 

@@ -1,4 +1,5 @@
-"""GQA self-attention (full or causal) in train, prefill and decode modes.
+"""Attention: GQA (full, causal or sliding-window) and MLA (DeepSeek-V3),
+in train, prefill, chunked-prefill and decode modes.
 
 All softmax attention flows through :func:`chunked_attention`.  With
 ``impl="ref"`` it is the plain query-chunked path (peak live buffer
@@ -14,7 +15,22 @@ saves the copy).  With a sliding window (``cfg.window``) the cache is a
 ring of ``window`` slots: a prefill keeps the last ``min(window, S)``
 tokens, position ``pos`` in slot ``pos % window`` (the slots not written
 stay zero), and decode writes slot ``pos % window``, as in the JAX
-package.  Chunked prefill, cross-attention and MLA are not ported yet
+package.
+
+Chunked (window-wise) prefill appends a chunk of tokens at the cache
+cursor, in place, and attends causally over the cache's first ``cursor +
+chunk`` slots with the chunk's queries at ``q_off = cursor``: the keys
+past the cursor sit at positions beyond every query of the chunk, so the
+causal mask hides exactly what the JAX package's ``k_valid_len`` hides,
+and the flash kernel takes the call.  The cursor is a Python int from
+the step, so no layer reads ``cache["len"]`` back from the card.
+
+MLA caches the compressed latent ``ckv`` [B, S, kv_lora_rank] and the
+shared rope key ``kr`` [B, S, qk_rope_dim].  Prefill and chunked prefill
+materialize per-head K (qk_nope + qk_rope = 192 wide at deepseek-v3) and V
+(v_head_dim 128) from the latent and go through the flash kernel's (192,
+128) instance; decode uses the absorbed matmuls in fp32, on torch ops, as
+the JAX package does with no kernel.  Cross-attention is not ported yet
 (ROADMAP.md, module step 9).
 """
 from __future__ import annotations
@@ -38,20 +54,26 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_positions: torch.Tensor, k_positions: torch.Tensor,
                       causal: bool, window: Optional[int] = None,
                       k_valid_len=None, chunk: int = 512, impl: str = "ref",
-                      sm_scale: Optional[float] = None) -> torch.Tensor:
+                      sm_scale: Optional[float] = None,
+                      q_off: int = 0) -> torch.Tensor:
     """Softmax attention with GQA broadcast and position-based masking.
 
-    q: [B, Sq, H, Dh]; k/v: [B, Sk, KV, Dh] with H % KV == 0.
+    q: [B, Sq, H, Dh]; k: [B, Sk, KV, Dh], v: [B, Sk, KV, Dv] with H % KV
+    == 0 (Dv may differ from Dh: MLA).
     Masks: ``causal`` ⇒ keep k_pos ≤ q_pos;  ``window`` ⇒ also q_pos − k_pos <
     window;  ``k_valid_len`` ⇒ k index < valid length (decode caches).
     Decode over a cache (``k_valid_len`` given) takes this plain path
-    whatever ``impl`` says, as in the JAX package.
+    whatever ``impl`` says, as in the JAX package.  The kernel route reads
+    the positions as ``q_off + arange(Sq)`` and ``arange(Sk)``: a caller
+    whose ``q_positions`` start elsewhere than 0 passes that start as
+    ``q_off``, a Python int.
     """
     if impl != "ref" and k_valid_len is None:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         return flash_attention(q, k, v, q_positions=q_positions,
                                k_positions=k_positions, causal=causal,
-                               window=window, sm_scale=sm_scale, impl=impl)
+                               window=window, sm_scale=sm_scale, impl=impl,
+                               q_off=q_off)
     b, sq, h, dh = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -127,23 +149,62 @@ def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     return q, k, v
 
 
+def attend_cache_prefix(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, positions: torch.Tensor,
+                        cursor: int, cfg,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """A chunk's queries (positions ``cursor .. cursor + Sq - 1``) over the
+    cache's first ``cursor + Sq`` slots, causal, with no ``k_valid_len``:
+    the JAX package's ``k_valid_len = cursor + Sq`` over the whole cache
+    hides the same keys, and without it the flash kernel takes the call
+    (``q_off = cursor``)."""
+    n = cursor + q.shape[1]
+    return chunked_attention(
+        q, k_cache[:, :n], v_cache[:, :n], q_positions=positions,
+        k_positions=torch.arange(n, dtype=torch.int32, device=q.device),
+        causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+        sm_scale=sm_scale, q_off=cursor)
+
+
+def _cursor(cursor: Optional[int]) -> int:
+    if not isinstance(cursor, int):
+        raise ValueError("chunked_prefill needs the cache cursor as a Python "
+                         f"int (tokens cached so far); got {cursor!r}")
+    return cursor
+
+
 def gqa_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
                   cache: Optional[Params] = None,
                   positions: Optional[torch.Tensor] = None,
-                  causal: bool = True):
-    """Self-attention in train/prefill/decode modes.
+                  causal: bool = True, cursor: Optional[int] = None):
+    """Self-attention in train/prefill/chunked_prefill/decode modes.
 
     Returns ``(out, new_cache)``; cache layout {"k","v": [B, Sc, KV, Dh],
     "len": int32 scalar tensor}.  Decode writes the cache's ``k``/``v`` in
-    place and returns them with ``len + 1``.
+    place and returns them with ``len + 1``; chunked prefill writes the
+    chunk's at ``cursor`` (a Python int, equal to ``cache["len"]``) in
+    place and returns them with ``len + Sq``.
     """
     b, sq, _ = x.shape
     window = cfg.window
-    if mode == "chunked_prefill":
-        raise NotImplementedError(f"chunked prefill is {_TODO}")
     if positions is None:
         positions = torch.arange(sq, dtype=torch.int32, device=x.device)
+        if mode == "chunked_prefill":
+            positions = positions + _cursor(cursor)
     q, k, v = gqa_qkv(p, cfg, x, positions)
+
+    if mode == "chunked_prefill":
+        # not for ring caches, as in the JAX package
+        if cache is None or window is not None:
+            raise ValueError("chunked_prefill needs a cache and no sliding "
+                             "window")
+        pos0 = _cursor(cursor)
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_cache[:, pos0:pos0 + sq] = k
+        v_cache[:, pos0:pos0 + sq] = v
+        out = attend_cache_prefix(q, k_cache, v_cache, positions, pos0, cfg)
+        out = linear(p["wo"], out.reshape(b, sq, -1))
+        return out, {"k": k_cache, "v": v_cache, "len": cache["len"] + sq}
 
     if mode in ("train", "prefill"):
         out = chunked_attention(
@@ -210,9 +271,126 @@ def encode_cross_kv(*args, **kw):
     raise NotImplementedError(f"cross-attention (whisper) is {_TODO}")
 
 
-def init_mla(*args, **kw):
-    raise NotImplementedError(f"MLA (deepseek-v3) is {_TODO}")
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg) -> Params:
+    """The leaves of the JAX ``init_mla`` (seven linear weights, two norm
+    gains), with the same names and layouts."""
+    m = cfg.mla
+    d, h, dt = cfg.d_model, cfg.n_heads, cfg.param_dtype
+    dq, dc = m["q_lora_rank"], m["kv_lora_rank"]
+    dn, dr, dv = m["qk_nope_dim"], m["qk_rope_dim"], m["v_head_dim"]
+    return {"wdq": init_linear(gen, d, dq, dtype=dt),
+            "q_norm_g": torch.ones((dq,), dtype=dt, device=gen.device),
+            "wuq": init_linear(gen, dq, h * (dn + dr), dtype=dt),
+            "wdkv": init_linear(gen, d, dc, dtype=dt),
+            "kv_norm_g": torch.ones((dc,), dtype=dt, device=gen.device),
+            "wkr": init_linear(gen, d, dr, dtype=dt),
+            "wuk": init_linear(gen, dc, h * dn, dtype=dt),
+            "wuv": init_linear(gen, dc, h * dv, dtype=dt),
+            "wo": init_linear(gen, h * dv, d, dtype=dt)}
 
 
-def mla_attention(*args, **kw):
-    raise NotImplementedError(f"MLA (deepseek-v3) is {_TODO}")
+def _mla_kv(p: Params, cfg, ckv: torch.Tensor, k_rope: torch.Tensor):
+    """Per-head K [B, S, H, dn + dr] and V [B, S, H, dv] materialized from
+    the latent ``ckv`` [B, S, dc] and the shared rope key [B, S, dr]."""
+    m = cfg.mla
+    b, s, _ = ckv.shape
+    h, dn, dr = cfg.n_heads, m["qk_nope_dim"], m["qk_rope_dim"]
+    k_nope = linear(p["wuk"], ckv).reshape(b, s, h, dn)
+    v = linear(p["wuv"], ckv).reshape(b, s, h, m["v_head_dim"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1)
+    return k, v
+
+
+def mla_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
+                  cache: Optional[Params] = None,
+                  positions: Optional[torch.Tensor] = None,
+                  cursor: Optional[int] = None):
+    """MLA with a compressed-latent cache and absorbed decode matmuls.
+
+    Returns ``(out, new_cache)``; cache layout {"ckv": [B, Sc, dc], "kr":
+    [B, Sc, dr], "len"}.  Decode and chunked prefill write the cache in
+    place (chunked prefill at ``cursor``, a Python int).
+    """
+    m = cfg.mla
+    b, sq, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = m["qk_nope_dim"], m["qk_rope_dim"], m["v_head_dim"]
+    dc = m["kv_lora_rank"]
+    if positions is None:
+        positions = torch.arange(sq, dtype=torch.int32, device=x.device)
+        if mode == "chunked_prefill":
+            positions = positions + _cursor(cursor)
+
+    cq = rms_norm_simple(linear(p["wdq"], x), p["q_norm_g"])
+    qall = linear(p["wuq"], cq).reshape(b, sq, h, dn + dr)
+    q_nope, q_rope = qall[..., :dn], qall[..., dn:]
+    ckv = rms_norm_simple(linear(p["wdkv"], x), p["kv_norm_g"])  # [B,S,dc]
+    k_rope = linear(p["wkr"], x)               # [B,S,dr], shared by heads
+    cos, sin = rope_freqs(dr, cfg.rope_theta, positions, rotary_dim=dr)
+    q_rope = apply_rope(q_rope, cos, sin, rotary_dim=dr)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin,
+                        rotary_dim=dr)[:, :, 0]
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    if mode in ("train", "prefill"):
+        k, v = _mla_kv(p, cfg, ckv, k_rope)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(q, k, v, q_positions=positions,
+                                k_positions=positions, causal=True,
+                                impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                                sm_scale=scale)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = {"ckv": ckv, "kr": k_rope,
+                         "len": torch.tensor(sq, dtype=torch.int32,
+                                             device=x.device)}
+        return linear(p["wo"], out.reshape(b, sq, -1)), new_cache
+
+    if cache is None:
+        raise ValueError(f"{mode} mode needs a cache")
+    ckv_cache, kr_cache = cache["ckv"], cache["kr"]
+    if mode == "chunked_prefill":
+        # re-materialize per-head K/V over the valid slots only (the JAX
+        # package does so over the whole cache; the masked slots add
+        # nothing), then attend as a prefill at q_off = cursor
+        pos0 = _cursor(cursor)
+        n = pos0 + sq
+        ckv_cache[:, pos0:n] = ckv
+        kr_cache[:, pos0:n] = k_rope
+        k, v = _mla_kv(p, cfg, ckv_cache[:, :n], kr_cache[:, :n])
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = attend_cache_prefix(q, k, v, positions, pos0, cfg,
+                                  sm_scale=scale)
+        out = linear(p["wo"], out.reshape(b, sq, -1))
+        return out, {"ckv": ckv_cache, "kr": kr_cache,
+                     "len": cache["len"] + sq}
+    if mode != "decode":
+        raise ValueError(f"unknown attention mode {mode!r}")
+
+    # decode: the absorbed matmuls in fp32 over the latent cache
+    pos = cache["len"]
+    slot = pos.reshape(1).long()
+    ckv_cache.index_copy_(1, slot, ckv.to(ckv_cache.dtype))
+    kr_cache.index_copy_(1, slot, k_rope.to(kr_cache.dtype))
+    sc = ckv_cache.shape[1]
+    wuk = p["wuk"]["w"].reshape(dc, h, dn).float()
+    q_abs = torch.einsum("bqhn,chn->bqhc", q_nope.float(), wuk)  # [B,Sq,H,dc]
+    ckv_f = ckv_cache.float()
+    s_nope = torch.einsum("bqhc,bsc->bhqs", q_abs, ckv_f)
+    s_rope = torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                          kr_cache.float())
+    scores = (s_nope + s_rope) * scale
+    valid = (torch.arange(sc, device=x.device)[None, None, None, :]
+             <= positions[None, None, :, None])          # absolute positions
+    scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    lat = torch.einsum("bhqs,bsc->bqhc", probs, ckv_f)
+    wuv = p["wuv"]["w"].reshape(dc, h, dv).float()
+    out = torch.einsum("bqhc,chv->bqhv", lat, wuv)
+    out = linear(p["wo"], out.reshape(b, sq, -1).to(x.dtype))
+    return out, {"ckv": ckv_cache, "kr": kr_cache, "len": pos + sq}

@@ -19,7 +19,8 @@ stacked on the invocation axis (``shared_lora["a"]``: [n_inv, d, r],
 layout, stacked on the layer (or invocation) axis:
 
   * dense/moe: ``{"dense_stack"|"moe_stack": {"k", "v": [L, B, Sc, KV,
-    Dh], "len": [L]}}``;
+    Dh], "len": [L]}}``; with MLA (deepseek-v3) ``{"ckv": [L, B, Sc,
+    kv_lora_rank], "kr": [L, B, Sc, qk_rope_dim], "len": [L]}``;
   * ssm: ``{"mamba_stack": {"conv_x": [L, B, K-1, d_inner], "conv_bc":
     [L, B, K-1, 2·G·N], "h": [L, B, H, N, P] fp32}}``;
   * hybrid: the ssm cache plus ``"shared_attn": {"k", "v": [n_inv, B, Sc,
@@ -28,11 +29,18 @@ layout, stacked on the layer (or invocation) axis:
 With a sliding window (``cfg.window``, or the hybrid's
 ``hybrid["attn_window"]`` for its shared block) each attention cache is a
 ring of ``Sc = min(cache_len, window)`` slots (``models/attention.py``).
-Decode writes every cache tensor in place and returns the same dict.  The
-JAX package's sharding constraints (``models/pjit_utils.py``) are hints to
-XLA's partitioner with no meaning on one card, so they are left out.  MLA,
-MTP, the encoder-decoder and learned positions raise: they are not ported
-yet (ROADMAP.md, module step 9).
+Decode and chunked prefill write every cache tensor in place and return
+the same dict; a chunked prefill (``mode="chunked_prefill"``) appends a
+window of tokens at the cache cursor, which the step passes as the Python
+int ``cursor``.  A config with ``mla`` attends with MLA
+(``attention.mla_attention``) in every layer; with ``mtp`` the parameters
+hold DeepSeek-V3's multi-token-prediction block (``params["mtp"]``: the
+norms ``norm_h`` and ``norm_e``, ``proj`` [2·d, d] and one dense
+``layer``), which only the training loss runs, so serving never reads it.
+The JAX package's sharding constraints (``models/pjit_utils.py``) are
+hints to XLA's partitioner with no meaning on one card, so they are left
+out.  The encoder-decoder and learned positions raise: they are not
+ported yet (ROADMAP.md, module step 9).
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ from .layers import (Params, _normal, apply_mlp, apply_norm, embed,
                      init_embedding, init_mlp, init_norm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the modes that write the caller's cache in place
+_IN_PLACE = ("decode", "chunked_prefill")
 
 
 def make_generator(seed: int, device="cuda") -> torch.Generator:
@@ -58,11 +68,10 @@ def make_generator(seed: int, device="cuda") -> torch.Generator:
 
 
 def _check_ported(cfg) -> None:
-    if (cfg.family not in FAMILIES or cfg.mla or cfg.mtp
-            or cfg.pos_emb != "rope"):
+    if cfg.family not in FAMILIES or cfg.pos_emb != "rope":
         raise NotImplementedError(
             f"{cfg.name}: only the {'/'.join(FAMILIES)} families with RoPE "
-            f"and without MLA or MTP are ported (ROADMAP.md, module step 9)")
+            f"are ported (ROADMAP.md, module step 9)")
 
 
 def n_invocations(cfg) -> int:
@@ -81,7 +90,8 @@ def init_decoder_layer(gen, cfg, *, use_moe: bool = False) -> Params:
     dt, dev = cfg.param_dtype, gen.device
     p = {"attn_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
                                 device=dev),
-         "attn": attn.init_gqa(gen, cfg),
+         "attn": (attn.init_mla(gen, cfg) if cfg.mla
+                  else attn.init_gqa(gen, cfg)),
          "mlp_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
                                device=dev)}
     if use_moe:
@@ -93,15 +103,21 @@ def init_decoder_layer(gen, cfg, *, use_moe: bool = False) -> Params:
 
 
 def apply_decoder_layer(p: Params, cfg, x, *, mode: str, cache, positions,
-                        use_moe: bool = False, causal: bool = True):
+                        use_moe: bool = False, causal: bool = True,
+                        cursor: Optional[int] = None):
     """→ ``(x, new_cache, aux, load)``: ``aux`` the MoE layer's
     load-balancing loss and ``load`` its expert load (0.0 and None for an
-    MLP layer)."""
+    MLP layer).  ``cursor``: chunked prefill's tokens cached so far."""
     rs = _residual_scale(cfg)
     h = apply_norm(p["attn_norm"], x, kind=cfg.norm)
-    a_out, new_cache = attn.gqa_attention(p["attn"], cfg, h, mode=mode,
-                                          cache=cache, positions=positions,
-                                          causal=causal)
+    if cfg.mla:
+        a_out, new_cache = attn.mla_attention(p["attn"], cfg, h, mode=mode,
+                                              cache=cache, positions=positions,
+                                              cursor=cursor)
+    else:
+        a_out, new_cache = attn.gqa_attention(p["attn"], cfg, h, mode=mode,
+                                              cache=cache, positions=positions,
+                                              causal=causal, cursor=cursor)
     x = (x + a_out * rs).to(cfg.compute_dtype)
     h = apply_norm(p["mlp_norm"], x, kind=cfg.norm)
     if use_moe:
@@ -149,6 +165,15 @@ def init(gen: torch.Generator, cfg) -> Params:
         if cfg.n_layers > n_dense:
             p["moe_stack"] = [init_decoder_layer(gen, cfg, use_moe=True)
                               for _ in range(cfg.n_layers - n_dense)]
+        if cfg.mtp:
+            # DeepSeek-V3's multi-token-prediction block: one extra block
+            # over proj([norm(h); norm(emb(t+1))]) predicting t+2
+            d = cfg.d_model
+            p["mtp"] = {
+                "norm_h": init_norm(d, kind=cfg.norm, dtype=dt, device=dev),
+                "norm_e": init_norm(d, kind=cfg.norm, dtype=dt, device=dev),
+                "proj": _normal(gen, (2 * d, d), (2 * d) ** -0.5, dt),
+                "layer": init_decoder_layer(gen, cfg)}
         return p
     p["mamba_stack"] = [init_mamba_layer(gen, cfg)
                         for _ in range(cfg.n_layers)]
@@ -168,7 +193,8 @@ def init(gen: torch.Generator, cfg) -> Params:
 
 class _Stack:
     """A cache stacked on a leading axis, read slot by slot.  Prefill fills
-    a new stack as slots come; decode writes the given stack in place."""
+    a new stack as slots come; decode and chunked prefill write the given
+    stack in place."""
 
     def __init__(self, st, n: int, mode: str):
         self.st, self.n, self.mode = st, n, mode
@@ -184,7 +210,7 @@ class _Stack:
         for key, t in nc.items():
             if key == "len":
                 self.lens.append(t)
-            elif self.mode == "decode":      # attention wrote its view
+            elif self.mode in _IN_PLACE:     # attention wrote its view
                 if t.data_ptr() != self.st[key][i].data_ptr():
                     self.st[key][i].copy_(t)
             else:
@@ -193,7 +219,7 @@ class _Stack:
                 self.new[key][i] = t
 
     def result(self):
-        out = dict(self.st if self.mode == "decode" else self.new)
+        out = dict(self.st if self.mode in _IN_PLACE else self.new)
         if self.lens:
             out["len"] = torch.stack(self.lens)
         return out
@@ -202,25 +228,32 @@ class _Stack:
 def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
             cache: Optional[Params] = None,
             positions: Optional[torch.Tensor] = None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, cursor: Optional[int] = None):
     """tokens [B,S] int → ``(logits [B,S,V] fp32 or hidden, aux, cache)``.
 
     decode mode: S==1, ``cache`` required, ``positions`` = [1] current pos;
-    every tensor of the cache is updated in place.
+    every tensor of the cache is updated in place.  chunked_prefill mode:
+    ``cache`` required (capacity for every window), ``positions`` =
+    ``cursor + arange(S)``; the window is appended at ``cursor``, the
+    tokens cached so far as a Python int, which the step knows, so that no
+    layer reads the cache's ``len`` back from the device.
     """
     _check_ported(cfg)
-    if mode not in ("train", "prefill", "decode"):
-        if mode == "chunked_prefill":
-            raise NotImplementedError("chunked prefill is not ported yet "
-                                      "(ROADMAP.md, module step 9)")
+    if mode not in ("train", "prefill", "chunked_prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode == "chunked_prefill" and (cache is None
+                                      or not isinstance(cursor, int)):
+        raise ValueError("chunked_prefill needs a cache and the cursor as a "
+                         f"Python int; got cursor {cursor!r}")
     x = embed(params["embed"], tokens, scale=cfg.scale_emb).to(cfg.compute_dtype)
     sq = tokens.shape[1]
     if positions is None:
         positions = torch.arange(sq, dtype=torch.int32, device=tokens.device)
+        if mode == "chunked_prefill":
+            positions = positions + cursor
     fwd = _dense_forward if cfg.family in ("dense", "moe") else _mamba_forward
     x, aux, new_cache = fwd(params, cfg, x, mode=mode, cache=cache,
-                            positions=positions)
+                            positions=positions, cursor=cursor)
 
     x = apply_norm(params["final_norm"], x, kind=cfg.norm)
     if return_hidden:
@@ -232,7 +265,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
     return logits, aux, new_cache
 
 
-def _dense_forward(params, cfg, x, *, mode, cache, positions):
+def _dense_forward(params, cfg, x, *, mode, cache, positions, cursor):
     """The ``dense_stack`` (MLP layers), then the ``moe_stack`` (MoE
     layers); the sum of the layers' aux losses."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -246,7 +279,7 @@ def _dense_forward(params, cfg, x, *, mode, cache, positions):
         for i, lp in enumerate(stack):
             x, nc, a, _ = apply_decoder_layer(
                 lp, cfg, x, mode=mode, cache=st.slot(i), positions=positions,
-                use_moe=use_moe)
+                use_moe=use_moe, cursor=cursor)
             if use_moe:
                 aux = aux + a
             if mode != "train":
@@ -256,7 +289,7 @@ def _dense_forward(params, cfg, x, *, mode, cache, positions):
     return x, aux, (new_cache if mode != "train" else None)
 
 
-def _mamba_forward(params, cfg, x, *, mode, cache, positions):
+def _mamba_forward(params, cfg, x, *, mode, cache, positions, cursor):
     """The ssm stack, and for the hybrid (zamba2) the shared block before
     every ``attn_every``-th layer: ``idx % attn_every == 0``, invocation
     ``idx // attn_every`` with its own LoRA delta and cache slot."""
@@ -278,7 +311,8 @@ def _mamba_forward(params, cfg, x, *, mode, cache, positions):
                   else _apply_lora_to_attn(shared, lora, inv))
             x, nac, _, _ = apply_decoder_layer(pa, hy_cfg, x, mode=mode,
                                                cache=shared_st.slot(inv),
-                                               positions=positions)
+                                               positions=positions,
+                                               cursor=cursor)
             if mode != "train":
                 shared_st.put(inv, nac)
         x, nc = apply_mamba_layer(lp, cfg, x, mode=mode, cache=ms.slot(i))
@@ -315,11 +349,20 @@ def init_cache(cfg, batch: int, cache_len: int, *, device="cuda") -> Params:
                 "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
                 "len": torch.zeros((n,), dtype=torch.int32, device=dev)}
 
+    def mla_cache(n: int):
+        # the compressed latent and the shared rope key, no ring
+        shape = (n, batch, cache_len)
+        return {"ckv": torch.zeros(shape + (cfg.mla["kv_lora_rank"],),
+                                   dtype=cfg.compute_dtype, device=dev),
+                "kr": torch.zeros(shape + (cfg.mla["qk_rope_dim"],),
+                                  dtype=cfg.compute_dtype, device=dev),
+                "len": torch.zeros((n,), dtype=torch.int32, device=dev)}
+
     if cfg.family in ("dense", "moe"):
         n_dense = _n_dense(cfg)
         sizes = {"dense_stack": n_dense, "moe_stack": cfg.n_layers - n_dense}
-        return {name: kv_cache(n, cfg.window) for name, n in sizes.items()
-                if n}
+        return {name: mla_cache(n) if cfg.mla else kv_cache(n, cfg.window)
+                for name, n in sizes.items() if n}
     per = ssm_lib.init_ssm_cache(cfg, batch, device=dev)
     out = {"mamba_stack": {key: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
                            for key, t in per.items()}}

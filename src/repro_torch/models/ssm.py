@@ -20,8 +20,9 @@ Q, Q] fp32: 470 MB per layer, freed before the next.
 
 ``dt_bias``, ``a_log``, ``d_skip`` and the state ``h`` are fp32 whatever
 ``param_dtype`` is (``layers.FP32_LEAVES``), and the scan runs in fp32.
-Chunked prefill (a prompt in windows over a carried state) is not ported
-yet (ROADMAP.md, module step 9).
+Chunked prefill runs a prompt window by window: each window's scan starts
+from the cached state ``h`` and its convs from the cached tails, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -157,10 +158,10 @@ def mamba2_block(p: Params, cfg, x: torch.Tensor, *, mode: str,
                  cache: Optional[Params] = None):
     """Full Mamba2 block. cache = {"conv_x","conv_bc": tails, "h": state}.
 
-    Returns ``(out, new_cache)``; the new cache is None in train mode."""
-    if mode == "chunked_prefill":
-        raise NotImplementedError("chunked prefill is not ported yet "
-                                  "(ROADMAP.md, module step 9)")
+    Returns ``(out, new_cache)``; the new cache is None in train mode.
+    ``chunked_prefill`` continues from ``cache`` (conv tails and state)."""
+    if mode == "chunked_prefill" and cache is None:
+        raise ValueError("chunked_prefill needs a cache")
     d_in, n, hdim, _, g, nh = _dims(cfg)
     b, s, _ = x.shape
 
@@ -178,8 +179,10 @@ def mamba2_block(p: Params, cfg, x: torch.Tensor, *, mode: str,
     ct = bc[..., g * n:].reshape(b, s, g, n).float()
     xh = xr.reshape(b, s, nh, hdim).float()
 
-    if mode in ("train", "prefill"):
-        y, h_last = _ssd_chunked(xh, bt, ct, dt, a, cfg.ssm.get("chunk", 256))
+    if mode in ("train", "prefill", "chunked_prefill"):
+        h0 = cache["h"].float() if mode == "chunked_prefill" else None
+        y, h_last = _ssd_chunked(xh, bt, ct, dt, a, cfg.ssm.get("chunk", 256),
+                                 h0=h0)
     elif mode == "decode":  # the exact single-step recurrence
         h_prev = cache["h"]                                   # [B,H,N,P] fp32
         dec = torch.exp(dt[:, 0] * a)                         # [B,H]
@@ -197,7 +200,7 @@ def mamba2_block(p: Params, cfg, x: torch.Tensor, *, mode: str,
     y = rms_norm_simple(y * silu(z), p["norm_g"])
     out = linear(p["out"], y)
     new_cache = None
-    if mode in ("prefill", "decode"):
+    if mode in ("prefill", "chunked_prefill", "decode"):
         new_cache = {"conv_x": new_tail_x, "conv_bc": new_tail_bc,
                      "h": h_last.float()}
     return out, new_cache

@@ -813,6 +813,44 @@ def test_flash_attention_kernel(card, case, dtype):
     assert_flash_close(got, want, q, k, v, **kw)
 
 
+# MLA's prefill: q/k head dim 192 (qk_nope 128 + qk_rope 64), v head dim
+# 128, MHA, scale 1/sqrt(192); a chunk after the first attends at q_off =
+# the cursor over cursor + chunk keys
+FLASH_MLA_CASES = [
+    # b, h, sq, sk, q_off
+    (2, 4, 256, 256, 0),
+    (2, 4, 256, 512, 256),       # the second of two 256-token chunks
+    (1, 8, 200, 333, 133),       # ragged: Sq, Sk not multiples of 128
+    (1, 2, 64, 1024, 960),       # one q tile over eight key tiles
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(FLASH_MLA_CASES)))
+def test_flash_attention_kernel_mla_head_dims(card, case, dtype):
+    b, h, sq, sk, q_off = FLASH_MLA_CASES[case]
+    gen = torch.Generator().manual_seed(100 + case)
+    q = torch.randn((b, h, sq, 192), generator=gen).to(card, dtype)
+    k = torch.randn((b, h, sk, 192), generator=gen).to(card, dtype)
+    v = torch.randn((b, h, sk, 128), generator=gen).to(card, dtype)
+    kw = dict(causal=True, q_off=q_off, sm_scale=192 ** -0.5)
+    reset_launch_counts()
+    got = fa_ops.flash_attention_cuda(q, k, v, **kw)
+    assert LAUNCHES[fa_ops.kernel_route(dtype)] == 1
+    want = flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == (b, h, sq, 128)
+    assert_flash_close(got, want, q, k, v, **kw)
+
+
+def test_flash_attention_rejects_pairs_it_has_no_instance_for(card):
+    q = torch.zeros((1, 2, 64, 128), device=card, dtype=torch.bfloat16)
+    v = torch.zeros((1, 2, 64, 64), device=card, dtype=torch.bfloat16)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="q/k 128, v 64"):
+        fa_ops.flash_attention_cuda(q, q, v)
+    assert LAUNCHES["flash_attention_wgmma"] == 0
+
+
 def test_flash_attention_model_layout_on_card(card):
     """[B,S,H,D] views go in and out without copies; "auto" launches the
     kernel on CUDA tensors; decode (k_valid_len) takes the plain path."""

@@ -115,7 +115,7 @@ def test_registry_names_and_refusals():
     with pytest.raises(KeyError):
         get_config("gpt-5")
     unported = [arch for arch in ARCH_IDS if arch not in PORTED]
-    assert unported == ["whisper_medium", "deepseek_v3_671b"]
+    assert unported == ["whisper_medium"]
     for arch in unported:
         with pytest.raises(NotImplementedError, match="module step 9"):
             get_smoke(arch)
@@ -401,18 +401,36 @@ def test_not_ported_paths_raise(smoke_models):
     _, tc, _, tparams = smoke_models["f32"]
     x = torch.zeros(1, 4, tc.d_model)
     tp = tparams["dense_stack"][0]["attn"]
-    with pytest.raises(NotImplementedError, match="module step 9"):
-        TA.gqa_attention(tp, tc, x, mode="chunked_prefill", cache={})
-    for fn in (TA.cross_attention, TA.encode_cross_kv, TA.init_mla,
-               TA.mla_attention):
+    # cross-attention and learned positions are still to port (step 9d)
+    for fn in (TA.cross_attention, TA.encode_cross_kv):
         with pytest.raises(NotImplementedError, match="module step 9"):
             fn()
-    with pytest.raises(NotImplementedError, match="module step 9"):
-        TS.make_prefill_step(tc.replace(prefill_chunk=2))
-    for bad in (dict(family="encdec"), dict(mla={"kv_lora_rank": 8}),
-                dict(mtp=True), dict(pos_emb="learned")):
+    for bad in (dict(family="encdec"), dict(pos_emb="learned")):
         with pytest.raises(NotImplementedError, match="module step 9"):
             TM.init_cache(tc.replace(**bad), 1, 4, device="cpu")
+    # ported in step 9c: chunked prefill, MLA and the MTP block
+    cache = TM.init_cache(tc, 1, 8, device="cpu")["dense_stack"]
+    out, new = TA.gqa_attention(tp, tc, x, mode="chunked_prefill",
+                                cache={key: t[0] for key, t in cache.items()},
+                                cursor=0)
+    assert out.shape == x.shape and int(new["len"]) == 4
+    assert new["k"].shape == (1, 8, tc.n_kv_heads, tc.dh)
+    step = TS.make_prefill_step(tc.replace(prefill_chunk=2))
+    logits, pcache = step(tparams, torch.zeros(1, 4, dtype=torch.int32))
+    assert logits.shape == (1, tc.vocab)
+    assert pcache["dense_stack"]["k"].shape[2] == 4
+    mla = {"q_lora_rank": 24, "kv_lora_rank": 8, "qk_nope_dim": 16,
+           "qk_rope_dim": 8, "v_head_dim": 16}
+    mc = tc.replace(mla=mla)
+    mp = TA.init_mla(TM.make_generator(0, "cpu"), mc)
+    assert mp["wuq"]["w"].shape == (24, tc.n_heads * 24)
+    out, mcache = TA.mla_attention(mp, mc, x, mode="prefill")
+    assert out.shape == x.shape
+    assert mcache["ckv"].shape == (1, 4, 8) and mcache["kr"].shape == (1, 4, 8)
+    ic = TM.init_cache(mc.replace(mtp=True), 1, 4, device="cpu")
+    assert ic["dense_stack"]["ckv"].shape == (tc.n_layers, 1, 4, 8)
+    mtp = TM.init(TM.make_generator(0, "cpu"), tc.replace(mtp=True))["mtp"]
+    assert mtp["proj"].shape == (2 * tc.d_model, tc.d_model)
     # ported since module step 9b: a window (a ring of min(len, window)
     # slots, also on the hybrid's shared block) and the moe family
     assert TM.init_cache(tc.replace(window=4), 1, 6, device="cpu")[
@@ -428,7 +446,7 @@ def test_not_ported_paths_raise(smoke_models):
         == 4
     assert "moe" in TM.init(TM.make_generator(0, "cpu"),
                             moe.replace(family="moe"))["moe_stack"][0]
-    with pytest.raises(NotImplementedError, match="module step 9"):
+    with pytest.raises(ValueError, match="needs a cache"):
         TM.forward(tparams, tc, torch.zeros(1, 4, dtype=torch.int32),
                    mode="chunked_prefill")
     for ported in ("ssm", "hybrid", "moe"):   # ported in steps 9a and 9b

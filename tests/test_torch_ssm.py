@@ -233,11 +233,26 @@ def test_chunked_equals_stepwise():
 
 
 def test_chunked_prefill_is_not_ported(mixers):
+    """Chunked prefill is ported since module step 9c
+    (``test_torch_chunked.py``): two windows from a zeroed cache give the
+    one-shot prefill's output and state, and it needs a cache."""
     jc, tc, jp, tp = mixers["f32"]
-    with pytest.raises(NotImplementedError, match="module step 9"):
-        TSSM.mamba2_block(tp, tc, torch.zeros(1, 4, tc.d_model),
-                          mode="chunked_prefill", cache={})
-    with pytest.raises(NotImplementedError, match="module step 9"):
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(1, 16, tc.d_model)).astype(np.float32))
+    one, one_cache = TSSM.mamba2_block(tp, tc, x, mode="prefill")
+    cache = TSSM.init_ssm_cache(tc, 1, device="cpu")
+    outs = []
+    for lo in (0, 8):
+        out, cache = TSSM.mamba2_block(tp, tc, x[:, lo:lo + 8],
+                                       mode="chunked_prefill", cache=cache)
+        outs.append(out)
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), one.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(cache["h"].numpy(), one_cache["h"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="needs a cache"):
+        TSSM.mamba2_block(tp, tc, x, mode="chunked_prefill")
+    with pytest.raises(ValueError, match="needs a cache"):
         TM.forward({}, tc, torch.zeros(1, 4, dtype=torch.int32),
                    mode="chunked_prefill")
 
