@@ -23,7 +23,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      prefill, layer 0's attention output by both routes, and the kernel
      alone at the path's shape (plus a window case and a ``q_off > 0``
      case);
-   * the families phase (module steps 9a-9c), each config through the
+   * the families phase (module steps 9a-9d), each config through the
      same serve driver with the counters reset before it: zamba2-7b uncut
      (81 mamba layers, d_model 3584, 112 SSM heads, the shared attention
      block invoked 14 times with its LoRA ``b`` drawn from N(0, 0.1^2))
@@ -35,11 +35,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      deepseek-v3-671b at full width and 4 of its 61 layers (MLA, the three
      dense layers and one MoE layer of 256 experts top-8 with the sigmoid
      router and a shared expert; its MTP block built, not run), batch 2 x
-     8192 through its own ``prefill_chunk`` of 4096, 32 tokens.
-     ``flash_attention`` must launch once per attention layer or
-     shared-block invocation and prefill chunk (14 for zamba2, 0 for
-     mamba2, 2 for the dense ones and mixtral, 8 for deepseek-v3), all on
-     the wgmma route, after one warm-up prefill; for the MoE configs the
+     8192 through its own ``prefill_chunk`` of 4096, 32 tokens;
+     whisper-medium uncut (24 encoder and 24 decoder layers, d_model 1024,
+     1,371,031,552 parameters, over seeded normal frame embeddings [4,
+     1500, 1024]), batch 4 x 2048, 32 tokens.  ``flash_attention`` must
+     launch once per attention layer or shared-block invocation and
+     prefill chunk (14 for zamba2, 0 for mamba2, 2 for the dense ones and
+     mixtral, 8 for deepseek-v3); whisper's prefill launches it in its 24
+     encoder layers (non-causal over the 1500 frames), 24 decoder layers
+     and 24 cross-attentions, and each decode step in its 24
+     cross-attentions (72 + 24 x 32); all on the wgmma route, after one
+     warm-up prefill; for the MoE configs the
      share of routed (token, expert) entries the prefill dropped is
      printed per layer, and decode must drop none.  Outside the
      count: the kernel route's prefill logits against the plain route's
@@ -50,7 +56,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      exceed on both sides, since a prefill may drop what decode never
      does; deepseek-v3's decode check prefills in chunks of 128, since a
      no-drop capacity over a 4096-token chunk needs a 30 GB dispatch
-     buffer).  mamba2 and zamba2 take both checks on the same weights in
+     buffer; whisper's prefills take the same frames, and its checks run
+     in bf16 unless the plain route's bf16-against-fp32 spread on the
+     same weights, printed, exceeds 2^-4).  mamba2 and zamba2 take both
+     checks on the same weights in
      fp32 (the flash kernel's fp32 route): at their full depth bf16
      rounding alone moves their logits by 9% and 49% on an H100 (the plain
      route in bf16 against fp32, printed beside, not gated).  Then the
@@ -59,8 +68,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      boolean mask; deepseek-v3's two prefill chunks at q/k head dim 192
      and v head dim 128, the second at ``q_off`` 4096 over 8192 keys, SDPA
      given that offset as a boolean mask, the plain version run over 16
-     blocks of heads) against its plain version, timed beside its bound
-     and SDPA (the ``[serve path] <arch>`` lines);
+     blocks of heads; whisper's four: the encoder's 1500 x 1500 and the
+     prefill's 2048 x 1500 cross-attention, non-causal, its decoder's
+     causal 2048 x 2048, and a decode step's 1 x 1500 cross-attention,
+     SDPA given no mask for the non-causal ones) against its plain
+     version, timed beside its bound and SDPA (the ``[serve path] <arch>``
+     lines);
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -274,7 +287,7 @@ LOGITS_REL_TOL = 2 ** -4
 # SSD scan keeps its chunk of 128)
 FAMILY_ARCHS = ("zamba2-7b", "mamba2-130m", "chatglm3-6b", "starcoder2-7b",
                 "minicpm-2b", "chameleon-34b", "mixtral-8x22b",
-                "deepseek-v3-671b")
+                "deepseek-v3-671b", "whisper-medium")
 FAMILY_DENSE_LAYERS = 2
 # mixtral-8x22b (module step 9b) at full width and FAMILY_DENSE_LAYERS
 # layers, with traffic of its own: a prompt of one and a half windows (4096
@@ -293,11 +306,20 @@ MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 6144, 32
 MLA_ARCH = "deepseek-v3-671b"
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 2, 8192, 32
 MLA_DECODE_CHUNK = 128
+# whisper-medium (module step 9d) uncut: 24 encoder and 24 decoder layers
+# over seeded normal frame embeddings [4, 1500, 1024] (the stub frontend's
+# output), batch 4 x 2048 (its learned-position table holds max_seq
+# 544,768 rows; the published decoder context is 448), 32 tokens.  The
+# flash kernel runs non-causally in the encoder and in every
+# cross-attention, prefill and decode alike: 72 launches a prefill and 24
+# a decode step
+ENCDEC_ARCH, ENCDEC_GEN = "whisper-medium", 32
 FAMILY_LAYERS = {MLA_ARCH: 4}             # the other dense and MoE ones: 2
 FAMILY_TRAFFIC = {"mixtral-8x22b": (MOE_BATCH, MOE_PROMPT),
                   MLA_ARCH: (MLA_BATCH, MLA_PROMPT)}   # the others: 4 x 2048
 FAMILY_GEN = {"zamba2-7b": 32, "mamba2-130m": 32,      # the dense ones: 8
-              "mixtral-8x22b": MOE_GEN, MLA_ARCH: MLA_GEN}
+              "mixtral-8x22b": MOE_GEN, MLA_ARCH: MLA_GEN,
+              ENCDEC_ARCH: ENCDEC_GEN}
 # the serve path's prompt in two windows (qwen3-1.7b's chunked prefill,
 # held to its one-shot prefill)
 SERVE_PREFILL_CHUNK = 1024
@@ -911,17 +933,19 @@ def heads_sliced(fn, q, k, v, n):
 
 
 def flash_alone(name, b, h, kv, s, d, gen, failures, window=None, *,
-                dv=None, sk=None, q_off=0, slices=1, label=None) -> dict:
-    """``flash_attention`` alone at one config's prefill shape (bf16,
-    causal, with the config's sliding window if it has one; seeded normal
-    q [b, h, s, d], k [b, kv, sk, d] and v [b, kv, sk, dv], queries from
-    ``q_off``): held against its plain version within ``flash_check``'s
-    bounds, and timed beside its bound and SDPA.  SDPA has no window or
-    query offset argument (``is_causal`` aligns the diagonal top-left), so
-    a window or an offset goes to it as an explicit boolean mask (the
-    backend its dispatcher picks for that is printed).  ``slices`` > 1
-    runs the plain version (and the bound) over that many blocks of
-    heads, timed as one call of all of them."""
+                dv=None, sk=None, q_off=0, slices=1, label=None,
+                causal=True) -> dict:
+    """``flash_attention`` alone at one config's attention shape (bf16,
+    causal unless ``causal=False``, with the config's sliding window if it
+    has one; seeded normal q [b, h, s, d], k [b, kv, sk, d] and v [b, kv,
+    sk, dv], queries from ``q_off``): held against its plain version within
+    ``flash_check``'s bounds, and timed beside its bound and SDPA.  SDPA
+    has no window or query offset argument (``is_causal`` aligns the
+    diagonal top-left), so a window or an offset goes to it as an explicit
+    boolean mask; a non-causal shape goes to it with no mask (the backend
+    its dispatcher picks is printed for both).  ``slices`` > 1 runs the
+    plain version (and the bound) over that many blocks of heads, timed as
+    one call of all of them."""
     import torch
     import torch.nn.functional as F
 
@@ -934,7 +958,7 @@ def flash_alone(name, b, h, kv, s, d, gen, failures, window=None, *,
                     dtype=torch.bfloat16)
     v = torch.randn((b, kv, sk, dv), generator=gen, device=DEVICE,
                     dtype=torch.bfloat16)
-    masks = dict(causal=True, window=window, q_off=q_off)
+    masks = dict(causal=causal, window=window, q_off=q_off)
 
     def plain(qq, kk, vv):
         return flash_attention_ref(qq, kk, vv, **masks)
@@ -950,7 +974,8 @@ def flash_alone(name, b, h, kv, s, d, gen, failures, window=None, *,
     del got, want
     ok = worst <= 1.0 and rel <= 2 ** -7
     shape = (f"q {b} x {h} x {s} x {d}, k {b} x {kv} x {sk} x {d}, v "
-             f"{b} x {kv} x {sk} x {dv}, causal"
+             f"{b} x {kv} x {sk} x {dv}, "
+             + ("causal" if causal else "non-causal")
              + (f", window {window}" if window else "")
              + (f", q_off {q_off}" if q_off else ""))
     label = label or f"{name}'s shape"
@@ -962,7 +987,12 @@ def flash_alone(name, b, h, kv, s, d, gen, failures, window=None, *,
         failures.append(f"flash_attention at {label}: |err|/bound "
                         f"{worst}, relative L2 {rel}")
     torch.cuda.synchronize()
-    if window is None and q_off == 0 and sk == s:
+    if not causal and window is None:
+        backend = f"no mask, {sdpa_backend(q, k, v, None)}"
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    elif window is None and q_off == 0 and sk == s:
         backend = "is_causal"
 
         def library():
@@ -986,7 +1016,7 @@ def flash_alone(name, b, h, kv, s, d, gen, failures, window=None, *,
     except RuntimeError as exc:       # no SDPA backend takes these inputs
         lib_ms, backend = None, f"{backend}: {str(exc).splitlines()[0]}"
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + b * h * s * dv)
-    n_ops = (2 * (d + dv) * visible_pairs(s, sk, True, window=window,
+    n_ops = (2 * (d + dv) * visible_pairs(s, sk, causal, window=window,
                                           q_off=q_off) * b * h)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_FLOP_PER_S * 1e3
@@ -1010,7 +1040,7 @@ def flash_alone(name, b, h, kv, s, d, gen, failures, window=None, *,
             "bound_by": by}
 
 
-def serve_checks(cfg, params, prompts, p, decode_cfg=None):
+def serve_checks(cfg, params, prompts, p, decode_cfg=None, enc=None):
     """The route check (the kernel route's prefill logits against the
     plain route's) and the decode check (``FAMILY_TEACHER`` teacher-forced
     decode steps after the prompt against one prefill over all those
@@ -1019,7 +1049,8 @@ def serve_checks(cfg, params, prompts, p, decode_cfg=None):
     between the two routes' prefills (None without MoE).  The decode check
     runs at ``decode_cfg`` on both sides (default ``cfg``): a MoE config
     passes one whose capacity no expert can exceed, since a prefill may
-    drop entries that decode, one token at a time, never drops."""
+    drop entries that decode, one token at a time, never drops.  An
+    encoder-decoder's prefills all take the frame embeddings ``enc``."""
     import torch
 
     from repro_torch.launch import serve as serve_lib
@@ -1029,9 +1060,9 @@ def serve_checks(cfg, params, prompts, p, decode_cfg=None):
     decode_cfg = decode_cfg or cfg
     with moe_lib.routing_log() as plain_routes:
         plain, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
-            params, prompts[:, :p])
+            params, prompts[:, :p], enc)
     with moe_lib.routing_log() as kernel_routes:
-        logits, cache = make_prefill_step(cfg)(params, prompts[:, :p])
+        logits, cache = make_prefill_step(cfg)(params, prompts[:, :p], enc)
     checks = {"prefill logits, kernel vs plain route": rel_err(logits, plain)}
     flips = None
     if cfg.moe:
@@ -1041,14 +1072,15 @@ def serve_checks(cfg, params, prompts, p, decode_cfg=None):
     del plain_routes, kernel_routes
     if decode_cfg is not cfg:
         del cache
-        logits, cache = make_prefill_step(decode_cfg)(params, prompts[:, :p])
+        logits, cache = make_prefill_step(decode_cfg)(params, prompts[:, :p],
+                                                      enc)
     cache = serve_lib.repack_cache(cache, p + FAMILY_TEACHER,
                                    window=serve_lib.attention_window(cfg))
     step = make_serve_step(decode_cfg)
     for t in range(p, p + FAMILY_TEACHER):
         logits, cache = step(params, cache, prompts[:, t:t + 1], t)
     del cache
-    ext_logits, _ = make_prefill_step(decode_cfg)(params, prompts)
+    ext_logits, _ = make_prefill_step(decode_cfg)(params, prompts, enc)
     checks[f"{FAMILY_TEACHER} decode steps vs prefill of "
            f"{p + FAMILY_TEACHER}"] = rel_err(logits, ext_logits)
     return checks, plain, flips
@@ -1066,16 +1098,29 @@ def to_fp32(tree):
     return tree
 
 
+def flash_launches_wanted(cfg, n_chunks: int, g: int) -> int:
+    """The flash launches of one served run: one per attention layer or
+    shared-block invocation and prefill chunk; whisper's prefill adds its
+    encoder layers and a cross-attention per decoder layer, and its decode
+    one cross-attention per decoder layer and step (no ``k_valid_len``)."""
+    from repro_torch.models.model import n_invocations
+    if cfg.family == "encdec":
+        return (cfg.encdec["enc_layers"] + 2 * cfg.n_layers
+                + g * cfg.n_layers)
+    return n_chunks * (n_invocations(cfg) if cfg.family == "hybrid"
+                       else 0 if cfg.family == "ssm" else cfg.n_layers)
+
+
 def families_phase(dev, report, failures) -> int:
-    """Module steps 9a-9c on the card: each config of ``FAMILY_ARCHS``
+    """Module steps 9a-9d on the card: each config of ``FAMILY_ARCHS``
     served through ``repro_torch.launch.serve`` (counted: ``flash_attention``
-    once per attention layer or shared-block invocation of the prefill, and
-    per prefill chunk where the config prefills window by window, all on
-    the wgmma route), its route and decode checks, and the kernel alone
-    at its shape (deepseek-v3: at both chunks' shapes).  For mixtral-8x22b also the share of routed (token,
-    expert) entries that the served prefill dropped at capacity, per layer,
-    and the routes whose experts differ between the check's two attention
-    routes.  Returns the flash launches of the counted runs."""
+    as :func:`flash_launches_wanted` says, all on the wgmma route), its
+    route and decode checks, and the kernel alone at its shape (deepseek-v3:
+    at both chunks' shapes; whisper-medium: at its four).  For the MoE
+    configs also the share of routed (token, expert) entries that the
+    served prefill dropped at capacity, per layer, and the routes whose
+    experts differ between the check's two attention routes.  Returns the
+    flash launches of the counted runs."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1102,28 +1147,33 @@ def families_phase(dev, report, failures) -> int:
             params["shared_lora"]["b"].normal_(0.0, LORA_B_STD, generator=gen)
         prompts = torch.randint(0, cfg.vocab, (b, p + FAMILY_TEACHER),
                                 generator=gen, device=dev, dtype=torch.int32)
+        encdec = cfg.family == "encdec"
+        enc = serve_lib.frame_embeddings(cfg, b, gen) if encdec else None
         torch.cuda.synchronize()
         row = {"layers": cfg.n_layers, "params": M.param_count(params),
                "init_s": time.perf_counter() - t0,
                "weights_gb": torch.cuda.memory_allocated() / 1e9}
-        want = n_chunks * (M.n_invocations(cfg) if cfg.family == "hybrid"
-                           else 0 if cfg.family == "ssm" else cfg.n_layers)
+        want = flash_launches_wanted(cfg, n_chunks, g)
         cut = (f", {full_layers - cfg.n_layers} of {full_layers} layers cut"
                if cfg.n_layers < full_layers else "")
         chunked = (f", prefill in {n_chunks} chunks of {cfg.prefill_chunk}"
                    if cfg.prefill_chunk else "")
+        if encdec:
+            chunked = (f", {cfg.encdec['enc_frames']} frames of seeded "
+                       f"normal embeddings, {cfg.encdec['enc_layers']} "
+                       f"encoder layers")
 
         # a warm-up prefill outside the count (cuBLAS and the caching
         # allocator meet these shapes here), then the counted run: prefill,
         # repack, greedy decode
         t0 = time.perf_counter()
-        make_prefill_step(cfg)(params, prompts[:, :p])
+        make_prefill_step(cfg)(params, prompts[:, :p], enc)
         torch.cuda.synchronize()
         row["cold_prefill_s"] = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         with moe_lib.routing_log() as routes:
-            res = serve_lib.serve(params, cfg, prompts[:, :p], g)
+            res = serve_lib.serve(params, cfg, prompts[:, :p], g, enc)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         flash_launches += launches["flash_attention_wgmma"]
@@ -1131,6 +1181,7 @@ def families_phase(dev, report, failures) -> int:
                    decode_ms_per_token=1e3 * res["decode_s"] / g,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                    launches={k: n for k, n in launches.items() if n})
+        # a zeroed decode cache (whisper's with its cross K/V)
         step_cache = M.init_cache(cfg, b, 2, device=dev)
         row["torch_calls_per_decode_step"] = torch_calls(
             lambda: make_serve_step(cfg)(params, step_cache, prompts[:, :1],
@@ -1153,7 +1204,7 @@ def families_phase(dev, report, failures) -> int:
                             f"{launches['flash_attention_wgmma']} times on "
                             f"the wgmma route and "
                             f"{launches['flash_attention']} on the fp32 "
-                            f"route in one prefill (want {want} and 0)")
+                            f"route in one served run (want {want} and 0)")
         if cfg.moe:
             # the prefill's records come first, chunk by chunk and in a
             # chunk one a layer; then decode's
@@ -1212,6 +1263,31 @@ def families_phase(dev, report, failures) -> int:
                     f"kernel and the plain route's prefill, per MoE call "
                     f"(chunk by chunk, a layer each): {flips} (of "
                     f"{b * p // n_chunks} tokens each)")
+        elif encdec:
+            # bf16, as for the dense configs, unless the random init's bf16
+            # spread alone (the plain route in bf16 against fp32 on the
+            # same weights, printed either way) exceeds the tolerance: then
+            # fp32, as for the SSM families, and the bf16 checks not gated
+            row["checks"], plain_bf16, _ = serve_checks(cfg, params, prompts,
+                                                        p, enc=enc)
+            cfg32 = cfg.replace(param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+            plain32, _ = make_prefill_step(cfg32.replace(attn_impl="ref"))(
+                to_fp32(params), prompts[:, :p], enc)
+            spread = rel_err(plain_bf16, plain32)
+            row["bf16_spread"] = {"plain route, bf16 vs fp32": spread}
+            del plain_bf16, plain32
+            in_bf16 = spread <= LOGITS_REL_TOL
+            if not in_bf16:
+                row["bf16_checks"] = row["checks"]
+                row["checks"], _, _ = serve_checks(cfg32, params, prompts, p,
+                                                   enc=enc)
+            log(f"[serve check] {arch}: bf16 spread of the random init, plain "
+                f"route bf16 vs fp32 on the same weights, {spread:.3e}; the "
+                f"checks run in {'bf16' if in_bf16 else 'fp32'}"
+                + ("" if in_bf16 else " (bf16, not gated: " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in row["bf16_checks"].items())
+                    + ")"))
         else:
             plain_bf16, _ = make_prefill_step(cfg.replace(attn_impl="ref"))(
                 params, prompts[:, :p])
@@ -1234,7 +1310,7 @@ def families_phase(dev, report, failures) -> int:
                 f"{LOGITS_REL_TOL:.3e})")
             if not ok:
                 failures.append(f"{arch} serve check {name}: {err}")
-        del params, kernel_bf16, prompts
+        del params, kernel_bf16, prompts, enc
         torch.cuda.empty_cache()
 
         if cfg.mla:
@@ -1246,6 +1322,20 @@ def families_phase(dev, report, failures) -> int:
                 m["qk_nope_dim"] + m["qk_rope_dim"], gen, failures,
                 dv=m["v_head_dim"], sk=c * (i + 1), q_off=c * i, slices=16,
                 label=f"{arch}'s chunk {i + 1}") for i in range(n_chunks)]
+            torch.cuda.empty_cache()
+        elif encdec:
+            # the encoder's self-attention and the prefill's and a decode
+            # step's cross-attention (non-causal over the frames), and the
+            # decoder's causal self-attention
+            f = cfg.encdec["enc_frames"]
+            row["flash"] = [flash_alone(
+                arch, b, cfg.n_heads, cfg.n_kv_heads, s, cfg.dh, gen,
+                failures, sk=sk, causal=causal, label=f"{arch}'s {what}")
+                for what, s, sk, causal in (
+                    ("encoder self-attention", f, f, False),
+                    ("prefill cross-attention", p, f, False),
+                    ("decoder self-attention", p, p, True),
+                    ("decode cross-attention", 1, f, False))]
             torch.cuda.empty_cache()
         elif cfg.family != "ssm":
             row["flash"] = flash_alone(arch, b, cfg.n_heads, cfg.n_kv_heads,

@@ -4,9 +4,8 @@ D4M benchmark workload in ``d4m_bench``).
 ``get_config(name)`` → full published config; ``get_smoke(name)`` → reduced
 same-family config for CPU smoke tests; ``shapes_for(name)`` → the
 assigned shape cells.  The registry names the same ten architectures as
-the JAX package; only those in :data:`PORTED` have a config module here
-yet, and asking for another raises and names the ROADMAP step that ports
-it.
+the JAX package, and every one of them is in :data:`PORTED`: each has a
+config module here and serves (training is ROADMAP.md's module step 9e).
 """
 from __future__ import annotations
 
@@ -28,9 +27,7 @@ ARCH_IDS: List[str] = [
     "mamba2_130m",
     "zamba2_7b",
 ]
-PORTED: List[str] = ["chatglm3_6b", "qwen3_1_7b", "starcoder2_7b",
-                      "minicpm_2b", "chameleon_34b", "mamba2_130m",
-                      "zamba2_7b", "mixtral_8x22b", "deepseek_v3_671b"]
+PORTED: List[str] = list(ARCH_IDS)     # all ten serve (module steps 9-9d)
 
 
 def _normalize(name: str) -> str:
@@ -41,10 +38,6 @@ def _mod(name: str):
     name = _normalize(name)
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md, module step 9: "
-            f"the LLM scaffold); ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

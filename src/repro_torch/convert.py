@@ -17,12 +17,15 @@ Model parameters and decode caches move the same way
 :func:`from_jax_cache`/:func:`to_numpy_cache`).  Both packages keep the
 same leaves under the same names, and a linear weight ``w`` as
 ``[d_in, d_out]`` (``y = x @ w``).  The JAX package stacks the layers on
-axis 0 under ``dense_stack``, ``moe_stack`` and ``mamba_stack``; the port
-keeps a list of per-layer dicts, as long as the stack's leading axis (a
+axis 0 under ``dense_stack``, ``moe_stack``, ``mamba_stack``,
+``enc_stack`` and ``dec_stack``; the port keeps a list of per-layer dicts,
+as long as the stack's leading axis (a
 moe config's ``first_dense`` layers are its ``dense_stack``, the rest its
 ``moe_stack``; the hybrid's ``shared`` block is one layer, and its
 ``shared_lora`` stays stacked on the invocation axis in both; deepseek-v3's
-``mtp`` block is one unstacked subtree in both).  numpy has
+``mtp`` block is one unstacked subtree in both; whisper's learned
+positions ``pos`` and its encoder's ``enc_pos`` are plain leaves, and its
+cache's ``cross_kv`` is a ``k``/``v`` stack with no ``len``).  numpy has
 no bfloat16, so bf16 leaves travel as float32 (exact both ways); the
 leaves that the JAX init keeps in fp32 at any ``param_dtype``
 (``models.layers.FP32_LEAVES``: the SSM mixer's and the MoE router's) and
@@ -42,7 +45,8 @@ from .core.mesh import Mesh
 from .models.layers import FP32_LEAVES
 
 # the parameter stacks that the JAX package stacks on a leading layer axis
-LAYER_STACKS = ("dense_stack", "moe_stack", "mamba_stack")
+LAYER_STACKS = ("dense_stack", "moe_stack", "mamba_stack", "enc_stack",
+                "dec_stack")
 
 __all__ = ["from_jax_cache", "from_jax_dist_state", "from_jax_params",
            "from_jax_state", "to_numpy_cache", "to_numpy_dist_state",

@@ -6,6 +6,8 @@
         --smoke --device cpu                          # small, on the host
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --smoke --device cpu --prefill-chunk 8        # window by window
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --batch 4 --prompt-len 2048  # 1500 frames
 
 One prefill step runs the whole prompt (the flash-attention kernel on the
 card; window by window through the cache when the config sets
@@ -15,13 +17,15 @@ copied into a static decode cache of capacity prompt + gen (a ring and an
 SSM's state carry over as they are), and a single-token serve step is
 iterated.  Every architecture of
 ``repro_torch.configs.PORTED`` serves.  Weights are random, drawn from
-``--seed``.
+``--seed``; an encoder-decoder (whisper) also gets seeded normal frame
+embeddings [B, frames, d_model] for its stub frontend, which the prefill
+encodes once (its cross K/V are cached; decode takes no frames).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -47,17 +51,20 @@ def repack_cache(cache: Dict[str, Any], capacity: int, *,
     """A prefill cache (capacity = prompt length) copied into a zeroed
     decode cache of ``capacity`` slots; ``len`` stays the prompt length.
     Attention stacks (``k``/``v``: [n, B, S, KV, Dh]; MLA's ``ckv``/``kr``:
-    [n, B, S, width]) are padded on their sequence axis; the SSM
-    stack (conv tails and state) carries no sequence axis and passes
-    through unchanged, and so does a ring cache of ``window`` slots (a
-    sliding window's: decode writes slot ``pos % slots``, so padding would
-    move every slot) — what the JAX package's ``init_cache`` does with
-    ``min(cache_len, window)``."""
+    [n, B, S, width]) are padded on their sequence axis.  A stack with no
+    ``len`` passes through unchanged: the SSM stack (conv tails and state)
+    has no sequence axis, and an encoder-decoder's cross K/V (``cross_kv``)
+    span the encoder's frames, which decode reads and never appends to
+    (padded keys would take softmax weight in its non-causal attention).
+    So does a ring cache of ``window`` slots (a sliding window's: decode
+    writes slot ``pos % slots``, so padding would move every slot) — what
+    the JAX package's ``init_cache`` does with ``min(cache_len,
+    window)``."""
     out = {}
     for name, st in cache.items():
         seq = [key for key in ("k", "v", "ckv", "kr") if key in st]
-        if not seq or (window is not None and "k" in st
-                       and st["k"].shape[2] == window):
+        if "len" not in st or (window is not None and "k" in st
+                               and st["k"].shape[2] == window):
             out[name] = st
             continue
         s = st[seq[0]].shape[2]
@@ -73,8 +80,10 @@ def repack_cache(cache: Dict[str, Any], capacity: int, *,
     return out
 
 
-def serve(params, cfg, prompts: torch.Tensor, gen: int) -> Dict[str, Any]:
-    """Prefill ``prompts`` [B, P], repack, and decode ``gen`` greedy tokens.
+def serve(params, cfg, prompts: torch.Tensor, gen: int,
+          enc_inputs: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """Prefill ``prompts`` [B, P] (an encoder-decoder's with the frame
+    embeddings ``enc_inputs``), repack, and decode ``gen`` greedy tokens.
 
     Returns the generated tokens [B, gen], the prefill logits, the last
     step's logits, the prefill cache's length and the two phases' seconds
@@ -84,7 +93,7 @@ def serve(params, cfg, prompts: torch.Tensor, gen: int) -> Dict[str, Any]:
     prefill_step = S.make_prefill_step(cfg)
     serve_step = S.make_serve_step(cfg)
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, prompts)
+    logits, cache = prefill_step(params, prompts, enc_inputs)
     cache = repack_cache(cache, p + gen, window=attention_window(cfg))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -102,6 +111,15 @@ def serve(params, cfg, prompts: torch.Tensor, gen: int) -> Dict[str, Any]:
     return {"tokens": torch.cat(out_tokens, dim=1), "logits": logits,
             "prefill_logits": prefill_logits, "cache": cache,
             "prefill_s": t_prefill, "decode_s": t_decode}
+
+
+def frame_embeddings(cfg, batch: int, gen: torch.Generator) -> torch.Tensor:
+    """The stub frontend's output: seeded normal frames [batch, frames,
+    d_model] in ``cfg.compute_dtype`` on the generator's device (the JAX
+    serve driver's ``enc``)."""
+    shape = (batch, cfg.encdec["enc_frames"], cfg.d_model)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).to(cfg.compute_dtype)
 
 
 def main(argv=None) -> int:
@@ -128,9 +146,11 @@ def main(argv=None) -> int:
     b, p, g = args.batch, args.prompt_len, args.gen
     prompts = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev,
                             dtype=torch.int32)
+    enc = (frame_embeddings(cfg, b, gen) if cfg.family == "encdec"
+           else None)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    res = serve(params, cfg, prompts, g)
+    res = serve(params, cfg, prompts, g, enc)
     t_prefill, t_decode = res["prefill_s"], res["decode_s"]
     gen_ids = res["tokens"].cpu()
     print(f"[serve] batch={b} prefill({p} tok)={t_prefill:.2f}s "

@@ -1,12 +1,14 @@
 """Step builders: prefill (one-shot, or chunked window by window when the
 config sets ``prefill_chunk``) and serve (one decode step), for every
 family of ``models/model.py`` (dense, MoE with or without a sliding window
-or MLA, SSM, hybrid).
+or MLA, SSM, hybrid, encoder-decoder).  The encoder-decoder's prefill takes
+the frame embeddings and caches the encoder's cross K/V; its serve step
+reads them from the cache and takes no frames.
 
-The JAX package's ``launch/steps.py`` also builds the train step and the
-jitted, sharded variants for its dry-run; those have no port yet
-(ROADMAP.md, module step 9).  PyTorch runs eagerly, so each builder
-returns a plain function.
+The JAX package's ``launch/steps.py`` also builds the train step
+(ROADMAP.md, module step 9e) and the jitted, sharded variants for its
+dry-run (step 10); those have no port yet.  PyTorch runs eagerly, so each
+``make_*_step`` returns a plain function.
 """
 from __future__ import annotations
 
@@ -26,19 +28,18 @@ def _unembed_last(params, cfg: ModelConfig, hidden: torch.Tensor):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, tokens [B,S]) → (last-position logits [B,V] fp32, cache with
-    capacity S); with ``cfg.prefill_chunk`` set, window by window
-    (:func:`_make_chunked_prefill_step`)."""
+    """(params, tokens [B,S], enc_inputs) → (last-position logits [B,V]
+    fp32, cache with capacity S); ``enc_inputs`` [B, frames, d_model] for an
+    encoder-decoder, else None.  With ``cfg.prefill_chunk`` set, window by
+    window (:func:`_make_chunked_prefill_step`)."""
     if cfg.prefill_chunk:
         return _make_chunked_prefill_step(cfg, cfg.prefill_chunk)
 
     def prefill_step(params, tokens, enc_inputs=None):
-        if enc_inputs is not None:
-            raise NotImplementedError("encoder-decoder models are not ported "
-                                      "yet (ROADMAP.md, module step 9)")
         # hidden → unembed ONLY the last position: the [B, S, V] logits
         # tensor would be 2.5 GB at batch 4 × 2048 × 151,936 in fp32
         hidden, _, cache = M.forward(params, cfg, tokens, mode="prefill",
+                                     enc_inputs=enc_inputs,
                                      return_hidden=True)
         return _unembed_last(params, cfg, hidden), cache
     return prefill_step
@@ -74,7 +75,8 @@ def _make_chunked_prefill_step(cfg: ModelConfig, chunk: int):
 
 def make_serve_step(cfg: ModelConfig):
     """One decode step: (params, cache, tokens [B,1], pos) → (logits [B,V],
-    cache).  The cache's K/V are written in place."""
+    cache).  The cache's K/V are written in place (an encoder-decoder's
+    cross K/V are only read)."""
     def serve_step(params, cache, tokens, pos):
         positions = torch.as_tensor(pos, dtype=torch.int32,
                                     device=tokens.device).reshape(1)

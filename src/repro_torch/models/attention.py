@@ -1,5 +1,6 @@
-"""Attention: GQA (full, causal or sliding-window) and MLA (DeepSeek-V3),
-in train, prefill, chunked-prefill and decode modes.
+"""Attention: GQA (full, causal or sliding-window), MLA (DeepSeek-V3) and
+cross-attention (whisper), in train, prefill, chunked-prefill and decode
+modes.
 
 All softmax attention flows through :func:`chunked_attention`.  With
 ``impl="ref"`` it is the plain query-chunked path (peak live buffer
@@ -30,8 +31,13 @@ shared rope key ``kr`` [B, S, qk_rope_dim].  Prefill and chunked prefill
 materialize per-head K (qk_nope + qk_rope = 192 wide at deepseek-v3) and V
 (v_head_dim 128) from the latent and go through the flash kernel's (192,
 128) instance; decode uses the absorbed matmuls in fp32, on torch ops, as
-the JAX package does with no kernel.  Cross-attention is not ported yet
-(ROADMAP.md, module step 9).
+the JAX package does with no kernel.
+
+Cross-attention (whisper's decoder) reads K/V that ``encode_cross_kv``
+computes once from the encoder output and the model caches for decode; it
+is non-causal and passes no ``k_valid_len``, so on the kernel route both
+its prefill and its one-token decode queries launch the flash kernel over
+the encoder's frames.
 """
 from __future__ import annotations
 
@@ -43,7 +49,6 @@ import torch
 from .layers import apply_rope, init_linear, linear, rms_norm_simple, rope_freqs
 
 Params = Dict[str, Any]
-_TODO = "not ported yet (ROADMAP.md, module step 9)"
 
 
 # ---------------------------------------------------------------------------
@@ -263,12 +268,35 @@ def _cache_positions(pos, cache_size: int, window: Optional[int], *,
     return pos - age
 
 
-def cross_attention(*args, **kw):
-    raise NotImplementedError(f"cross-attention (whisper) is {_TODO}")
+# ---------------------------------------------------------------------------
+# cross-attention (whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(p: Params, cfg, x: torch.Tensor,
+                    enc_kv: Params) -> torch.Tensor:
+    """Decoder states x [B, Sq, d] attend, non-causally, to the encoder's
+    precomputed K/V ({"k", "v": [B, frames, KV, Dh]}).  No ``k_valid_len``:
+    on the kernel route prefill and decode (Sq = 1) both launch the flash
+    kernel, as the JAX package's ``"pallas"`` route calls its kernel."""
+    b, sq, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    q = linear(p["wq"], x).reshape(b, sq, h, dh)
+    se = enc_kv["k"].shape[1]
+    out = chunked_attention(
+        q, enc_kv["k"], enc_kv["v"],
+        q_positions=torch.arange(sq, dtype=torch.int32, device=x.device),
+        k_positions=torch.arange(se, dtype=torch.int32, device=x.device),
+        causal=False, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    return linear(p["wo"], out.reshape(b, sq, -1))
 
 
-def encode_cross_kv(*args, **kw):
-    raise NotImplementedError(f"cross-attention (whisper) is {_TODO}")
+def encode_cross_kv(p: Params, cfg, enc_out: torch.Tensor) -> Params:
+    """The cross block's K/V of the encoder output [B, frames, d]: {"k",
+    "v": [B, frames, KV, Dh]}, through ``wk``/``wv`` and their biases."""
+    b, se, _ = enc_out.shape
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
+    return {"k": linear(p["wk"], enc_out).reshape(b, se, kvh, dh),
+            "v": linear(p["wv"], enc_out).reshape(b, se, kvh, dh)}
 
 
 # ---------------------------------------------------------------------------

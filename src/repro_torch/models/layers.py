@@ -110,6 +110,16 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (x @ p["table"].to(x.dtype).T).float()
 
 
+def sinusoidal_positions(n: int, d: int, *, device=None) -> torch.Tensor:
+    """[n, d] fp32: sin of position · 10000^(-2i/d) in the first d/2
+    columns, cos in the rest (whisper's encoder; the caller casts)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10000.0) * 2 * dim / d)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # -- rotary position embeddings --------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor,

@@ -1,9 +1,9 @@
-"""Model assembly for the ``dense``, ``moe``, ``ssm`` and ``hybrid``
-families.
+"""Model assembly for the ``dense``, ``moe``, ``ssm``, ``hybrid`` and
+``encdec`` families.
 
 Public entry points, as in the JAX package:
   * ``init(gen, cfg)``                 → params
-  * ``forward(params, cfg, tokens, mode, cache, positions)``
+  * ``forward(params, cfg, tokens, mode, cache, positions, enc_inputs)``
   * ``init_cache(cfg, batch, cache_len, device=...)``
 
 The JAX package stacks the layers' parameters on a leading axis and scans
@@ -15,8 +15,13 @@ Python loop.  A ``moe`` config runs its ``first_dense`` leading layers from
 losses.  The hybrid (zamba2) keeps one ``shared`` attention+MLP block,
 invoked before every ``attn_every``-th mamba layer, and its LoRA factors
 stacked on the invocation axis (``shared_lora["a"]``: [n_inv, d, r],
-``["b"]``: [n_inv, r, H·Dh]), as in the JAX package.  Caches keep the JAX
-layout, stacked on the layer (or invocation) axis:
+``["b"]``: [n_inv, r, H·Dh]), as in the JAX package.  The encoder-decoder
+(whisper) keeps ``enc_stack`` (bidirectional self-attention + MLP layers
+over the frame embeddings plus the sinusoidal ``enc_pos``, then
+``enc_norm``) and ``dec_stack`` (causal self-attention, cross-attention
+to the encoder output through each layer's ``cross`` block, MLP); the
+decoder adds learned positions (``params["pos"]``, [max_seq, d]).  Caches
+keep the JAX layout, stacked on the layer (or invocation) axis:
 
   * dense/moe: ``{"dense_stack"|"moe_stack": {"k", "v": [L, B, Sc, KV,
     Dh], "len": [L]}}``; with MLA (deepseek-v3) ``{"ckv": [L, B, Sc,
@@ -24,7 +29,10 @@ layout, stacked on the layer (or invocation) axis:
   * ssm: ``{"mamba_stack": {"conv_x": [L, B, K-1, d_inner], "conv_bc":
     [L, B, K-1, 2·G·N], "h": [L, B, H, N, P] fp32}}``;
   * hybrid: the ssm cache plus ``"shared_attn": {"k", "v": [n_inv, B, Sc,
-    KV, Dh], "len": [n_inv]}``.
+    KV, Dh], "len": [n_inv]}``;
+  * encdec: ``{"dec_stack": {"k", "v", "len"}, "cross_kv": {"k", "v": [L,
+    B, frames, KV, Dh]}}``: a prefill runs the encoder once and caches each
+    decoder layer's cross K/V, which decode reads and never writes.
 
 With a sliding window (``cfg.window``, or the hybrid's
 ``hybrid["attn_window"]`` for its shared block) each attention cache is a
@@ -39,8 +47,9 @@ norms ``norm_h`` and ``norm_e``, ``proj`` [2·d, d] and one dense
 ``layer``), which only the training loss runs, so serving never reads it.
 The JAX package's sharding constraints (``models/pjit_utils.py``) are
 hints to XLA's partitioner with no meaning on one card, so they are left
-out.  The encoder-decoder and learned positions raise: they are not
-ported yet (ROADMAP.md, module step 9).
+out.  Every family serves; training (the loss and the optimizer) is
+ROADMAP.md's module step 9e.  Sinusoidal decoder positions
+(``pos_emb="sinusoidal"``, in no shipped config) raise.
 """
 from __future__ import annotations
 
@@ -54,9 +63,11 @@ from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (Params, _normal, apply_mlp, apply_norm, embed,
-                     init_embedding, init_mlp, init_norm)
+                     init_embedding, init_mlp, init_norm,
+                     sinusoidal_positions)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+POS_EMBS = ("rope", "learned")
 # the modes that write the caller's cache in place
 _IN_PLACE = ("decode", "chunked_prefill")
 
@@ -68,10 +79,11 @@ def make_generator(seed: int, device="cuda") -> torch.Generator:
 
 
 def _check_ported(cfg) -> None:
-    if cfg.family not in FAMILIES or cfg.pos_emb != "rope":
+    if cfg.family not in FAMILIES or cfg.pos_emb not in POS_EMBS:
         raise NotImplementedError(
-            f"{cfg.name}: only the {'/'.join(FAMILIES)} families with RoPE "
-            f"are ported (ROADMAP.md, module step 9)")
+            f"{cfg.name}: only the {'/'.join(FAMILIES)} families with "
+            f"{' or '.join(POS_EMBS)} positions are ported (ROADMAP.md, "
+            f"module step 9)")
 
 
 def n_invocations(cfg) -> int:
@@ -86,14 +98,21 @@ def _residual_scale(cfg) -> float:
     return cfg.scale_depth / math.sqrt(cfg.n_layers)
 
 
-def init_decoder_layer(gen, cfg, *, use_moe: bool = False) -> Params:
+def init_decoder_layer(gen, cfg, *, use_moe: bool = False,
+                       cross: bool = False) -> Params:
+    """Attention, with ``cross`` a cross-attention block (whisper's
+    decoder), then an MLP or MoE; drawn in the JAX init's order."""
     dt, dev = cfg.param_dtype, gen.device
     p = {"attn_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
                                 device=dev),
          "attn": (attn.init_mla(gen, cfg) if cfg.mla
-                  else attn.init_gqa(gen, cfg)),
-         "mlp_norm": init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
-                               device=dev)}
+                  else attn.init_gqa(gen, cfg))}
+    if cross:
+        p["cross_norm"] = init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
+                                    device=dev)
+        p["cross"] = attn.init_gqa(gen, cfg)
+    p["mlp_norm"] = init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
+                              device=dev)
     if use_moe:
         p["moe"] = moe_lib.init_moe(gen, cfg)
     else:
@@ -104,10 +123,12 @@ def init_decoder_layer(gen, cfg, *, use_moe: bool = False) -> Params:
 
 def apply_decoder_layer(p: Params, cfg, x, *, mode: str, cache, positions,
                         use_moe: bool = False, causal: bool = True,
-                        cursor: Optional[int] = None):
+                        cursor: Optional[int] = None, enc_kv=None):
     """→ ``(x, new_cache, aux, load)``: ``aux`` the MoE layer's
     load-balancing loss and ``load`` its expert load (0.0 and None for an
-    MLP layer).  ``cursor``: chunked prefill's tokens cached so far."""
+    MLP layer).  ``cursor``: chunked prefill's tokens cached so far.
+    ``enc_kv``: the encoder's cross K/V for this layer, attended to between
+    the self-attention and the MLP."""
     rs = _residual_scale(cfg)
     h = apply_norm(p["attn_norm"], x, kind=cfg.norm)
     if cfg.mla:
@@ -119,6 +140,10 @@ def apply_decoder_layer(p: Params, cfg, x, *, mode: str, cache, positions,
                                               cache=cache, positions=positions,
                                               causal=causal, cursor=cursor)
     x = (x + a_out * rs).to(cfg.compute_dtype)
+    if enc_kv is not None:
+        h = apply_norm(p["cross_norm"], x, kind=cfg.norm)
+        x = (x + attn.cross_attention(p["cross"], cfg, h, enc_kv) * rs
+             ).to(cfg.compute_dtype)
     h = apply_norm(p["mlp_norm"], x, kind=cfg.norm)
     if use_moe:
         m_out, aux, load = moe_lib.apply_moe(p["moe"], cfg, h)
@@ -153,6 +178,8 @@ def init(gen: torch.Generator, cfg) -> Params:
     dt, dev = cfg.param_dtype, gen.device
     p: Params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model,
                                          dtype=dt)}
+    if cfg.pos_emb == "learned":
+        p["pos"] = _normal(gen, (cfg.max_seq, cfg.d_model), 0.02, dt)
     p["final_norm"] = init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
                                 device=dev)
     if not cfg.tie_embeddings:
@@ -174,6 +201,16 @@ def init(gen: torch.Generator, cfg) -> Params:
                 "norm_e": init_norm(d, kind=cfg.norm, dtype=dt, device=dev),
                 "proj": _normal(gen, (2 * d, d), (2 * d) ** -0.5, dt),
                 "layer": init_decoder_layer(gen, cfg)}
+        return p
+    if cfg.family == "encdec":
+        p["enc_stack"] = [init_decoder_layer(gen, cfg)
+                          for _ in range(cfg.encdec["enc_layers"])]
+        p["dec_stack"] = [init_decoder_layer(gen, cfg, cross=True)
+                          for _ in range(cfg.n_layers)]
+        p["enc_norm"] = init_norm(cfg.d_model, kind=cfg.norm, dtype=dt,
+                                  device=dev)
+        p["enc_pos"] = sinusoidal_positions(cfg.encdec["enc_frames"],
+                                            cfg.d_model, device=dev).to(dt)
         return p
     p["mamba_stack"] = [init_mamba_layer(gen, cfg)
                         for _ in range(cfg.n_layers)]
@@ -228,7 +265,8 @@ class _Stack:
 def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
             cache: Optional[Params] = None,
             positions: Optional[torch.Tensor] = None,
-            return_hidden: bool = False, cursor: Optional[int] = None):
+            return_hidden: bool = False, cursor: Optional[int] = None,
+            enc_inputs: Optional[torch.Tensor] = None):
     """tokens [B,S] int → ``(logits [B,S,V] fp32 or hidden, aux, cache)``.
 
     decode mode: S==1, ``cache`` required, ``positions`` = [1] current pos;
@@ -236,7 +274,9 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
     ``cache`` required (capacity for every window), ``positions`` =
     ``cursor + arange(S)``; the window is appended at ``cursor``, the
     tokens cached so far as a Python int, which the step knows, so that no
-    layer reads the cache's ``len`` back from the device.
+    layer reads the cache's ``len`` back from the device.  encdec:
+    ``enc_inputs`` [B, frames, d_model] (the stub frontend's frame
+    embeddings) in train and prefill; decode reads the cached cross K/V.
     """
     _check_ported(cfg)
     if mode not in ("train", "prefill", "chunked_prefill", "decode"):
@@ -251,9 +291,18 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
         positions = torch.arange(sq, dtype=torch.int32, device=tokens.device)
         if mode == "chunked_prefill":
             positions = positions + cursor
-    fwd = _dense_forward if cfg.family in ("dense", "moe") else _mamba_forward
-    x, aux, new_cache = fwd(params, cfg, x, mode=mode, cache=cache,
-                            positions=positions, cursor=cursor)
+    if cfg.pos_emb == "learned":
+        x = x + (params["pos"][positions][None] if mode in _IN_PLACE
+                 else params["pos"][:sq][None])
+    if cfg.family == "encdec":
+        x, aux, new_cache = _encdec_forward(params, cfg, x, mode=mode,
+                                            cache=cache, positions=positions,
+                                            enc_inputs=enc_inputs)
+    else:
+        fwd = (_dense_forward if cfg.family in ("dense", "moe")
+               else _mamba_forward)
+        x, aux, new_cache = fwd(params, cfg, x, mode=mode, cache=cache,
+                                positions=positions, cursor=cursor)
 
     x = apply_norm(params["final_norm"], x, kind=cfg.norm)
     if return_hidden:
@@ -327,6 +376,54 @@ def _mamba_forward(params, cfg, x, *, mode, cache, positions, cursor):
     return x, aux, new_cache
 
 
+def _encode(params: Params, cfg, enc_inputs: torch.Tensor) -> Params:
+    """The encoder over the frame embeddings [B, frames, d] (plus
+    ``enc_pos``; bidirectional layers, then ``enc_norm``), and each decoder
+    layer's cross K/V of its output, stacked: {"k", "v": [L, B, frames,
+    KV, Dh]}."""
+    e = enc_inputs.to(cfg.compute_dtype) + params["enc_pos"][None]
+    pos = torch.arange(e.shape[1], dtype=torch.int32, device=e.device)
+    for lp in params["enc_stack"]:
+        e, _, _, _ = apply_decoder_layer(lp, cfg, e, mode="train", cache=None,
+                                         positions=pos, causal=False)
+    e = apply_norm(params["enc_norm"], e, kind=cfg.norm)
+    kvs = [attn.encode_cross_kv(lp["cross"], cfg, e)
+           for lp in params["dec_stack"]]
+    return {key: torch.stack([kv[key] for kv in kvs]) for key in ("k", "v")}
+
+
+def _encdec_forward(params, cfg, x, *, mode, cache, positions, enc_inputs):
+    """whisper: train and prefill run the encoder (:func:`_encode`), decode
+    reads ``cache["cross_kv"]``; then the decoder stack, each layer
+    attending to its own cross K/V.  The cache: the decoder's self-attention
+    stack and the cross K/V."""
+    if mode == "chunked_prefill":
+        raise ValueError(f"{cfg.name}: chunked prefill takes no "
+                         f"encoder-decoder, as in the JAX package")
+    if mode in ("train", "prefill"):
+        if enc_inputs is None:
+            raise ValueError(f"{cfg.name}: {mode} needs the encoder's frame "
+                             f"embeddings (enc_inputs [B, frames, d_model])")
+        cross_kv = _encode(params, cfg, enc_inputs)
+    else:
+        if cache is None:
+            raise ValueError("decode mode needs a cache")
+        cross_kv = cache["cross_kv"]
+    stack = params["dec_stack"]
+    st = _Stack(cache["dec_stack"] if cache is not None else None,
+                len(stack), mode)
+    for i, lp in enumerate(stack):
+        x, nc, _, _ = apply_decoder_layer(
+            lp, cfg, x, mode=mode, cache=st.slot(i), positions=positions,
+            enc_kv={key: t[i] for key, t in cross_kv.items()})
+        if mode != "train":
+            st.put(i, nc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
+    if mode == "train":
+        return x, aux, None
+    return x, aux, {"dec_stack": st.result(), "cross_kv": cross_kv}
+
+
 def _apply_lora_to_attn(pa: Params, lora: Params, inv: int) -> Params:
     """The shared block with invocation ``inv``'s LoRA delta merged into
     its wq: ``wq + a @ b``, in the weights' dtype."""
@@ -363,6 +460,13 @@ def init_cache(cfg, batch: int, cache_len: int, *, device="cuda") -> Params:
         sizes = {"dense_stack": n_dense, "moe_stack": cfg.n_layers - n_dense}
         return {name: mla_cache(n) if cfg.mla else kv_cache(n, cfg.window)
                 for name, n in sizes.items() if n}
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.encdec["enc_frames"],
+                 cfg.n_kv_heads, cfg.dh)
+        return {"dec_stack": kv_cache(cfg.n_layers, cfg.window),
+                "cross_kv": {key: torch.zeros(shape, dtype=cfg.compute_dtype,
+                                              device=dev)
+                             for key in ("k", "v")}}
     per = ssm_lib.init_ssm_cache(cfg, batch, device=dev)
     out = {"mamba_stack": {key: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
                            for key, t in per.items()}}

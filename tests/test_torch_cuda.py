@@ -789,6 +789,13 @@ FLASH_CARD_CASES = [
     # tiles skipped below k_lo, fully masked first tiles for late rows
     (1, 12, 2, 1536, 1536, 128, True, 1024, 0),
     (2, 6, 1, 640, 1664, 128, True, 1024, 1024),  # the same, q_off > 0
+    # whisper-medium (16/16 heads x 64, 1500 frames: no multiple of the
+    # 128-key tile, so the last tile rests on TMA's zero fill and the Sk
+    # mask): the encoder's self-attention, a decode step's cross-attention
+    # (one query row in a 128-row box), the prefill's cross-attention
+    (1, 16, 16, 1500, 1500, 64, False, None, 0),
+    (4, 16, 16, 1, 1500, 64, False, None, 0),
+    (1, 16, 16, 2048, 1500, 64, False, None, 0),
 ]
 
 

@@ -114,11 +114,9 @@ def test_registry_names_and_refusals():
     assert len(ARCH_IDS) == 10
     with pytest.raises(KeyError):
         get_config("gpt-5")
-    unported = [arch for arch in ARCH_IDS if arch not in PORTED]
-    assert unported == ["whisper_medium"]
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="module step 9"):
-            get_smoke(arch)
+    assert PORTED == ARCH_IDS          # whisper_medium too, since step 9d
+    for arch in ARCH_IDS:
+        assert get_smoke(arch).name == get_config(arch).name
 
 
 # -- layers -------------------------------------------------------------------------
@@ -401,13 +399,21 @@ def test_not_ported_paths_raise(smoke_models):
     _, tc, _, tparams = smoke_models["f32"]
     x = torch.zeros(1, 4, tc.d_model)
     tp = tparams["dense_stack"][0]["attn"]
-    # cross-attention and learned positions are still to port (step 9d)
-    for fn in (TA.cross_attention, TA.encode_cross_kv):
-        with pytest.raises(NotImplementedError, match="module step 9"):
-            fn()
-    for bad in (dict(family="encdec"), dict(pos_emb="learned")):
-        with pytest.raises(NotImplementedError, match="module step 9"):
-            TM.init_cache(tc.replace(**bad), 1, 4, device="cpu")
+    # ported in step 9d: the encoder-decoder and learned positions build
+    # caches; sinusoidal decoder positions (no shipped config) still raise
+    enc = TM.init_cache(get_smoke("whisper-medium").replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32), 1, 4,
+        device="cpu")
+    assert enc["dec_stack"]["k"].shape == (2, 1, 4, 4, 16)
+    assert enc["cross_kv"]["k"].shape == (2, 1, 30, 4, 16)
+    learned = TM.init_cache(tc.replace(pos_emb="learned"), 1, 4, device="cpu")
+    assert learned["dense_stack"]["k"].shape == (2, 1, 4, tc.n_kv_heads,
+                                                 tc.dh)
+    with pytest.raises(NotImplementedError, match="module step 9"):
+        TM.init_cache(tc.replace(pos_emb="sinusoidal"), 1, 4, device="cpu")
+    kv = TA.encode_cross_kv(tp, tc, x)
+    assert TA.cross_attention(tp, tc, x[:, :1], kv).shape == (1, 1,
+                                                               tc.d_model)
     # ported in step 9c: chunked prefill, MLA and the MTP block
     cache = TM.init_cache(tc, 1, 8, device="cpu")["dense_stack"]
     out, new = TA.gqa_attention(tp, tc, x, mode="chunked_prefill",
