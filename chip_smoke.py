@@ -74,6 +74,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      SDPA given no mask for the non-causal ones) against its plain
      version, timed beside its bound and SDPA (the ``[serve path] <arch>``
      lines);
+   * the train phase (module step 9e; the ``[train]`` lines, the card's
+     name and power limit in the first): qwen3-1.7b uncut takes 3 train
+     steps (``launch.steps.make_train_step``: loss, gradients, clipping,
+     AdamW with the fp32 moments of ``default_train_options``) on one
+     seeded batch of 4 x 2048 tokens with remat "full"; each step must
+     launch the flash kernel 28 times forward, 28 more in the layers'
+     recompute and its backward kernel (``flash_attention_bwd``) 28 times,
+     and the loss must fall.  Before them, outside the count, the route
+     check (step 1's loss, gradient norm and the relative L2 of the
+     ``wq``/``wk``/``wv``/``embed`` gradients on the kernel route against
+     ``attn_impl="ref"``, which launches no flash kernel) and the
+     microbatch check (``microbatch=2`` against the whole batch), each
+     within the limits at ``TRAIN_GRAD_TOL``.  Then one step for every
+     other family at full width, with the moment policy its uncut config
+     gets: chatglm3-6b, starcoder2-7b, minicpm-2b, chameleon-34b (bf16
+     moments) and mixtral-8x22b (bf16, 2 x 6144 past its window) at 2
+     layers, mamba2-130m and whisper-medium (frames [4, 1500, 1024])
+     uncut, zamba2-7b at 44 of 81 layers, deepseek-v3-671b at its 3 dense
+     layers with the MTP block under q8 (2 x 4096); each finite, with the
+     flash launches of ``train_launches_wanted``.  Then the backward
+     kernel alone at each family's train shape (whisper's 1500-frame
+     encoder and cross-attention, MLA's (192, 128)) against
+     ``flash_attention_bwd_ref`` (relative L2 within 2^-6), timed beside
+     its bound, its plain version and SDPA's backward;
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -219,6 +243,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the n=18 fallback) once more under ``spgemm.stage_timing()``, for
    where their time goes.
 
+The kernels line lists the nine TPU kernels' ports and the port's own
+``flash_attention_bwd`` (no TPU counterpart: it replaces XLA's
+differentiation of the JAX package's attention reference path); the flash
+row's launches add the train phase's forward launches.
+
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
 JSON line.  It exits non-zero, printing no result, when no CUDA device is
@@ -228,6 +257,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1346,6 +1376,376 @@ def families_phase(dev, report, failures) -> int:
     return flash_launches
 
 
+# the train phase (module step 9e): qwen3-1.7b uncut takes TRAIN_STEPS steps
+# on one fixed batch of TRAIN_BATCH x TRAIN_SEQ seeded tokens (labels the
+# tokens shifted by one), remat "full" and default_train_options (fp32
+# moments: its estimate is below 2e10); then one step for every other
+# family at full width, in the traffic and depth of TRAIN_FAMILIES (None:
+# uncut), each with the moment policy default_train_options gives its
+# uncut config.  The cuts: a dense or MoE config at 2 layers as when it
+# serves (deepseek-v3 at its 3 dense layers, since one MoE layer alone is
+# 11.27e9 parameters x (2 + 2 + 3) B = 79 GB under q8; its MTP block
+# included), zamba2-7b at TRAIN_ZAMBA_LAYERS of 81 mamba layers (uncut,
+# 6.76e9 parameters x 12 B of fp32 moments, weights and gradients are 81
+# GB before activations)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-1.7b", 4, 2048, 3
+TRAIN_ZAMBA_LAYERS = 44
+TRAIN_FAMILIES = {"chatglm3-6b": (4, 2048, 2), "starcoder2-7b": (4, 2048, 2),
+                  "minicpm-2b": (4, 2048, 2), "chameleon-34b": (4, 2048, 2),
+                  "mixtral-8x22b": (MOE_BATCH, MOE_PROMPT, 2),
+                  "mamba2-130m": (4, 2048, None),
+                  "zamba2-7b": (4, 2048, TRAIN_ZAMBA_LAYERS),
+                  "deepseek-v3-671b": (2, 4096, 3),
+                  "whisper-medium": (4, 2048, None)}
+# qwen3's route check (step 1 on the kernel route against the same step
+# with attn_impl="ref" on the card) and microbatch check (microbatch=2
+# against the whole batch, fp32 accumulators): bf16 rounds P, each
+# attention output and its gradients (2^-8 relative and more) at other
+# places on the two sides, in each of 28 layers forward and backward, and
+# those differences add along the residual stream: about sqrt(2 x 28) x
+# 2^-7 = 0.06 relative in a gradient.  The loss within 2^-7 relative, the
+# gradient norm within 2^-5, each gradient (a layer stack's leaves
+# concatenated) within a relative L2 of 2^-3; a dropped or misplaced
+# gradient term is O(1)
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL = 2 ** -7, 2 ** -5, 2 ** -3
+# the backward kernel alone against its plain version (fp32 from the same
+# bf16 inputs): relative L2 of dq, dk and dv within 2^-6 (one rounding of
+# each output, 2^-9, and delta from the bf16-rounded O)
+BWD_REL_TOL = 2 ** -6
+
+
+def train_batch(cfg, b, s, gen):
+    """Seeded token ids [b, s + 1] → tokens and labels shifted by one (and
+    frame embeddings for an encoder-decoder)."""
+    import torch
+
+    from repro_torch.launch import serve as serve_lib
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                         device=gen.device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["enc_inputs"] = serve_lib.frame_embeddings(cfg, b, gen)
+    return batch
+
+
+def train_launches_wanted(cfg):
+    """(forward, backward) flash launches of one train step with remat
+    "full": each checkpointed attention runs forward twice (the forward,
+    then its layer's recompute) and backward once; deepseek-v3's MTP block
+    is not checkpointed (once each)."""
+    n = flash_launches_wanted(cfg, 1, 0)
+    mtp = 1 if cfg.mtp else 0
+    return 2 * n + mtp, n + mtp
+
+
+def grad_rel(got, want, names=("wq", "wk", "wv")) -> dict:
+    """Relative L2 of the attention projections' gradients (every layer's
+    concatenated, per name) and of the embedding's."""
+    import torch
+
+    def cat(tree, name):
+        return torch.cat([lp["attn"][name]["w"].float().flatten()
+                          for lp in tree["dense_stack"]])
+    out = {name: rel_err(cat(got, name), cat(want, name)) for name in names}
+    out["embed"] = rel_err(got["embed"]["table"].float(),
+                           want["embed"]["table"].float())
+    return out
+
+
+def flash_bwd_alone(label, b, h, kv, s, d, gen, failures, *, dv=None,
+                    sk=None, window=None, causal=True,
+                    sm_scale=None) -> dict:
+    """``flash_attention_bwd_cuda`` alone at one train shape (bf16, seeded
+    normal q, k, v and dO; lse and O from the forward kernel): held against
+    ``flash_attention_bwd_ref`` (over blocks of heads of at most 1 GB of
+    fp32 scores) within BWD_REL_TOL, and timed beside its bound, its plain
+    version and SDPA's backward (forward + backward under autograd, minus
+    the forward under autograd; never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    dv, sk = dv or d, sk or s
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+               for shape in ((b, h, s, d), (b, kv, sk, d), (b, kv, sk, dv)))
+    do = torch.randn((b, h, s, dv), generator=gen, device=DEVICE,
+                     dtype=torch.bfloat16)
+    masks = dict(causal=causal, window=window, sm_scale=sm_scale)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=DEVICE)
+    o = fa_ops.flash_attention_cuda(q, k, v, lse=lse, **masks)
+    got = fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
+    # the plain version over blocks of one batch row and hk kv-heads (their
+    # GQA groups whole), each at most 1 GB of fp32 scores
+    g = h // kv
+    hk = max([n for n in range(1, kv + 1)
+              if kv % n == 0 and n * g * s * sk * 4 <= 1 << 30] or [1])
+    blocks = [(i, j) for i in range(b) for j in range(0, kv, hk)]
+    slices = len(blocks)
+
+    def plain():
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        for i, j in blocks:
+            qs, ks = (slice(i, i + 1), slice(j * g, (j + hk) * g)), \
+                (slice(i, i + 1), slice(j, j + hk))
+            for out, part in zip(grads, flash_attention_bwd_ref(
+                    q[qs], k[ks], v[ks], do[qs], **masks)):
+                out[qs if out.shape[1] == h else ks] = part
+        return grads
+    want = plain()
+    rels = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"),
+                                                       got, want)}
+    err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
+    del got, want
+    ok = all(r <= BWD_REL_TOL for r in rels.values())
+    shape = (f"q {b} x {h} x {s} x {d}, k {b} x {kv} x {sk} x {d}, v "
+             f"{b} x {kv} x {sk} x {dv}, "
+             + ("causal" if causal else "non-causal")
+             + (f", window {window}" if window else ""))
+    log(f"[kernel check] {'ok  ' if ok else 'FAIL'} flash_attention_bwd at "
+        f"{label} ({shape}, GQA {h // kv}): relative L2 "
+        + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+        + f" (limit {BWD_REL_TOL:.3e}), max |err| {err:.3e}")
+    if not ok:
+        failures.append(f"flash_attention_bwd at {label}: relative L2 "
+                        f"{rels}")
+    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                         **masks), 3)
+    plain_ms = cuda_ms(plain, 1)
+    kw = dict(enable_gqa=True, scale=sm_scale)
+    if causal and window is None and sk == s:
+        kw["is_causal"] = True
+        backend = "is_causal"
+    elif causal or window is not None:
+        qpos = torch.arange(s, device=DEVICE)[:, None]
+        kpos = torch.arange(sk, device=DEVICE)[None, :]
+        mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+        if window is not None:
+            mask &= (qpos - kpos) < window
+        kw["attn_mask"] = mask
+        backend = "boolean mask"
+    else:
+        backend = "no mask"
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*leaves, **kw)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), leaves, do)
+    try:
+        lib_ms = cuda_ms(sdpa_fwd_bwd, 3) - cuda_ms(sdpa_fwd, 3)
+    except RuntimeError as exc:       # no SDPA backend takes these inputs
+        lib_ms, backend = None, f"{backend}: {str(exc).splitlines()[0]}"
+    pairs = visible_pairs(s, sk, causal, window=window) * b * h
+    n_ops = 2 * (3 * d + 2 * dv) * pairs
+    n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
+        + 2 * o.numel() + 4 * lse.numel()
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    lib = ("n/a" if lib_ms is None else
+           f"{lib_ms:.4f} ms (SDPA backward, {backend}), kernel / library "
+           f"{ms / max(lib_ms, 1e-9):.3f}")
+    log(f"[time] flash_attention_bwd at {label}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms ({slices} blocks of heads), library {lib}, bound "
+        f"{bound:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} "
+        f"GFLOP), {100 * bound / ms:.2f}% of bound")
+    if ms < bound:
+        failures.append(f"flash_attention_bwd at {label}: {ms} ms below its "
+                        f"bound {bound} ms")
+    return {"shape": shape, "rel_l2": rels, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library": backend,
+            "bound_ms": bound, "bound_by": by}
+
+
+def train_phase(dev, report, failures):
+    """Module step 9e on the card: qwen3-1.7b's train steps, its route and
+    microbatch checks, one step for every other family (each counted:
+    forward and backward flash launches as :func:`train_launches_wanted`
+    says), then the backward kernel alone at each family's train shape.
+    Returns (forward flash launches of the counted steps, the
+    ``flash_attention_bwd`` kernels row)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+
+    smi = nvidia_smi_line()
+    out = {"card": smi}
+    fwd_total = bwd_total = 0
+
+    def counted_step(name, cfg, opts, params, state, batch):
+        nonlocal fwd_total, bwd_total
+        step = steps_lib.make_train_step(cfg, opts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        fwd, bwd = LAUNCHES["flash_attention_wgmma"], \
+            LAUNCHES["flash_attention_bwd"]
+        fwd_total += fwd
+        bwd_total += bwd
+        want = train_launches_wanted(cfg)
+        row = {"loss": loss, "grad_norm": gnorm, "ms": ms,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "flash_launches": [fwd, bwd], "want": list(want),
+               "fp32_launches": LAUNCHES["flash_attention"]}
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            failures.append(f"train {name}: loss {loss}, grad norm {gnorm}")
+        if (fwd, bwd) != want or row["fp32_launches"]:
+            failures.append(f"train {name}: flash launches {fwd} forward / "
+                            f"{bwd} backward (fp32 {row['fp32_launches']}), "
+                            f"want {want[0]} / {want[1]}")
+        return params, state, row
+
+    # (a) qwen3-1.7b uncut
+    cfg = get_config(TRAIN_ARCH)
+    opts = steps_lib.default_train_options(cfg)
+    gen = M.make_generator(SERVE_SEED, dev)
+    params = M.init(gen, cfg)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, gen)
+    n_params = M.param_count(params)
+    log(f"[train] ({smi}) {TRAIN_ARCH}: {cfg.n_layers} layers uncut, "
+        f"{n_params:,} parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat "
+        f"{cfg.remat}, moments {opts.opt_state_policy}, lr {opts.peak_lr}")
+    # the route check and the microbatch check, on the initial weights
+    reset_launch_counts()
+    loss_k, _, grads_k = steps_lib.loss_and_grads(params, cfg, batch)
+    kernel_fb = (LAUNCHES["flash_attention_wgmma"],
+                 LAUNCHES["flash_attention_bwd"])
+    reset_launch_counts()
+    loss_r, _, grads_r = steps_lib.loss_and_grads(
+        params, cfg.replace(attn_impl="ref"), batch)
+    plain_fb = (LAUNCHES["flash_attention_wgmma"],
+                LAUNCHES["flash_attention_bwd"])
+    from repro_torch.optim import global_norm
+    checks = {"loss": abs(float(loss_k) - float(loss_r)) / abs(float(loss_r)),
+              "grad_norm": abs(float(global_norm(grads_k))
+                               - float(global_norm(grads_r)))
+              / float(global_norm(grads_r))}
+    checks.update(grad_rel(grads_k, grads_r))
+    del grads_r
+    loss_m, _, grads_m = steps_lib._accumulated_grads(params, cfg, batch, 2)
+    micro = {"loss": abs(float(loss_m) - float(loss_k)) / abs(float(loss_k)),
+             "grad_norm": abs(float(global_norm(grads_m))
+                              - float(global_norm(grads_k)))
+             / float(global_norm(grads_k))}
+    micro.update(grad_rel(grads_m, grads_k))
+    del grads_m, grads_k
+    torch.cuda.empty_cache()
+    for label, got, fb in (("kernel vs plain route", checks, kernel_fb),
+                           ("microbatch=2 vs whole batch", micro, None)):
+        bad = [k for k, x in got.items() if x > {
+            "loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL}.get(
+                k, TRAIN_GRAD_TOL)]
+        log(f"[train] {TRAIN_ARCH} step 1, {label}: "
+            + ", ".join(f"{k} {x:.3e}" for k, x in got.items())
+            + f" (limits: loss {TRAIN_LOSS_TOL:.3e}, grad norm "
+            f"{TRAIN_GNORM_TOL:.3e}, gradients {TRAIN_GRAD_TOL:.3e})"
+            + ("" if fb is None else
+               f"; flash launches kernel route {fb[0]} / {fb[1]}, plain "
+               f"route {plain_fb[0]} / {plain_fb[1]}"))
+        if bad:
+            failures.append(f"train {TRAIN_ARCH} {label}: {bad} past their "
+                            f"limits ({got})")
+    if kernel_fb != (2 * cfg.n_layers, cfg.n_layers) or any(plain_fb):
+        failures.append(f"train {TRAIN_ARCH}: flash launches kernel route "
+                        f"{kernel_fb}, plain route {plain_fb}")
+    out[TRAIN_ARCH] = {"params": n_params, "route_check": checks,
+                       "microbatch_check": micro, "steps": []}
+    state = adamw_init(params, state_policy=opts.opt_state_policy)
+    for i in range(TRAIN_STEPS):
+        params, state, row = counted_step(TRAIN_ARCH, cfg, opts, params,
+                                          state, batch)
+        out[TRAIN_ARCH]["steps"].append(row)
+        fwd, bwd = row["flash_launches"]
+        log(f"[train] {TRAIN_ARCH} step {i + 1}: loss {row['loss']:.4f}, "
+            f"grad norm {row['grad_norm']:.4f}, {row['ms']:.1f} ms, peak "
+            f"{row['peak_gb']:.2f} GB, flash launches {fwd} forward / {bwd} "
+            f"backward (want {row['want'][0]} / {row['want'][1]})")
+    losses = [r["loss"] for r in out[TRAIN_ARCH]["steps"]]
+    if not losses[-1] < losses[0]:
+        failures.append(f"train {TRAIN_ARCH}: the loss did not fall over "
+                        f"{TRAIN_STEPS} steps on one batch: {losses}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+    # (b) one step for every other family
+    for arch, (b, s, layers) in TRAIN_FAMILIES.items():
+        full = get_config(arch)
+        opts = steps_lib.default_train_options(full)
+        cfg = full.replace(n_layers=layers) if layers else full
+        gen = M.make_generator(SERVE_SEED, dev)
+        params = M.init(gen, cfg)
+        batch = train_batch(cfg, b, s, gen)
+        state = adamw_init(params, state_policy=opts.opt_state_policy)
+        n_params = M.param_count(params)
+        _, _, row = counted_step(arch, cfg, opts, params, state, batch)
+        row.update(params=n_params, layers=cfg.n_layers,
+                   policy=opts.opt_state_policy)
+        out[arch] = row
+        cut = {"deepseek-v3-671b": "its 3 dense layers and the MTP block; "
+               "one MoE layer alone is 79 GB under q8",
+               "zamba2-7b": "uncut: 81 GB of weights, gradients and fp32 "
+               "moments before activations"}.get(
+                   arch, "as it serves: full width, the depth cut to fit "
+                   "the card")
+        depth = (f"{cfg.n_layers} of {full.n_layers} layers ({cut})"
+                 if layers and layers < full.n_layers else
+                 f"{cfg.n_layers} layers uncut")
+        log(f"[train] {arch}: loss {row['loss']:.4f}, grad norm "
+            f"{row['grad_norm']:.4f}, {row['ms']:.1f} ms, peak "
+            f"{row['peak_gb']:.2f} GB, moments {opts.opt_state_policy}, "
+            f"{depth}, {n_params:,} parameters, batch {b} x {s}; flash "
+            f"launches {row['flash_launches'][0]} forward / "
+            f"{row['flash_launches'][1]} backward (want {row['want'][0]} / "
+            f"{row['want'][1]})")
+        del params, state, batch
+        torch.cuda.empty_cache()
+
+    # (c) the backward kernel alone at each family's train shape
+    gen = torch.Generator(device=DEVICE).manual_seed(SERVE_SEED)
+    shapes = [("qwen3-1.7b", 4, 16, 8, 2048, 128, {}),
+              ("zamba2-7b", 4, 32, 32, 2048, 112, {}),
+              ("chatglm3-6b", 4, 32, 2, 2048, 128, {}),
+              ("starcoder2-7b", 4, 36, 4, 2048, 128, {}),
+              ("minicpm-2b", 4, 36, 36, 2048, 64, {}),
+              ("chameleon-34b", 4, 64, 8, 2048, 128, {}),
+              ("mixtral-8x22b", MOE_BATCH, 48, 8, MOE_PROMPT, 128,
+               {"window": 4096}),
+              ("deepseek-v3-671b", 2, 128, 128, 4096, 192,
+               {"dv": 128, "sm_scale": 192 ** -0.5}),
+              ("whisper-medium's encoder", 4, 16, 16, 1500, 64,
+               {"causal": False}),
+              ("whisper-medium's cross-attention", 4, 16, 16, 2048, 64,
+               {"causal": False, "sk": 1500}),
+              ("whisper-medium's decoder", 4, 16, 16, 2048, 64, {})]
+    alone = {label: flash_bwd_alone(label, b, h, kv, s, d, gen, failures,
+                                    **kw)
+             for label, b, h, kv, s, d, kw in shapes}
+    out["bwd_alone"] = alone
+    out["flash_launches"] = [fwd_total, bwd_total]
+    report["train"] = out
+    main = alone["qwen3-1.7b"]
+    return fwd_total, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:58",
+        "launches": bwd_total,
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+
+
 def serve_summary(drv: dict) -> dict:
     """Per serve mix: requests, client latency p50/p99 and throughput,
     the server's exec_s beside the in-process collect() (and its
@@ -1496,6 +1896,15 @@ def main() -> int:
     flash_row["launches"] += families_phase(dev, report, failures)
     report["families_phase_s"] = time.perf_counter() - t0
     log(f"[serve path] families phase {report['families_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- the train phase (module step 9e): train steps, counted ------------
+    t0 = time.perf_counter()
+    train_fwd, bwd_row = train_phase(dev, report, failures)
+    flash_row["launches"] += train_fwd
+    report["train_phase_s"] = time.perf_counter() - t0
+    log(f"[train] train phase {report['train_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
 
     # the main path, counted
     gen_n, uni_n = args.n_clustered, N_UNIFORM
@@ -2237,6 +2646,7 @@ def main() -> int:
             f"({kernels[-1]['bound_by']}){fp32}")
         del r["kernel"], r["plain"], r["library"]
     kernels.append(flash_row)
+    kernels.append(bwd_row)
     # segment_scan at each of its inputs (quarter values, sum): device ms
     # with L2 evicted by a write (the table's reading) and by a read, each
     # beside its 12-bytes-an-element bound; torch.cumsum of the 2^21 values

@@ -30,6 +30,14 @@ no bfloat16, so bf16 leaves travel as float32 (exact both ways); the
 leaves that the JAX init keeps in fp32 at any ``param_dtype``
 (``models.layers.FP32_LEAVES``: the SSM mixer's and the MoE router's) and
 the SSM state ``h`` stay fp32.
+
+AdamW's state moves likewise (:func:`from_jax_opt_state`/
+:func:`to_numpy_opt_state`): the moments ``m`` and ``v`` mirror the
+parameter tree, their stacks split into per-layer lists as the
+parameters', each leaf fp32 or bf16 by the state policy, or an int8 moment
+``{"q": int8, "s": fp32 scales}`` (q8's ``m``) whose two arrays split on
+the layer axis alike; ``count`` is an int32 scalar.  So a JAX train step
+and a port train step can start from one state.
 """
 from __future__ import annotations
 
@@ -43,14 +51,16 @@ from .core.dist_assoc import DistAssoc
 from .core.keyspace import KeySpace
 from .core.mesh import Mesh
 from .models.layers import FP32_LEAVES
+from .optim.adamw import policies
 
 # the parameter stacks that the JAX package stacks on a leading layer axis
 LAYER_STACKS = ("dense_stack", "moe_stack", "mamba_stack", "enc_stack",
                 "dec_stack")
 
-__all__ = ["from_jax_cache", "from_jax_dist_state", "from_jax_params",
-           "from_jax_state", "to_numpy_cache", "to_numpy_dist_state",
-           "to_numpy_params", "to_numpy_state"]
+__all__ = ["from_jax_cache", "from_jax_dist_state", "from_jax_opt_state",
+           "from_jax_params", "from_jax_state", "to_numpy_cache",
+           "to_numpy_dist_state", "to_numpy_opt_state", "to_numpy_params",
+           "to_numpy_state"]
 
 
 def from_jax_state(rows, cols, vals, nnz, row_keys, col_keys,
@@ -139,22 +149,31 @@ def from_jax_params(params_np: dict, cfg, *, device="cuda") -> dict:
         dtype = torch.float32 if key in FP32_LEAVES else cfg.param_dtype
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
 
+    return _split_stacks(params_np, tensor)
+
+
+def _split_stacks(tree_np: dict, leaf) -> dict:
+    """``leaf(array, key)`` of every leaf of a numpy tree in the JAX layout
+    (``key`` the leaf's own name), each layer stack split into a list of
+    per-layer dicts, one for each entry of its leading axis."""
     out = {}
-    for name, sub in params_np.items():
+    for name, sub in tree_np.items():
         if name in LAYER_STACKS:
             n = len(_first_leaf(sub))
-            out[name] = [_map(lambda x, k, i=i: tensor(np.asarray(x)[i], k),
+            out[name] = [_map(lambda x, k, i=i: leaf(np.asarray(x)[i], k),
                               sub, name) for i in range(n)]
         else:
-            out[name] = _map(tensor, sub, name)
+            out[name] = _map(leaf, sub, name)
     return out
 
 
 def to_numpy_params(params: dict) -> dict:
-    """The inverse of :func:`from_jax_params`: float32 numpy leaves, with
-    each layer stack stacked on axis 0 as in the JAX package."""
+    """The inverse of :func:`from_jax_params`: float32 numpy leaves (int8
+    ones, an int8 moment's ``q``, stay int8), with each layer stack stacked
+    on axis 0 as in the JAX package."""
     def arr(t):
-        return t.detach().float().cpu().numpy()
+        t = t.detach().cpu()
+        return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
 
     out = {}
     for name, sub in params.items():
@@ -163,6 +182,42 @@ def to_numpy_params(params: dict) -> dict:
         else:
             out[name] = _map(arr, sub)
     return out
+
+
+def from_jax_opt_state(opt_np: dict, state_policy: str, *,
+                       device="cuda") -> dict:
+    """The port's AdamW state from the numpy form of a JAX one
+    (``jax.tree.map(np.asarray, opt_state)``) under ``state_policy``
+    (fp32 | bf16 | q8): each moment leaf fp32 or bf16 as its policy says,
+    an int8 moment's ``q`` int8 and ``s`` fp32 (q8: ``m`` int8, ``v``
+    bf16), on ``device``, each layer stack split into per-layer lists as
+    :func:`from_jax_params` splits the parameters (no parameter leaf is
+    named ``q`` or ``s``)."""
+    dev = resolve_device(device)
+
+    def moment(tree, policy):
+        def leaf(x, key):
+            if key == "q":
+                return torch.from_numpy(np.array(x, np.int8)).to(dev)
+            dtype = torch.float32 if key == "s" or policy == "fp32" \
+                else torch.bfloat16
+            return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
+        return _split_stacks(tree, leaf)
+
+    m_policy, v_policy = policies(state_policy)
+    return {"m": moment(opt_np["m"], m_policy),
+            "v": moment(opt_np["v"], v_policy),
+            "count": torch.tensor(int(np.asarray(opt_np["count"])),
+                                  dtype=torch.int32, device=dev)}
+
+
+def to_numpy_opt_state(opt_state: dict) -> dict:
+    """The inverse of :func:`from_jax_opt_state`: the moments as
+    :func:`to_numpy_params` gives a tree back, ``count`` an int32
+    scalar."""
+    return {"m": to_numpy_params(opt_state["m"]),
+            "v": to_numpy_params(opt_state["v"]),
+            "count": np.int32(int(opt_state["count"]))}
 
 
 def _first_leaf(tree):

@@ -32,6 +32,10 @@
 // 67 TFLOP/s of fp32 outside the tensor cores.  No path of the port runs
 // fp32 attention at scale (the model computes in bf16); this kernel is
 // the exact route the card tests hold the masks and GQA mapping with.
+//
+// With a non-null lse pointer (training: the autograd Function of
+// kernels/flash_attention/ops.py) the epilogue also stores each row's
+// log-sum-exp m + log(l) for flash_attention_bwd.cu.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -49,6 +53,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;                             // [B, H, Sq] row log-sum-exp, or null
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, h, s)
   int H, Sq, Sk, group;                   // group = H / KV
   int causal, window, q_off;              // window <= 0: none
@@ -175,6 +180,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
   }
 
   if (qrow >= p.Sq) return;
+  // the backward's row statistic, natural log; +inf for a row with no key
+  if (p.lse != nullptr && half == 0)
+    p.lse[((long long)b * p.H + h) * p.Sq + qrow] = l > 0.f ? m + logf(l) : CUDART_INF_F;
   const float lc = fmaxf(l, 1e-30f);
   float* og = p.o + b * p.os[0] + h * p.os[1] + qrow * p.os[2] + half * 8;
 #pragma unroll
@@ -196,13 +204,15 @@ int launch_t(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// fp32 q, k, v, o.  strides: 12 element strides, (b, h, s) of q, k, v and
-// o in that order.  window <= 0: no window.  Sq, Sk >= 1.  (D, Dv): D = Dv
-// a multiple of 16 up to 128, or (192, 128).
+// fp32 q, k, v, o.  lse: null, or fp32 [B, H, Sq] contiguous, which gets
+// each row's log-sum-exp of its scaled scores (the backward's input; the
+// serving path passes null).  strides: 12 element strides, (b, h, s) of q,
+// k, v and o in that order.  window <= 0: no window.  Sq, Sk >= 1.  (D,
+// Dv): D = Dv a multiple of 16 up to 128, or (192, 128).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      const long long* strides, int B, int H, int KV, int Sq,
-                                      int Sk, int D, int Dv, int causal, int window, int q_off,
-                                      float scale, void* stream) {
+                                      float* lse, const long long* strides, int B, int H,
+                                      int KV, int Sq, int Sk, int D, int Dv, int causal,
+                                      int window, int q_off, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   Params p;
@@ -210,6 +220,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];
     p.ks[i] = strides[3 + i];

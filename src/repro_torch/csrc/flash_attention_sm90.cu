@@ -51,7 +51,9 @@
 //    O is scaled by alpha in registers before the product.
 //  * Epilogue: O / max(l, 1e-30) rounded to bf16, stored straight from
 //    registers to the strided output (columns past Dv and rows past Sq
-//    are not stored).
+//    are not stored); in training also each row's log-sum-exp (fp32) for
+//    flash_attention_bwd.cu, from the running max and sum the loop keeps
+//    anyway.
 //
 // Bound on an H100 at the serve path's shape (B 4, H 16, KV 8, S 2048,
 // D 128, causal): operations.  4·D FLOPs per visible (q, k) pair, 68.7
@@ -81,6 +83,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   __nv_bfloat16* o;
+  float* lse;       // [B, H, Sq] row log-sum-exp (natural log), or null
   long long os[3];  // element strides of o over (b, h, s)
   int Sq, Sk, Dv, group;
   int causal, window, q_off;  // window <= 0: none
@@ -418,6 +421,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
     __nv_bfloat16* og = p.o + b * p.os[0] + h * p.os[1] + (long long)row * p.os[2] + 2 * qd;
     const bool st0 = row < p.Sq, st1 = row + 8 < p.Sq;
+    if (p.lse != nullptr && qd == 0) {
+      // the backward's row statistic: m is in log2 units of the scaled
+      // scores, so lse = (m + log2 l)·ln 2; +inf for a row with no key
+      float* lg = p.lse + ((long long)b * gridDim.y + h) * p.Sq;
+      if (st0) lg[row] = l0 > 0.f ? (m0 + log2f(l0)) * 0.6931471805599453f : CUDART_INF_F;
+      if (st1) lg[row + 8] = l1 > 0.f ? (m1 + log2f(l1)) * 0.6931471805599453f : CUDART_INF_F;
+    }
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
       if (8 * j < p.Dv) {  // Dv is a multiple of 16: whole 8-column blocks
@@ -489,15 +499,19 @@ int launch_dp(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& t
 
 }  // namespace
 
-// bf16 q, k, v, o; the arguments of flash_attention_launch.  strides: 12
+// bf16 q, k, v, o; the arguments of flash_attention_launch (lse: null in
+// serving; in training fp32 [B, H, Sq] contiguous, each row's log-sum-exp,
+// stored in the epilogue from the running max and sum, after the main
+// loop, so the loop's registers do not change).  strides: 12
 // element strides, (b, h, s) of q, k, v and o in that order, each a
 // multiple of 8 (16 bytes), base pointers 16-byte aligned.  window <= 0:
 // no window.  Sq, Sk >= 1; D and Dv multiples of 16 whose instance
 // (each rounded up to 64) is (64, 64), (128, 128) or (192, 128).
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
-                                            const long long* strides, int B, int H, int KV,
-                                            int Sq, int Sk, int D, int Dv, int causal,
-                                            int window, int q_off, float scale, void* stream) {
+                                            float* lse, const long long* strides, int B,
+                                            int H, int KV, int Sq, int Sk, int D, int Dv,
+                                            int causal, int window, int q_off, float scale,
+                                            void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || Sk <= 0 || D < 16 || D % 16 != 0 || Dv < 16 || Dv % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -509,6 +523,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
     return (int)cudaErrorInvalidValue;
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
   p.Sq = Sq;
   p.Sk = Sk;

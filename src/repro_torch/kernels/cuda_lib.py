@@ -39,7 +39,8 @@ _BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("range_mask.cu", "semiring_matmul.cu", "bsr_pairlist.cu",
            "bsr_spgemm.cu", "rank_count.cu", "segment_scan.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
-           "semiring_tf32_sm90.cu", "bsr_pairlist_tf32_sm90.cu")
+           "flash_attention_bwd.cu", "semiring_tf32_sm90.cu",
+           "bsr_pairlist_tf32_sm90.cu")
 HEADERS = ("semiring.cuh", "semiring_gemm_sm90.cuh", "tf32_sm90.cuh",
            "pairlist_items.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,7 +74,8 @@ def kernel_semiring_id(sr: Semiring) -> int:
 # kernel launches since the last reset, by kernel.  A *_tf32 key counts the
 # tensor-core route of the kernel named before it, whose own key counts
 # both routes; flash_attention and flash_attention_wgmma count one route
-# each
+# each, flash_attention_bwd the backward (both dtypes: one call, its dQ and
+# dK/dV passes)
 LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
                             "semiring_matmul_tf32": 0,
                             "bsr_pairlist": 0, "bsr_pairlist_tf32": 0,
@@ -83,7 +85,8 @@ LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
                             "bsr_spgemm_reduce": 0,
                             "bsr_spgemm_reduce_tf32": 0,
                             "rank_count": 0, "segment_scan": 0,
-                            "flash_attention": 0, "flash_attention_wgmma": 0}
+                            "flash_attention": 0, "flash_attention_wgmma": 0,
+                            "flash_attention_bwd": 0}
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -104,10 +107,13 @@ _SIGNATURES = {
                                       _I, _P),
     "rank_count_launch": (_P, _P, _P, _P, _I, _I, _P),
     "segment_scan_launch": (_I, _P, _P, _P, _LL, _P, _LL, ctypes.c_uint, _P),
-    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P),
-    "flash_attention_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _I, _I, _F, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _P),
+    "flash_attention_wgmma_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _F, _P),
+    "flash_attention_bwd_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _P),
 }
 
 _LOCK = threading.Lock()          # guards the one-time build and load

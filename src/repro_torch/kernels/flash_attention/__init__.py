@@ -1,3 +1,5 @@
-from .ops import flash_attention, flash_attention_cuda
+from .ops import (FlashAttentionFn, flash_attention, flash_attention_bwd_cuda,
+                  flash_attention_cuda)
 
-__all__ = ["flash_attention", "flash_attention_cuda"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bwd_cuda",
+           "flash_attention_cuda"]

@@ -9,6 +9,17 @@ that fails raises: neither route gives way to the other or to the plain
 version.  The q/k head dim D and the v head dim Dv may differ: both
 routes take D = Dv and MLA's (192, 128) (:func:`head_dims`).
 
+Training goes through :class:`FlashAttentionFn`, an autograd Function
+whose forward launches the same kernel with its ``lse`` output on (each
+row's fp32 log-sum-exp; null, and so unchanged, when serving) and whose
+backward launches ``csrc/flash_attention_bwd.cu`` (counted as
+``flash_attention_bwd``): dq, dk and dv, the GQA group's gradients summed
+into its kv-head.  :func:`flash_attention` takes that route on the kernel
+route whenever autograd records (grad enabled and q, k or v requiring a
+gradient); a gradient the kernel cannot take raises, it never gives way
+to the plain version.  The plain version (``"ref"``, CPU tensors) is plain
+torch, which autograd differentiates.
+
 ``repro_torch.models.attention.chunked_attention`` calls
 :func:`flash_attention` when ``cfg.attn_impl`` is ``"auto"`` or ``"cuda"``
 with [B, S, H, D] tensors.  ``impl="auto"`` launches the kernel on CUDA
@@ -55,17 +66,28 @@ def head_dims(d: int, dv: int) -> Tuple[int, int]:
                      f"of 16 up to 128, and (192, 128)")
 
 
+def _check_lse(lse: torch.Tensor, b: int, h: int, sq: int) -> None:
+    cuda_lib.check_cuda(lse)
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} is not a "
+                         f"contiguous fp32 [B,H,Sq] {(b, h, sq)}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          sm_scale: Optional[float] = None, q_off: int = 0,
-                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         out: Optional[torch.Tensor] = None,
+                         lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel: q [B,H,Sq,D], k [B,KV,Sk,D], v [B,KV,Sk,Dv] (any strides
     over the first three axes, the last contiguous; bf16 or fp32, all one
     dtype; (D, Dv) as :func:`head_dims` takes them) → o [B,H,Sq,Dv],
     written into ``out`` if given (a view of that shape, for example a
     transposed [B,Sq,H,Dv] tensor, with 16-byte aligned rows).  bf16
     launches the wgmma kernel, fp32 the CUDA-core kernel
-    (:func:`kernel_route`)."""
+    (:func:`kernel_route`).  ``lse``, if given (fp32 [B,H,Sq],
+    contiguous), gets each row's log-sum-exp of its scaled visible scores,
+    +inf for a row that sees no key: the backward's input."""
     cuda_lib.check_cuda(q, k, v)
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_cuda takes bf16 or fp32 q, k, v of "
@@ -89,6 +111,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not match "
                          f"[B,H,Sq,Dv] {(b, h, sq, dv)} {q.dtype}")
     cuda_lib.check_cuda(out)
+    if lse is not None:
+        _check_lse(lse, b, h, sq)
     size = q.element_size()
 
     def rows_ok(t):      # 16-byte chunks (TMA boxes on the bf16 route)
@@ -101,16 +125,124 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("out must have a contiguous last axis and 16-byte "
                          "aligned rows")
     if sk == 0:                           # no key: every row is 0
+        if lse is not None:
+            lse.fill_(math.inf)
         return out.zero_()
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     cuda_lib.launch(kernel_route(q.dtype), q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(), strides,
                     b, h, kv, sq, sk, d, dv, int(causal),
                     -1 if window is None else int(window), int(q_off),
                     float(scale), cuda_lib.stream_ptr(q))
     return out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: Optional[int] = None,
+                             sm_scale: Optional[float] = None, q_off: int = 0,
+                             dq: Optional[torch.Tensor] = None,
+                             dk: Optional[torch.Tensor] = None,
+                             dv: Optional[torch.Tensor] = None):
+    """The backward kernel (``csrc/flash_attention_bwd.cu``): q [B,H,Sq,D],
+    k [B,KV,Sk,D], v [B,KV,Sk,Dv], the forward's o and its gradient do
+    [B,H,Sq,Dv] (any strides over the first three axes, the last
+    contiguous; bf16 or fp32, all one dtype) and the forward's ``lse``
+    (fp32 [B,H,Sq], contiguous) → (dq, dk, dv) in the inputs' dtype,
+    written into ``dq``/``dk``/``dv`` if given (views of those shapes, the
+    last axis contiguous).  dk and dv are summed over each GQA group.  The
+    masks and scale must be the forward's.  Counted as
+    ``flash_attention_bwd``: one call, its two passes."""
+    cuda_lib.check_cuda(q, k, v, o, do, lse)
+    if q.dtype not in ROUTES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError(f"flash_attention_bwd_cuda takes bf16 or fp32 q, k, "
+                        f"v, o, do of one dtype; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {o.dtype}, {do.dtype}")
+    if any(t.dim() != 4 for t in (q, k, v, o, do)) \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    _, kv, sk, _ = k.shape
+    dvh = v.shape[3]
+    if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} does not match k "
+                         f"{tuple(k.shape)} (H a multiple of KV)")
+    if o.shape != (b, h, sq, dvh) or do.shape != o.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be [B,H,Sq,Dv] {(b, h, sq, dvh)}")
+    _check_lse(lse, b, h, sq)
+    head_dims(d, dvh)
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be at least 1")
+    grads = []
+    for name, g, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
+        if g is None:
+            g = torch.empty_like(like, memory_format=torch.contiguous_format)
+        elif g.shape != like.shape or g.dtype != like.dtype \
+                or g.stride(3) != 1:
+            raise ValueError(f"{name} {tuple(g.shape)} {g.dtype} does not "
+                             f"match {tuple(like.shape)} {like.dtype} with a "
+                             f"contiguous last axis")
+        cuda_lib.check_cuda(g)
+        grads.append(g)
+    dq, dk, dv = grads
+    if b == 0 or h == 0:
+        return dq, dk, dv
+    if sq == 0 or sk == 0:                # no visible pair: zero gradients
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk,
+                                                     dv)
+                                         for s in t.stride()[:3]))
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    cuda_lib.launch("flash_attention_bwd", int(q.dtype == torch.bfloat16),
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
+                    b, h, kv, sq, sk, d, dvh, int(causal),
+                    -1 if window is None else int(window), int(q_off),
+                    float(scale), cuda_lib.stream_ptr(q))
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel route under autograd, in the model's layout: q [B,Sq,H,D],
+    k [B,Sk,KV,D], v [B,Sk,KV,Dv] → [B,Sq,H,Dv].  The forward launches the
+    forward kernel with its ``lse`` output and keeps q, k, v, the output
+    and ``lse``; the backward launches :func:`flash_attention_bwd_cuda`
+    into gradients in the inputs' layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale, q_off):
+        b, sq, h, _ = q.shape
+        out = q.new_empty(q.shape[:3] + v.shape[3:])
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal, window=window,
+                             sm_scale=sm_scale, q_off=q_off,
+                             out=out.transpose(1, 2), lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, sm_scale=sm_scale,
+                         q_off=q_off)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                      for t in (q, k, v))
+        flash_attention_bwd_cuda(*(t.transpose(1, 2)
+                                   for t in (q, k, v, out, dout)), lse,
+                                 dq=dq.transpose(1, 2), dk=dk.transpose(1, 2),
+                                 dv=dv.transpose(1, 2), **ctx.masks)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
@@ -122,12 +254,17 @@ def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
 
     Assumes contiguous positions: queries from ``q_off``, keys from 0 (the
     position arrays are accepted for signature parity with the plain path).
+    On the kernel route with autograd recording, :class:`FlashAttentionFn`
+    (the backward kernel computes the gradients).
     """
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if cuda_lib.resolve_impl(impl, q) == "ref":
         return flash_attention_ref(qt, kt, vt, causal=causal, window=window,
                                    sm_scale=sm_scale,
                                    q_off=q_off).transpose(1, 2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, sm_scale,
+                                      q_off)
     out = q.new_empty(q.shape[:3] + v.shape[3:])
     flash_attention_cuda(qt, kt, vt, causal=causal, window=window,
                          sm_scale=sm_scale, q_off=q_off,

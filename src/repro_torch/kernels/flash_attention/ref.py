@@ -1,5 +1,6 @@
-"""Plain torch version of the flash-attention kernel: masked softmax
-attention over the whole score matrix, in float32."""
+"""Plain torch versions of the flash-attention kernels: masked softmax
+attention over the whole score matrix, in float32, and its gradients
+written out explicitly (the backward kernel's plain version)."""
 from __future__ import annotations
 
 import math
@@ -34,6 +35,47 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)          # fully masked rows
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, do, *, causal: bool = True,
+                            window: Optional[int] = None, sm_scale=None,
+                            q_off: int = 0):
+    """The gradients of :func:`flash_attention_ref` at q [B,H,Sq,D], k
+    [B,KV,Sk,D], v [B,KV,Sk,Dv] for the output gradient do [B,H,Sq,Dv] →
+    (dq, dk, dv) in the inputs' dtypes, computed in float32 from the
+    formulas the backward kernel uses (P the masked softmax, masked
+    entries 0):
+
+        dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P ∘ (dP − rowsum(dP ∘ P)),
+        dQ = scale·dS·K,  dK = scale·dSᵀ·Q,
+
+    dK and dV summed over each GQA group.  (The kernel takes rowsum(dO ∘ O)
+    for rowsum(dP ∘ P); the two are equal for the exact O.)"""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf, dof = q.float(), do.float()
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+    qpos = q_off + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)          # fully masked rows
+    dv_h = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk_h.reshape(b, kv, g, sk, d).sum(2)
+    dv = dv_h.reshape(b, kv, g, sk, v.shape[3]).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def bf16_error_bound(q, k, v, want, *, p_roundings: int = 1,

@@ -148,3 +148,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     o2 = x2 * c + x1 * s
     rot = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
     return torch.cat([rot, xp], dim=-1) if rd < x.shape[-1] else rot
+
+
+# -- misc -------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits fp32 [..., V], labels int [...];
+    with ``mask`` the mean over the tokens it weighs."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -4,6 +4,7 @@
 Public entry points, as in the JAX package:
   * ``init(gen, cfg)``                 → params
   * ``forward(params, cfg, tokens, mode, cache, positions, enc_inputs)``
+  * ``lm_loss(params, cfg, batch)``    → scalar + metrics
   * ``init_cache(cfg, batch, cache_len, device=...)``
 
 The JAX package stacks the layers' parameters on a leading axis and scans
@@ -47,16 +48,27 @@ norms ``norm_h`` and ``norm_e``, ``proj`` [2·d, d] and one dense
 ``layer``), which only the training loss runs, so serving never reads it.
 The JAX package's sharding constraints (``models/pjit_utils.py``) are
 hints to XLA's partitioner with no meaning on one card, so they are left
-out.  Every family serves; training (the loss and the optimizer) is
-ROADMAP.md's module step 9e.  Sinusoidal decoder positions
-(``pos_emb="sinusoidal"``, in no shipped config) raise.
+out.  Sinusoidal decoder positions (``pos_emb="sinusoidal"``, in no
+shipped config) raise.
+
+Training: ``lm_loss`` is the sequence-chunked cross-entropy of the hidden
+states against the labels (``chunked_lm_loss``: the [B, S, V] logits are
+never whole), plus deepseek-v3's MTP loss (``_mtp_loss``) and the MoE
+load-balancing loss, each with its config weight.  With ``cfg.remat ==
+"full"`` a train-mode forward under autograd checkpoints every layer
+(``torch.utils.checkpoint``, non-reentrant: only each layer's input is
+kept and the layer runs again in the backward), as the JAX package's
+``jax.checkpoint`` of its scan body does, and ``chunked_lm_loss``
+checkpoints each sequence chunk when ``cfg.remat != "none"``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.assoc_tensor import resolve_device
 from . import attention as attn
@@ -65,6 +77,10 @@ from . import ssm as ssm_lib
 from .layers import (Params, _normal, apply_mlp, apply_norm, embed,
                      init_embedding, init_mlp, init_norm,
                      sinusoidal_positions)
+
+# the loss's sequence chunks and every layer's recompute checkpoint with
+# the non-reentrant implementation (autograd's saved-tensor hooks)
+_checkpoint = functools.partial(checkpoint, use_reentrant=False)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 POS_EMBS = ("rope", "learned")
@@ -314,11 +330,24 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
     return logits, aux, new_cache
 
 
+def _remat(cfg, mode: str) -> bool:
+    """Checkpoint each layer: a train-mode forward under autograd with
+    ``remat == "full"`` (the JAX package checkpoints its scan body)."""
+    return mode == "train" and cfg.remat == "full" \
+        and torch.is_grad_enabled()
+
+
+def _run(layer, x, remat: bool):
+    """``layer(x)``, checkpointed when ``remat``."""
+    return _checkpoint(layer, x) if remat else layer(x)
+
+
 def _dense_forward(params, cfg, x, *, mode, cache, positions, cursor):
     """The ``dense_stack`` (MLP layers), then the ``moe_stack`` (MoE
     layers); the sum of the layers' aux losses."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
+    remat = _remat(cfg, mode)
     for name, use_moe in (("dense_stack", False), ("moe_stack", True)):
         if name not in params:
             continue
@@ -326,9 +355,10 @@ def _dense_forward(params, cfg, x, *, mode, cache, positions, cursor):
         st = _Stack(cache[name] if cache is not None else None, len(stack),
                     mode)
         for i, lp in enumerate(stack):
-            x, nc, a, _ = apply_decoder_layer(
-                lp, cfg, x, mode=mode, cache=st.slot(i), positions=positions,
-                use_moe=use_moe, cursor=cursor)
+            layer = functools.partial(
+                apply_decoder_layer, lp, cfg, mode=mode, cache=st.slot(i),
+                positions=positions, use_moe=use_moe, cursor=cursor)
+            x, nc, a, _ = _run(layer, x, remat)
             if use_moe:
                 aux = aux + a
             if mode != "train":
@@ -353,19 +383,26 @@ def _mamba_forward(params, cfg, x, *, mode, cache, positions, cursor):
         shared, lora = params["shared"], params.get("shared_lora")
         shared_st = _Stack(cache["shared_attn"] if cache is not None
                            else None, n_invocations(cfg), mode)
+    remat = _remat(cfg, mode)
     for i, lp in enumerate(stack):
-        if hybrid and i % every == 0:
-            inv = i // every
-            pa = (shared if lora is None
-                  else _apply_lora_to_attn(shared, lora, inv))
-            x, nac, _, _ = apply_decoder_layer(pa, hy_cfg, x, mode=mode,
-                                               cache=shared_st.slot(inv),
-                                               positions=positions,
-                                               cursor=cursor)
-            if mode != "train":
-                shared_st.put(inv, nac)
-        x, nc = apply_mamba_layer(lp, cfg, x, mode=mode, cache=ms.slot(i))
+        def layer(x, i=i, lp=lp):
+            # the shared block before the mamba layer it precedes: one
+            # checkpointed body, as the JAX package's scan step
+            nac = None
+            if hybrid and i % every == 0:
+                inv = i // every
+                pa = (shared if lora is None
+                      else _apply_lora_to_attn(shared, lora, inv))
+                x, nac, _, _ = apply_decoder_layer(
+                    pa, hy_cfg, x, mode=mode, cache=shared_st.slot(inv),
+                    positions=positions, cursor=cursor)
+            x, nc = apply_mamba_layer(lp, cfg, x, mode=mode,
+                                      cache=ms.slot(i))
+            return x, nac, nc
+        x, nac, nc = _run(layer, x, remat)
         if mode != "train":
+            if nac is not None:
+                shared_st.put(i // every, nac)
             ms.put(i, nc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
     if mode == "train":
@@ -376,16 +413,19 @@ def _mamba_forward(params, cfg, x, *, mode, cache, positions, cursor):
     return x, aux, new_cache
 
 
-def _encode(params: Params, cfg, enc_inputs: torch.Tensor) -> Params:
+def _encode(params: Params, cfg, enc_inputs: torch.Tensor,
+            mode: str) -> Params:
     """The encoder over the frame embeddings [B, frames, d] (plus
     ``enc_pos``; bidirectional layers, then ``enc_norm``), and each decoder
     layer's cross K/V of its output, stacked: {"k", "v": [L, B, frames,
-    KV, Dh]}."""
+    KV, Dh]}.  ``mode`` is the caller's (train checkpoints the layers)."""
     e = enc_inputs.to(cfg.compute_dtype) + params["enc_pos"][None]
     pos = torch.arange(e.shape[1], dtype=torch.int32, device=e.device)
+    remat = _remat(cfg, mode)
     for lp in params["enc_stack"]:
-        e, _, _, _ = apply_decoder_layer(lp, cfg, e, mode="train", cache=None,
-                                         positions=pos, causal=False)
+        e, _, _, _ = _run(functools.partial(
+            apply_decoder_layer, lp, cfg, mode="train", cache=None,
+            positions=pos, causal=False), e, remat)
     e = apply_norm(params["enc_norm"], e, kind=cfg.norm)
     kvs = [attn.encode_cross_kv(lp["cross"], cfg, e)
            for lp in params["dec_stack"]]
@@ -404,7 +444,7 @@ def _encdec_forward(params, cfg, x, *, mode, cache, positions, enc_inputs):
         if enc_inputs is None:
             raise ValueError(f"{cfg.name}: {mode} needs the encoder's frame "
                              f"embeddings (enc_inputs [B, frames, d_model])")
-        cross_kv = _encode(params, cfg, enc_inputs)
+        cross_kv = _encode(params, cfg, enc_inputs, mode)
     else:
         if cache is None:
             raise ValueError("decode mode needs a cache")
@@ -412,10 +452,12 @@ def _encdec_forward(params, cfg, x, *, mode, cache, positions, enc_inputs):
     stack = params["dec_stack"]
     st = _Stack(cache["dec_stack"] if cache is not None else None,
                 len(stack), mode)
+    remat = _remat(cfg, mode)
     for i, lp in enumerate(stack):
-        x, nc, _, _ = apply_decoder_layer(
-            lp, cfg, x, mode=mode, cache=st.slot(i), positions=positions,
-            enc_kv={key: t[i] for key, t in cross_kv.items()})
+        x, nc, _, _ = _run(functools.partial(
+            apply_decoder_layer, lp, cfg, mode=mode, cache=st.slot(i),
+            positions=positions,
+            enc_kv={key: t[i] for key, t in cross_kv.items()}), x, remat)
         if mode != "train":
             st.put(i, nc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
@@ -476,6 +518,88 @@ def init_cache(cfg, batch: int, cache_len: int, *, device="cuda") -> Params:
     return out
 
 
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def chunked_lm_loss(params: Params, cfg, hidden: torch.Tensor,
+                    labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequence-chunked softmax cross-entropy of hidden [B, S, d] against
+    labels [B, S], weighed by ``mask`` (default all ones): the mean over
+    the weighed tokens.  Each chunk of ``cfg.loss_chunk`` positions makes
+    its [B, chunk, V] fp32 logits, takes the gold logit by ``gather`` (the
+    JAX package contracts with a one-hot, to keep a vocab-sharded chunk
+    sharded; on one card the two are the same sum) and is checkpointed
+    when ``cfg.remat != "none"``, so that the backward holds one chunk's
+    logits at a time."""
+    head = params.get("lm_head", params["embed"])
+    w = head["table"]
+    s = hidden.shape[1]
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=hidden.device)
+
+    def one(h_c, y_c, m_c):
+        logits = (h_c @ w.to(h_c.dtype).T).float()
+        if cfg.logit_scale is not None:
+            logits = logits * cfg.logit_scale
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        return ((logz - gold) * m_c).sum()
+
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        args = (hidden[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
+        tot = tot + (_checkpoint(one, *args) if remat else one(*args))
+    return tot / mask.float().sum().clamp_min(1.0)
+
+
+def lm_loss(params: Params, cfg, batch: dict):
+    """batch: {"tokens": [B,S], "labels": [B,S], optional "enc_inputs"
+    [B, frames, d] and "loss_mask" [B,S]} → ``(loss, metrics)``: the
+    cross-entropy (``metrics["xent"]``), plus ``mtp_weight`` times the MTP
+    loss (``metrics["mtp"]``, with ``cfg.mtp`` and an ``mtp`` subtree), plus
+    the MoE config's ``aux_weight`` times the load-balancing loss
+    (``metrics["moe_aux"]``)."""
+    hidden, aux, _ = forward(params, cfg, batch["tokens"], mode="train",
+                             enc_inputs=batch.get("enc_inputs"),
+                             return_hidden=True)
+    loss = chunked_lm_loss(params, cfg, hidden, batch["labels"],
+                           batch.get("loss_mask"))
+    metrics = {"xent": loss, "moe_aux": aux}
+    if cfg.mtp and "mtp" in params:
+        mtp_l = _mtp_loss(params, cfg, hidden, batch["labels"])
+        loss = loss + cfg.mtp_weight * mtp_l
+        metrics["mtp"] = mtp_l
+    moe_w = (cfg.moe or {}).get("aux_weight", 0.0)
+    return loss + moe_w * aux, metrics
+
+
+def _mtp_loss(params: Params, cfg, hidden: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3 MTP: h'_i = proj([norm(h_i); norm(emb(t_{i+1}))]) → one
+    dense block → the shared head → predict t_{i+2} (the labels shifted
+    left once more, the last position masked)."""
+    mp = params["mtp"]
+    s = hidden.shape[1]
+    emb_next = embed(params["embed"], labels).to(cfg.compute_dtype)
+    h = torch.cat([apply_norm(mp["norm_h"], hidden, kind=cfg.norm),
+                   apply_norm(mp["norm_e"], emb_next, kind=cfg.norm)], dim=-1)
+    h = (h @ mp["proj"]).to(cfg.compute_dtype)
+    h, _, _, _ = apply_decoder_layer(
+        mp["layer"], cfg, h, mode="train", cache=None,
+        positions=torch.arange(s, dtype=torch.int32, device=h.device))
+    labels2 = torch.roll(labels, -1, dims=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    mask[:, -1] = 0.0
+    return chunked_lm_loss(params, cfg, h, labels2, mask)
+
+
 def param_count(params: Params) -> int:
     """Number of parameter elements (tied embeddings counted once)."""
     def walk(t: Any) -> int:
@@ -487,6 +611,7 @@ def param_count(params: Params) -> int:
     return walk(params)
 
 
-__all__ = ["apply_decoder_layer", "apply_mamba_layer", "forward", "init",
-           "init_cache", "init_decoder_layer", "init_mamba_layer",
-           "make_generator", "n_invocations", "param_count"]
+__all__ = ["apply_decoder_layer", "apply_mamba_layer", "chunked_lm_loss",
+           "forward", "init", "init_cache", "init_decoder_layer",
+           "init_mamba_layer", "lm_loss", "make_generator", "n_invocations",
+           "param_count"]

@@ -183,9 +183,14 @@ def apply_moe(p: Params, cfg, x: torch.Tensor):
     for log in _ROUTING_LOGS:
         log.append({"idx": idx, "dropped": (~meta[3]).sum(),
                     "routed": meta[3].numel()})
-    # one product per projection over all experts: [E, B·C, d] @ [E, d, f]
-    h = F.silu(torch.bmm(buf, p["gate"]), inplace=True)
-    h = h.mul_(torch.bmm(buf, p["up"]))
+    # one product per projection over all experts: [E, B·C, d] @ [E, d, f];
+    # in place when serving, out of place where autograd saves the operands
+    # (the same values)
+    g = torch.bmm(buf, p["gate"])
+    if torch.is_grad_enabled() and g.requires_grad:
+        h = F.silu(g) * torch.bmm(buf, p["up"])
+    else:
+        h = F.silu(g, inplace=True).mul_(torch.bmm(buf, p["up"]))
     y = _combine(torch.bmm(h, p["down"]), meta, b, s)
     if "shared_gate" in p:  # DeepSeek shared expert — always on
         y = y + linear(p["shared_down"],

@@ -122,8 +122,14 @@ def _ssd_chunked(xh, bt, ct, dt, a, chunk: int,
                         bt_c.permute(0, 1, 3, 4, 2))         # [B,C,G,Q,Q]
     tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
     decay = (cum_h[..., :, None] - cum_h[..., None, :]).masked_fill_(
-        ~tri, float("-inf")).exp_()                          # [B,C,G,R,Q,Q]
-    decay.mul_(gram[:, :, :, None])
+        ~tri, float("-inf"))                                 # [B,C,G,R,Q,Q]
+    if torch.is_grad_enabled() and (decay.requires_grad
+                                    or gram.requires_grad):
+        # training: exp saves its output for the backward, so no in-place
+        # product may overwrite it (the same values as the line below)
+        decay = decay.exp() * gram[:, :, :, None]
+    else:
+        decay.exp_().mul_(gram[:, :, :, None])
     y = torch.matmul(decay, dtx_h)                           # [B,C,G,R,Q,P]
     del decay
 
