@@ -80,10 +80,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      AdamW with the fp32 moments of ``default_train_options``) on one
      seeded batch of 4 x 2048 tokens with remat "full"; each step must
      launch the flash kernel 28 times forward, 28 more in the layers'
-     recompute and its backward kernel (``flash_attention_bwd``) 28 times,
-     and the loss must fall.  Before them, outside the count, the route
-     check (step 1's loss, gradient norm and the relative L2 of the
-     ``wq``/``wk``/``wv``/``embed`` gradients on the kernel route against
+     recompute and its bf16 backward kernel (the wgmma route,
+     ``flash_attention_bwd_wgmma``) 28 times, the fp32 backward
+     (``flash_attention_bwd``) never, and the loss must fall.  Before
+     them, outside the count, the route check (step 1's loss, gradient
+     norm and the relative L2 of the ``wq``/``wk``/``wv``/``embed``
+     gradients on the kernel route against
      ``attn_impl="ref"``, which launches no flash kernel) and the
      microbatch check (``microbatch=2`` against the whole batch), each
      within the limits at ``TRAIN_GRAD_TOL``.  Then one step for every
@@ -97,7 +99,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernel alone at each family's train shape (whisper's 1500-frame
      encoder and cross-attention, MLA's (192, 128)) against
      ``flash_attention_bwd_ref`` (relative L2 within 2^-6), timed beside
-     its bound, its plain version and SDPA's backward;
+     its bound, its plain version and SDPA's backward, and its share of a
+     qwen3-1.7b train step (28 launches at the timed ms over the steps'
+     median);
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -245,8 +249,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 The kernels line lists the nine TPU kernels' ports and the port's own
 ``flash_attention_bwd`` (no TPU counterpart: it replaces XLA's
-differentiation of the JAX package's attention reference path); the flash
-row's launches add the train phase's forward launches.
+differentiation of the JAX package's attention reference path; route
+``cuda-wgmma``, ``csrc/flash_attention_bwd_sm90.cu``, its launches the
+train phase's bf16 ones); the flash row's launches add the train phase's
+forward launches.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -1452,20 +1458,32 @@ def grad_rel(got, want, names=("wq", "wk", "wv")) -> dict:
     return out
 
 
-def flash_bwd_alone(label, b, h, kv, s, d, gen, failures, *, dv=None,
-                    sk=None, window=None, causal=True,
-                    sm_scale=None) -> dict:
-    """``flash_attention_bwd_cuda`` alone at one train shape (bf16, seeded
-    normal q, k, v and dO; lse and O from the forward kernel): held against
-    ``flash_attention_bwd_ref`` (over blocks of heads of at most 1 GB of
-    fp32 scores) within BWD_REL_TOL, and timed beside its bound, its plain
-    version and SDPA's backward (forward + backward under autograd, minus
-    the forward under autograd; never called by the port)."""
+# the flash backward's 11 train shapes (label, batch, heads, kv heads, queries,
+# q/k head dim, and the masks, v head dim or key count where they differ)
+TRAIN_BWD_SHAPES = [("qwen3-1.7b", 4, 16, 8, 2048, 128, {}),
+                    ("zamba2-7b", 4, 32, 32, 2048, 112, {}),
+                    ("chatglm3-6b", 4, 32, 2, 2048, 128, {}),
+                    ("starcoder2-7b", 4, 36, 4, 2048, 128, {}),
+                    ("minicpm-2b", 4, 36, 36, 2048, 64, {}),
+                    ("chameleon-34b", 4, 64, 8, 2048, 128, {}),
+                    ("mixtral-8x22b", MOE_BATCH, 48, 8, MOE_PROMPT, 128,
+                     {"window": 4096}),
+                    ("deepseek-v3-671b", 2, 128, 128, 4096, 192,
+                     {"dv": 128, "sm_scale": 192 ** -0.5}),
+                    ("whisper-medium's encoder", 4, 16, 16, 1500, 64,
+                     {"causal": False}),
+                    ("whisper-medium's cross-attention", 4, 16, 16, 2048, 64,
+                     {"causal": False, "sk": 1500}),
+                    ("whisper-medium's decoder", 4, 16, 16, 2048, 64, {})]
+
+
+def bwd_inputs(b, h, kv, s, d, gen, *, dv=None, sk=None, window=None,
+               causal=True, sm_scale=None) -> dict:
+    """One train shape's backward inputs on the card: seeded normal bf16
+    q, k, v and dO, lse and O from the forward kernel, and the masks."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     dv, sk = dv or d, sk or s
     q, k, v = (torch.randn(shape, generator=gen, device=DEVICE,
                            dtype=torch.bfloat16)
@@ -1475,14 +1493,23 @@ def flash_bwd_alone(label, b, h, kv, s, d, gen, failures, *, dv=None,
     masks = dict(causal=causal, window=window, sm_scale=sm_scale)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=DEVICE)
     o = fa_ops.flash_attention_cuda(q, k, v, lse=lse, **masks)
-    got = fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
-    # the plain version over blocks of one batch row and hk kv-heads (their
-    # GQA groups whole), each at most 1 GB of fp32 scores
+    return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, masks=masks)
+
+
+def bwd_plain(x) -> tuple:
+    """``flash_attention_bwd_ref`` of :func:`bwd_inputs`' inputs over blocks
+    of one batch row and hk kv-heads (their GQA groups whole), each at most
+    1 GB of fp32 scores → (a callable returning [dq, dk, dv], blocks)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    q, k, v, do, masks = x["q"], x["k"], x["v"], x["do"], x["masks"]
+    b, h, s = q.shape[:3]
+    kv, sk = k.shape[1:3]
     g = h // kv
     hk = max([n for n in range(1, kv + 1)
               if kv % n == 0 and n * g * s * sk * 4 <= 1 << 30] or [1])
     blocks = [(i, j) for i in range(b) for j in range(0, kv, hk)]
-    slices = len(blocks)
 
     def plain():
         grads = [torch.empty_like(t) for t in (q, k, v)]
@@ -1493,27 +1520,38 @@ def flash_bwd_alone(label, b, h, kv, s, d, gen, failures, *, dv=None,
                     q[qs], k[ks], v[ks], do[qs], **masks)):
                 out[qs if out.shape[1] == h else ks] = part
         return grads
-    want = plain()
-    rels = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"),
-                                                       got, want)}
-    err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
-    del got, want
-    ok = all(r <= BWD_REL_TOL for r in rels.values())
-    shape = (f"q {b} x {h} x {s} x {d}, k {b} x {kv} x {sk} x {d}, v "
-             f"{b} x {kv} x {sk} x {dv}, "
-             + ("causal" if causal else "non-causal")
-             + (f", window {window}" if window else ""))
-    log(f"[kernel check] {'ok  ' if ok else 'FAIL'} flash_attention_bwd at "
-        f"{label} ({shape}, GQA {h // kv}): relative L2 "
-        + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
-        + f" (limit {BWD_REL_TOL:.3e}), max |err| {err:.3e}")
-    if not ok:
-        failures.append(f"flash_attention_bwd at {label}: relative L2 "
-                        f"{rels}")
-    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse,
-                                                         **masks), 3)
-    plain_ms = cuda_ms(plain, 1)
-    kw = dict(enable_gqa=True, scale=sm_scale)
+    return plain, len(blocks)
+
+
+def bwd_bound(x) -> tuple:
+    """The least time of the backward on the card → (ms, "bytes" or
+    "operations", bytes, FLOPs): each input read and each output written
+    once, and the five products' 2·(3·D + 2·Dv) FLOPs a visible pair at the
+    bf16 tensor cores' peak."""
+    q, k, v, do, o, lse = (x[n] for n in ("q", "k", "v", "do", "o", "lse"))
+    b, h, s, d = q.shape
+    sk, dv = k.shape[2], v.shape[3]
+    pairs = visible_pairs(s, sk, x["masks"]["causal"],
+                          window=x["masks"]["window"]) * b * h
+    n_ops = 2 * (3 * d + 2 * dv) * pairs
+    n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
+        + 2 * o.numel() + 4 * lse.numel()
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", n_bytes, n_ops)
+
+
+def sdpa_bwd_ms(x) -> tuple:
+    """SDPA's backward on the same inputs, never called by the port: forward
+    + backward under autograd, minus the forward under autograd → (ms or
+    None, the mask it was given or why no backend took it)."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, do, masks = x["q"], x["k"], x["v"], x["do"], x["masks"]
+    s, sk = q.shape[2], k.shape[2]
+    causal, window = masks["causal"], masks["window"]
+    kw = dict(enable_gqa=True, scale=masks["sm_scale"])
     if causal and window is None and sk == s:
         kw["is_causal"] = True
         backend = "is_causal"
@@ -1535,17 +1573,48 @@ def flash_bwd_alone(label, b, h, kv, s, d, gen, failures, *, dv=None,
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), leaves, do)
     try:
-        lib_ms = cuda_ms(sdpa_fwd_bwd, 3) - cuda_ms(sdpa_fwd, 3)
+        return cuda_ms(sdpa_fwd_bwd, 3) - cuda_ms(sdpa_fwd, 3), backend
     except RuntimeError as exc:       # no SDPA backend takes these inputs
-        lib_ms, backend = None, f"{backend}: {str(exc).splitlines()[0]}"
-    pairs = visible_pairs(s, sk, causal, window=window) * b * h
-    n_ops = 2 * (3 * d + 2 * dv) * pairs
-    n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
-        + 2 * o.numel() + 4 * lse.numel()
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / BF16_FLOP_PER_S * 1e3
-    bound = max(t_bytes, t_ops)
-    by = "bytes" if t_bytes >= t_ops else "operations"
+        return None, f"{backend}: {str(exc).splitlines()[0]}"
+
+
+def flash_bwd_alone(label, b, h, kv, s, d, gen, failures, **kw) -> dict:
+    """``flash_attention_bwd_cuda`` alone at one train shape (bf16, seeded
+    normal q, k, v and dO; lse and O from the forward kernel): held against
+    ``flash_attention_bwd_ref`` (over blocks of heads of at most 1 GB of
+    fp32 scores) within BWD_REL_TOL, and timed beside its bound, its plain
+    version and SDPA's backward (forward + backward under autograd, minus
+    the forward under autograd; never called by the port)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    x = bwd_inputs(b, h, kv, s, d, gen, **kw)
+    q, k, v, do, o, lse, masks = (x[n] for n in ("q", "k", "v", "do", "o",
+                                                 "lse", "masks"))
+    got = fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
+    plain, slices = bwd_plain(x)
+    want = plain()
+    rels = {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"),
+                                                       got, want)}
+    err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
+    del got, want
+    ok = all(r <= BWD_REL_TOL for r in rels.values())
+    causal, window = masks["causal"], masks["window"]
+    sk, dv = k.shape[2], v.shape[3]
+    shape = (f"q {b} x {h} x {s} x {d}, k {b} x {kv} x {sk} x {d}, v "
+             f"{b} x {kv} x {sk} x {dv}, "
+             + ("causal" if causal else "non-causal")
+             + (f", window {window}" if window else ""))
+    log(f"[kernel check] {'ok  ' if ok else 'FAIL'} flash_attention_bwd at "
+        f"{label} ({shape}, GQA {h // kv}): relative L2 "
+        + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+        + f" (limit {BWD_REL_TOL:.3e}), max |err| {err:.3e}")
+    if not ok:
+        failures.append(f"flash_attention_bwd at {label}: relative L2 "
+                        f"{rels}")
+    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                         **masks), 3)
+    plain_ms = cuda_ms(plain, 1)
+    lib_ms, backend = sdpa_bwd_ms(x)
+    bound, by, n_bytes, n_ops = bwd_bound(x)
     lib = ("n/a" if lib_ms is None else
            f"{lib_ms:.4f} ms (SDPA backward, {backend}), kernel / library "
            f"{ms / max(lib_ms, 1e-9):.3f}")
@@ -1591,14 +1660,15 @@ def train_phase(dev, report, failures):
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         ms = (time.perf_counter() - t0) * 1e3
         fwd, bwd = LAUNCHES["flash_attention_wgmma"], \
-            LAUNCHES["flash_attention_bwd"]
+            LAUNCHES["flash_attention_bwd_wgmma"]
         fwd_total += fwd
         bwd_total += bwd
         want = train_launches_wanted(cfg)
         row = {"loss": loss, "grad_norm": gnorm, "ms": ms,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "flash_launches": [fwd, bwd], "want": list(want),
-               "fp32_launches": LAUNCHES["flash_attention"]}
+               "fp32_launches": LAUNCHES["flash_attention"]
+               + LAUNCHES["flash_attention_bwd"]}
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             failures.append(f"train {name}: loss {loss}, grad norm {gnorm}")
         if (fwd, bwd) != want or row["fp32_launches"]:
@@ -1621,12 +1691,13 @@ def train_phase(dev, report, failures):
     reset_launch_counts()
     loss_k, _, grads_k = steps_lib.loss_and_grads(params, cfg, batch)
     kernel_fb = (LAUNCHES["flash_attention_wgmma"],
-                 LAUNCHES["flash_attention_bwd"])
+                 LAUNCHES["flash_attention_bwd_wgmma"])
+    kernel_fp32 = LAUNCHES["flash_attention"] + LAUNCHES["flash_attention_bwd"]
     reset_launch_counts()
     loss_r, _, grads_r = steps_lib.loss_and_grads(
         params, cfg.replace(attn_impl="ref"), batch)
     plain_fb = (LAUNCHES["flash_attention_wgmma"],
-                LAUNCHES["flash_attention_bwd"])
+                LAUNCHES["flash_attention_bwd_wgmma"])
     from repro_torch.optim import global_norm
     checks = {"loss": abs(float(loss_k) - float(loss_r)) / abs(float(loss_r)),
               "grad_norm": abs(float(global_norm(grads_k))
@@ -1657,9 +1728,11 @@ def train_phase(dev, report, failures):
         if bad:
             failures.append(f"train {TRAIN_ARCH} {label}: {bad} past their "
                             f"limits ({got})")
-    if kernel_fb != (2 * cfg.n_layers, cfg.n_layers) or any(plain_fb):
+    if kernel_fb != (2 * cfg.n_layers, cfg.n_layers) or any(plain_fb) \
+            or kernel_fp32:
         failures.append(f"train {TRAIN_ARCH}: flash launches kernel route "
-                        f"{kernel_fb}, plain route {plain_fb}")
+                        f"{kernel_fb} (fp32 {kernel_fp32}), plain route "
+                        f"{plain_fb}")
     out[TRAIN_ARCH] = {"params": n_params, "route_check": checks,
                        "microbatch_check": micro, "steps": []}
     state = adamw_init(params, state_policy=opts.opt_state_policy)
@@ -1714,31 +1787,28 @@ def train_phase(dev, report, failures):
 
     # (c) the backward kernel alone at each family's train shape
     gen = torch.Generator(device=DEVICE).manual_seed(SERVE_SEED)
-    shapes = [("qwen3-1.7b", 4, 16, 8, 2048, 128, {}),
-              ("zamba2-7b", 4, 32, 32, 2048, 112, {}),
-              ("chatglm3-6b", 4, 32, 2, 2048, 128, {}),
-              ("starcoder2-7b", 4, 36, 4, 2048, 128, {}),
-              ("minicpm-2b", 4, 36, 36, 2048, 64, {}),
-              ("chameleon-34b", 4, 64, 8, 2048, 128, {}),
-              ("mixtral-8x22b", MOE_BATCH, 48, 8, MOE_PROMPT, 128,
-               {"window": 4096}),
-              ("deepseek-v3-671b", 2, 128, 128, 4096, 192,
-               {"dv": 128, "sm_scale": 192 ** -0.5}),
-              ("whisper-medium's encoder", 4, 16, 16, 1500, 64,
-               {"causal": False}),
-              ("whisper-medium's cross-attention", 4, 16, 16, 2048, 64,
-               {"causal": False, "sk": 1500}),
-              ("whisper-medium's decoder", 4, 16, 16, 2048, 64, {})]
     alone = {label: flash_bwd_alone(label, b, h, kv, s, d, gen, failures,
                                     **kw)
-             for label, b, h, kv, s, d, kw in shapes}
+             for label, b, h, kv, s, d, kw in TRAIN_BWD_SHAPES}
     out["bwd_alone"] = alone
     out["flash_launches"] = [fwd_total, bwd_total]
-    report["train"] = out
     main = alone["qwen3-1.7b"]
+    # the backward's share of qwen3's step: its launches a step at the time
+    # measured alone, over the counted steps' median
+    step_ms = sorted(r["ms"] for r in out[TRAIN_ARCH]["steps"])[
+        TRAIN_STEPS // 2]
+    n_bwd = train_launches_wanted(get_config(TRAIN_ARCH))[1]
+    out["bwd_share_of_step"] = {"launches": n_bwd, "kernel_ms": main["ms"],
+                                "step_ms": step_ms,
+                                "share": n_bwd * main["ms"] / step_ms}
+    log(f"[time] flash_attention_bwd share of a {TRAIN_ARCH} train step: "
+        f"{n_bwd} launches x {main['ms']:.4f} ms = "
+        f"{n_bwd * main['ms']:.2f} ms of the steps' median {step_ms:.1f} ms "
+        f"({100 * n_bwd * main['ms'] / step_ms:.2f}%)")
+    report["train"] = out
     return fwd_total, {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "name": "flash_attention_bwd", "route": "cuda-wgmma",
+        "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/models/attention.py:58",
         "launches": bwd_total,
         "max_abs_err": main["max_abs_err"], "ms": main["ms"],

@@ -1,10 +1,11 @@
-// flash_attention_bwd: the gradient of flash attention on the CUDA cores.
-// Given q [B, H, Sq, D], k [B, KV, Sk, D], v [B, KV, Sk, Dv], the forward's
-// output o [B, H, Sq, Dv], its row log-sum-exp lse [B, H, Sq] (fp32,
-// natural log of Σ_j exp(scale·q_i·k_j) over the visible keys) and the
-// output's gradient dO [B, H, Sq, Dv], it writes dq, dk and dv in the
-// inputs' layout and dtype (bf16 or fp32; any strides over (b, h, s), the
-// last axis contiguous).  dk and dv are summed over each GQA group inside
+// flash_attention_bwd (fp32 route): the gradient of flash attention on the
+// CUDA cores; bf16 inputs take the Hopper route
+// (flash_attention_bwd_sm90.cu: TMA, wgmma).  Given q [B, H, Sq, D], k [B,
+// KV, Sk, D], v [B, KV, Sk, Dv], the forward's output o [B, H, Sq, Dv], its
+// row log-sum-exp lse [B, H, Sq] (fp32, natural log of Σ_j
+// exp(scale·q_i·k_j) over the visible keys) and the output's gradient dO
+// [B, H, Sq, Dv], it writes dq, dk and dv in the inputs' layout (fp32; any
+// strides over (b, h, s), the last axis contiguous).  dk and dv are summed over each GQA group inside
 // the kernel.  Masks as in the forward: causal, sliding window, queries at
 // q_off + i, keys at j, Sk any length.
 //
@@ -37,17 +38,15 @@
 //    (192, 128), as the forward's bf16 route: a narrower head dim is
 //    zero-filled past D in shared memory and its columns are not stored.
 //    Shared memory: 194 KB at (192, 128), 162 KB at (128, 128).
-//  * Arithmetic in fp32 (fp32 FMAs on bf16-exact inputs); dq, dk and dv are
-//    rounded once to the output dtype.
+//  * Arithmetic in fp32 FMAs throughout.
 //
 // Bound on an H100: operations.  The five products cost 2·(3·D + 2·Dv)
 // FLOPs per visible (query, key) pair (S and dQ and dK over D; dP and dV
 // over Dv); over the 989 TFLOP/s of the bf16 tensor cores that is 0.174
-// ms at qwen3-1.7b's 4 x 2048 causal, 16/8 heads x 128.  This first kernel
-// runs on the CUDA cores (67 TFLOP/s of fp32 FMA at most, shared-memory
-// loads before that), so it sits far from that bound; the wgmma/TMA
-// redesign (FA3's) is a later step.
-#include <cuda_bf16.h>
+// ms at qwen3-1.7b's 4 x 2048 causal, 16/8 heads x 128.  fp32 has no
+// tensor-core route here, so the kernel runs on the CUDA cores (67 TFLOP/s
+// of fp32 FMA at most, shared-memory loads before that) and sits far from
+// that bound; training runs in bf16, on flash_attention_bwd_sm90.cu.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -58,14 +57,14 @@ constexpr int BK = 64;  // keys per tile
 constexpr int THREADS = 256;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dO;
-  void* dq;
-  void* dk;
-  void* dv;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dO;
+  float* dq;
+  float* dk;
+  float* dv;
   const float* lse;  // [B, H, Sq], contiguous
   float* delta;      // [B, H, Sq], contiguous: written by flash_bwd_dq
   // element strides of (b, h, s): q, k, v, o, dO, dq, dk, dv
@@ -94,31 +93,17 @@ struct Smem {
   static_assert(BYTES <= 227 * 1024, "shared memory past the 227 KB a block may take");
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // rows [0, 64) x columns [0, DP) of a tile into fp32 shared rows of `ld`
 // floats, from global rows `ld_g` elements apart; rows at or past `valid`
 // and columns at or past `d` are zero
-template <typename T, int DP>
+template <int DP>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
-                                          const T* __restrict__ src, long long ld_g, int valid,
-                                          int d) {
+                                          const float* __restrict__ src, long long ld_g,
+                                          int valid, int d) {
   for (int idx = threadIdx.x; idx < 64 * DP; idx += THREADS) {
     const int r = idx / DP, c = idx % DP;
     float x = 0.f;
-    if (r < valid && c < d) x = to_f(src[r * ld_g + c]);
+    if (r < valid && c < d) x = src[r * ld_g + c];
     dst[r * ld + c] = x;
   }
 }
@@ -186,7 +171,7 @@ __device__ __forceinline__ void p_and_ds(const Params& p, float* smem, int q0, i
 }
 
 // dQ: one block per (b, h, 64-row query tile)
-template <typename T, int DQ, int DV>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(Params p) {
   using L = Smem<DQ, DV>;
   extern __shared__ __align__(16) float smem[];
@@ -194,15 +179,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(Params p) {
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.group;
   const int q0 = qt * BQ;
   const int valid_q = p.Sq - q0;
-  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[1] + q0 * p.qs[2];
-  const T* dog = static_cast<const T*>(p.dO) + b * p.dos[0] + h * p.dos[1] + q0 * p.dos[2];
-  const T* og = static_cast<const T*>(p.o) + b * p.os[0] + h * p.os[1] + q0 * p.os[2];
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[1];
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[1];
+  const float* qg = p.q + b * p.qs[0] + h * p.qs[1] + q0 * p.qs[2];
+  const float* dog = p.dO + b * p.dos[0] + h * p.dos[1] + q0 * p.dos[2];
+  const float* og = p.o + b * p.os[0] + h * p.os[1] + q0 * p.os[2];
+  const float* kg = p.k + b * p.ks[0] + kvh * p.ks[1];
+  const float* vg = p.v + b * p.vs[0] + kvh * p.vs[1];
   const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;  // lse / delta index of row 0
 
-  load_tile<T, DQ>(smem + L::Q, L::LQ, qg, p.qs[2], valid_q, p.D);
-  load_tile<T, DV>(smem + L::DO, L::LV, dog, p.dos[2], valid_q, p.Dv);
+  load_tile<DQ>(smem + L::Q, L::LQ, qg, p.qs[2], valid_q, p.D);
+  load_tile<DV>(smem + L::DO, L::LV, dog, p.dos[2], valid_q, p.Dv);
   __syncthreads();
   // delta = rowsum(dO ∘ O): warp w takes rows 8w .. 8w + 7
   {
@@ -212,7 +197,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(Params p) {
       float acc = 0.f;
       if (i < valid_q)
         for (int e = lane; e < p.Dv; e += 32)
-          acc = fmaf(smem[L::DO + i * L::LV + e], to_f(og[i * p.os[2] + e]), acc);
+          acc = fmaf(smem[L::DO + i * L::LV + e], og[i * p.os[2] + e], acc);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
       if (lane == 0) {
@@ -238,8 +223,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(Params p) {
 
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's K and dS are no longer read
-    load_tile<T, DQ>(smem + L::K, L::LQ, kg + k0 * p.ks[2], p.ks[2], p.Sk - k0, p.D);
-    load_tile<T, DV>(smem + L::V, L::LV, vg + k0 * p.vs[2], p.vs[2], p.Sk - k0, p.Dv);
+    load_tile<DQ>(smem + L::K, L::LQ, kg + k0 * p.ks[2], p.ks[2], p.Sk - k0, p.D);
+    load_tile<DV>(smem + L::V, L::LV, vg + k0 * p.vs[2], p.vs[2], p.Sk - k0, p.Dv);
     __syncthreads();
     p_and_ds<DQ, DV>(p, smem, q0, k0);
     __syncthreads();
@@ -259,7 +244,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(Params p) {
     }
   }
 
-  T* dqg = static_cast<T*>(p.dq) + b * p.dqs[0] + h * p.dqs[1] + q0 * p.dqs[2];
+  float* dqg = p.dq + b * p.dqs[0] + h * p.dqs[1] + q0 * p.dqs[2];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = ty + 16 * r;
@@ -267,25 +252,23 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < p.D) dqg[i * p.dqs[2] + d] = from_f<T>(acc[r][c] * p.scale);
+      if (d < p.D) dqg[i * p.dqs[2] + d] = acc[r][c] * p.scale;
     }
   }
 }
 
 // dK and dV: one block per (b, kv-head, 64-key tile), over the group's heads
-template <typename T, int DQ, int DV>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(Params p) {
   using L = Smem<DQ, DV>;
   extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BK;  // the causally heaviest (earliest) keys first
   const int valid_k = p.Sk - k0;
-  load_tile<T, DQ>(smem + L::K, L::LQ,
-                   static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[1] + k0 * p.ks[2],
-                   p.ks[2], valid_k, p.D);
-  load_tile<T, DV>(smem + L::V, L::LV,
-                   static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[1] + k0 * p.vs[2],
-                   p.vs[2], valid_k, p.Dv);
+  load_tile<DQ>(smem + L::K, L::LQ, p.k + b * p.ks[0] + kvh * p.ks[1] + k0 * p.ks[2], p.ks[2],
+                valid_k, p.D);
+  load_tile<DV>(smem + L::V, L::LV, p.v + b * p.vs[0] + kvh * p.vs[1] + k0 * p.vs[2], p.vs[2],
+                valid_k, p.Dv);
 
   // query rows that can see any key of the tile
   int i_lo = 0, i_hi = p.Sq;
@@ -309,13 +292,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(Params p) {
     for (int q0 = (i_lo / BQ) * BQ; q0 < i_hi; q0 += BQ) {
       const int valid_q = p.Sq - q0;
       __syncthreads();  // the previous tile's Q, dO, P and dS are no longer read
-      load_tile<T, DQ>(smem + L::Q, L::LQ,
-                       static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[1] + q0 * p.qs[2],
-                       p.qs[2], valid_q, p.D);
-      load_tile<T, DV>(smem + L::DO, L::LV,
-                       static_cast<const T*>(p.dO) + b * p.dos[0] + h * p.dos[1] +
-                           q0 * p.dos[2],
-                       p.dos[2], valid_q, p.Dv);
+      load_tile<DQ>(smem + L::Q, L::LQ, p.q + b * p.qs[0] + h * p.qs[1] + q0 * p.qs[2],
+                    p.qs[2], valid_q, p.D);
+      load_tile<DV>(smem + L::DO, L::LV, p.dO + b * p.dos[0] + h * p.dos[1] + q0 * p.dos[2],
+                    p.dos[2], valid_q, p.Dv);
       if (threadIdx.x < BQ) {
         const int i = threadIdx.x;
         smem[L::LSE + i] = i < valid_q ? p.lse[rows + q0 + i] : 0.f;
@@ -352,8 +332,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(Params p) {
     }
   }
 
-  T* dkg = static_cast<T*>(p.dk) + b * p.dks[0] + kvh * p.dks[1] + k0 * p.dks[2];
-  T* dvg = static_cast<T*>(p.dv) + b * p.dvs[0] + kvh * p.dvs[1] + k0 * p.dvs[2];
+  float* dkg = p.dk + b * p.dks[0] + kvh * p.dks[1] + k0 * p.dks[2];
+  float* dvg = p.dv + b * p.dvs[0] + kvh * p.dvs[1] + k0 * p.dvs[2];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int j = ty + 16 * r;
@@ -361,57 +341,56 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(Params p) {
 #pragma unroll
     for (int c = 0; c < NK; ++c) {
       const int d = tx + 16 * c;
-      if (d < p.D) dkg[j * p.dks[2] + d] = from_f<T>(dk[r][c] * p.scale);
+      if (d < p.D) dkg[j * p.dks[2] + d] = dk[r][c] * p.scale;
     }
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
       const int e = tx + 16 * c;
-      if (e < p.Dv) dvg[j * p.dvs[2] + e] = from_f<T>(dv[r][c]);
+      if (e < p.Dv) dvg[j * p.dvs[2] + e] = dv[r][c];
     }
   }
 }
 
-template <typename T, int DQ, int DV>
+template <int DQ, int DV>
 int launch_t(const Params& p, int B, int KV, cudaStream_t stream) {
   const int bytes = Smem<DQ, DV>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq<T, DQ, DV>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq<DQ, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_bwd_dkdv<T, DQ, DV>,
+  e = cudaFuncSetAttribute(flash_bwd_dkdv<DQ, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq<T, DQ, DV><<<dim3((p.Sq + BQ - 1) / BQ, p.H, B), THREADS, bytes, stream>>>(p);
+  flash_bwd_dq<DQ, DV><<<dim3((p.Sq + BQ - 1) / BQ, p.H, B), THREADS, bytes, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv<T, DQ, DV><<<dim3((p.Sk + BK - 1) / BK, KV, B), THREADS, bytes, stream>>>(p);
+  flash_bwd_dkdv<DQ, DV><<<dim3((p.Sk + BK - 1) / BK, KV, B), THREADS, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dtype(const Params& p, int B, int KV, cudaStream_t stream) {
+int launch_dp(const Params& p, int B, int KV, cudaStream_t stream) {
   const int dq = (p.D + 63) / 64 * 64, dv = (p.Dv + 63) / 64 * 64;
-  if (dq == 192 && dv == 128) return launch_t<T, 192, 128>(p, B, KV, stream);
+  if (dq == 192 && dv == 128) return launch_t<192, 128>(p, B, KV, stream);
   if (dq != dv) return (int)cudaErrorInvalidValue;
-  if (dq == 64) return launch_t<T, 64, 64>(p, B, KV, stream);
-  if (dq == 128) return launch_t<T, 128, 128>(p, B, KV, stream);
+  if (dq == 64) return launch_t<64, 64>(p, B, KV, stream);
+  if (dq == 128) return launch_t<128, 128>(p, B, KV, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype 0: fp32, 1: bf16 (q, k, v, o, dO, dq, dk, dv all of it); lse and
-// delta fp32 [B, H, Sq] contiguous (delta is scratch the call fills).
-// strides: 24 element strides, (b, h, s) of q, k, v, o, dO, dq, dk, dv in
-// that order, each tensor's last axis contiguous.  window <= 0: no window.
-// B, H, Sq, Sk >= 1; D and Dv multiples of 16 whose instance (each rounded
-// up to 64) is (64, 64), (128, 128) or (192, 128).  Two launches: dQ (and
-// delta), then dK and dV.
-extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
-                                          const void* v, const void* o, const void* dO,
-                                          const float* lse, float* delta, void* dq, void* dk,
-                                          void* dv, const long long* strides, int B, int H,
-                                          int KV, int Sq, int Sk, int D, int Dv, int causal,
-                                          int window, int q_off, float scale, void* stream) {
+// fp32 q, k, v, o, dO, dq, dk, dv; lse and delta fp32 [B, H, Sq]
+// contiguous (delta is scratch the call fills).  strides: 24 element
+// strides, (b, h, s) of q, k, v, o, dO, dq, dk, dv in that order, each
+// tensor's last axis contiguous.  window <= 0: no window.  B, H, Sq, Sk >=
+// 1; D and Dv multiples of 16 whose instance (each rounded up to 64) is
+// (64, 64), (128, 128) or (192, 128).  Two launches: dQ (and delta), then
+// dK and dV.
+extern "C" int flash_attention_bwd_launch(const float* q, const float* k, const float* v,
+                                          const float* o, const float* dO, const float* lse,
+                                          float* delta, float* dq, float* dk, float* dv,
+                                          const long long* strides, int B, int H, int KV, int Sq,
+                                          int Sk, int D, int Dv, int causal, int window,
+                                          int q_off, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || D < 16 || D % 16 != 0 || Dv < 16 || Dv % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -439,8 +418,5 @@ extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* 
   p.window = window;
   p.q_off = q_off;
   p.scale = scale;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dtype<float>(p, B, KV, st);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(p, B, KV, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_dp(p, B, KV, (cudaStream_t)stream);
 }

@@ -39,10 +39,10 @@ _BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("range_mask.cu", "semiring_matmul.cu", "bsr_pairlist.cu",
            "bsr_spgemm.cu", "rank_count.cu", "segment_scan.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
-           "flash_attention_bwd.cu", "semiring_tf32_sm90.cu",
-           "bsr_pairlist_tf32_sm90.cu")
+           "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
+           "semiring_tf32_sm90.cu", "bsr_pairlist_tf32_sm90.cu")
 HEADERS = ("semiring.cuh", "semiring_gemm_sm90.cuh", "tf32_sm90.cuh",
-           "pairlist_items.cuh")
+           "pairlist_items.cuh", "flash_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -74,8 +74,9 @@ def kernel_semiring_id(sr: Semiring) -> int:
 # kernel launches since the last reset, by kernel.  A *_tf32 key counts the
 # tensor-core route of the kernel named before it, whose own key counts
 # both routes; flash_attention and flash_attention_wgmma count one route
-# each, flash_attention_bwd the backward (both dtypes: one call, its dQ and
-# dK/dV passes)
+# each, and so do the backward's: flash_attention_bwd the fp32 one (one
+# call, its dQ and dK/dV passes), flash_attention_bwd_wgmma the bf16 one
+# (one call, its three launches)
 LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
                             "semiring_matmul_tf32": 0,
                             "bsr_pairlist": 0, "bsr_pairlist_tf32": 0,
@@ -86,7 +87,8 @@ LAUNCHES: Dict[str, int] = {"range_mask": 0, "semiring_matmul": 0,
                             "bsr_spgemm_reduce_tf32": 0,
                             "rank_count": 0, "segment_scan": 0,
                             "flash_attention": 0, "flash_attention_wgmma": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_wgmma": 0}
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -111,9 +113,12 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _F, _P),
     "flash_attention_wgmma_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _F, _P),
-    "flash_attention_bwd_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _P),
+    "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _P),
+    "flash_attention_bwd_wgmma_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _I, _F, _P),
 }
 
 _LOCK = threading.Lock()          # guards the one-time build and load
@@ -253,6 +258,12 @@ def check_cuda(*tensors: torch.Tensor) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors: the blocks that run at once
+    when each takes a whole SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(kernel: str, *args, counts=None) -> None:

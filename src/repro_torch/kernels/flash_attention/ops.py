@@ -12,9 +12,12 @@ routes take D = Dv and MLA's (192, 128) (:func:`head_dims`).
 Training goes through :class:`FlashAttentionFn`, an autograd Function
 whose forward launches the same kernel with its ``lse`` output on (each
 row's fp32 log-sum-exp; null, and so unchanged, when serving) and whose
-backward launches ``csrc/flash_attention_bwd.cu`` (counted as
-``flash_attention_bwd``): dq, dk and dv, the GQA group's gradients summed
-into its kv-head.  :func:`flash_attention` takes that route on the kernel
+backward launches a backward kernel chosen by dtype as the forward's
+(:func:`bwd_kernel_route`): bf16 ``csrc/flash_attention_bwd_sm90.cu``
+(TMA, wgmma for all five products, dq summed by fp32 atomics; counted as
+``flash_attention_bwd_wgmma``), fp32 ``csrc/flash_attention_bwd.cu`` (the
+CUDA cores; counted as ``flash_attention_bwd``): dq, dk and dv, the GQA
+group's gradients summed into its kv-head.  :func:`flash_attention` takes that route on the kernel
 route whenever autograd records (grad enabled and q, k or v requiring a
 gradient); a gradient the kernel cannot take raises, it never gives way
 to the plain version.  The plain version (``"ref"``, CPU tensors) is plain
@@ -40,9 +43,11 @@ import torch
 from repro_torch.kernels import cuda_lib
 from .ref import flash_attention_ref
 
-# the kernel (and its LAUNCHES key) for each dtype
+# the kernel (and its LAUNCHES key) for each dtype: forward and backward
 ROUTES = {torch.bfloat16: "flash_attention_wgmma",
           torch.float32: "flash_attention"}
+BWD_ROUTES = {torch.bfloat16: "flash_attention_bwd_wgmma",
+              torch.float32: "flash_attention_bwd"}
 
 
 def kernel_route(dtype: torch.dtype) -> str:
@@ -50,6 +55,37 @@ def kernel_route(dtype: torch.dtype) -> str:
     if dtype not in ROUTES:
         raise TypeError(f"flash_attention_cuda takes bf16 or fp32; got {dtype}")
     return ROUTES[dtype]
+
+
+def bwd_kernel_route(dtype: torch.dtype) -> str:
+    """The kernel that ``flash_attention_bwd_cuda`` launches for ``dtype``."""
+    if dtype not in BWD_ROUTES:
+        raise TypeError(f"flash_attention_bwd_cuda takes bf16 or fp32; got "
+                        f"{dtype}")
+    return BWD_ROUTES[dtype]
+
+
+def _tma_rows_ok(t: torch.Tensor) -> bool:
+    """The last axis contiguous, the base and the strides over the first
+    three axes in 16-byte units: what a TMA tensor map takes."""
+    size = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s * size % 16 == 0 for s in t.stride()[:3]))
+
+
+def bwd_group_split(b: int, kv: int, group: int, sk: int, sms: int) -> int:
+    """Blocks over which the bf16 backward splits each GQA group's heads.
+    It runs one block per (batch row, kv head, 128-key tile), each over its
+    group's heads; where that is under two waves of ``sms`` blocks (a
+    large group over few kv heads: chatglm3-6b's 16 heads a kv head leave
+    128 blocks), the group is split so that the blocks fill about two
+    waves, each split's dK/dV summed after in a fixed order.  Every split
+    holds at least one head."""
+    blocks = -(-sk // 128) * kv * b
+    if group <= 1 or blocks >= 2 * sms:
+        return 1
+    per = -(-group // min(group, -(-2 * sms // blocks)))   # heads a split
+    return -(-group // per)
 
 
 def head_dims(d: int, dv: int) -> Tuple[int, int]:
@@ -113,15 +149,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda_lib.check_cuda(out)
     if lse is not None:
         _check_lse(lse, b, h, sq)
-    size = q.element_size()
-
-    def rows_ok(t):      # 16-byte chunks (TMA boxes on the bf16 route)
-        return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-                and all(s > 0 and s * size % 16 == 0 for s in t.stride()[:3]))
-    q, k, v = (t if rows_ok(t) else t.contiguous() for t in (q, k, v))
+    # 16-byte chunks (TMA boxes on the bf16 route)
+    q, k, v = (t if _tma_rows_ok(t) else t.contiguous() for t in (q, k, v))
     if b == 0 or h == 0 or sq == 0:       # no grid to launch
         return out
-    if not rows_ok(out):
+    if not _tma_rows_ok(out):
         raise ValueError("out must have a contiguous last axis and 16-byte "
                          "aligned rows")
     if sk == 0:                           # no key: every row is 0
@@ -148,15 +180,23 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              dq: Optional[torch.Tensor] = None,
                              dk: Optional[torch.Tensor] = None,
                              dv: Optional[torch.Tensor] = None):
-    """The backward kernel (``csrc/flash_attention_bwd.cu``): q [B,H,Sq,D],
-    k [B,KV,Sk,D], v [B,KV,Sk,Dv], the forward's o and its gradient do
-    [B,H,Sq,Dv] (any strides over the first three axes, the last
-    contiguous; bf16 or fp32, all one dtype) and the forward's ``lse``
-    (fp32 [B,H,Sq], contiguous) → (dq, dk, dv) in the inputs' dtype,
-    written into ``dq``/``dk``/``dv`` if given (views of those shapes, the
-    last axis contiguous).  dk and dv are summed over each GQA group.  The
-    masks and scale must be the forward's.  Counted as
-    ``flash_attention_bwd``: one call, its two passes."""
+    """The backward kernel: q [B,H,Sq,D], k [B,KV,Sk,D], v [B,KV,Sk,Dv], the
+    forward's o and its gradient do [B,H,Sq,Dv] (any strides over the first
+    three axes, the last contiguous; bf16 or fp32, all one dtype) and the
+    forward's ``lse`` (fp32 [B,H,Sq], contiguous) → (dq, dk, dv) in the
+    inputs' dtype, written into ``dq``/``dk``/``dv`` if given (views of
+    those shapes, the last axis contiguous; on the bf16 route also 4-byte
+    aligned rows).  dk and dv are summed over each GQA group.  The masks
+    and scale must be the forward's.  bf16 launches
+    ``csrc/flash_attention_bwd_sm90.cu`` (counted as
+    ``flash_attention_bwd_wgmma``: one call, its launches; its fp32
+    scratch, the dQ accumulator and the rows' lse·log2(e) and delta, is
+    4·B·H·Sq_pad·(DQ + 2) bytes, Sq_pad = Sq rounded up to 64 and DQ the
+    instance's q/k head dim, and with a GQA group split over blocks
+    (:func:`bwd_group_split`) 4·nsplit·B·KV·Sk·(DQ + DV) more); fp32
+    ``csrc/flash_attention_bwd.cu``
+    (counted as ``flash_attention_bwd``: one call, its two passes).  A
+    launch that fails raises; neither route gives way to the other."""
     cuda_lib.check_cuda(q, k, v, o, do, lse)
     if q.dtype not in ROUTES or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError(f"flash_attention_bwd_cuda takes bf16 or fp32 q, k, "
@@ -195,20 +235,42 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         return dq, dk, dv
     if sq == 0 or sk == 0:                # no visible pair: zero gradients
         return dq.zero_(), dk.zero_(), dv.zero_()
-    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
-                      for t in (q, k, v, o, do))
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    route = bwd_kernel_route(q.dtype)
+    if route == "flash_attention_bwd_wgmma":
+        # TMA reads q, k, v and dO; the other kernels read and write rows
+        # as bf16 pairs
+        q, k, v, o, do = (t if _tma_rows_ok(t) else t.contiguous()
+                          for t in (q, k, v, o, do))
+        for name, g in (("dq", dq), ("dk", dk), ("dv", dv)):
+            if g.data_ptr() % 4 or any(s % 2 for s in g.stride()[:3]):
+                raise ValueError(f"{name} needs even strides and a 4-byte "
+                                 f"aligned base on the bf16 route")
+        sq_pad = -(-sq // 64) * 64
+        dqi, dvi = head_dims(d, dvh)
+        nsplit = bwd_group_split(b, kv, h // kv, sk,
+                                 cuda_lib.sm_count(q.device))
+        # the dQ accumulator [B·H, Sq_pad, DQ], lse·log2(e) and delta, then
+        # with a split group each split's dK·scale | dV [B, KV, Sk, DQ + DV]
+        scratch = torch.empty(b * h * sq_pad * (dqi + 2) + (
+            nsplit * b * kv * sk * (dqi + dvi) if nsplit > 1 else 0),
+            dtype=torch.float32, device=q.device)
+        extra = (nsplit,)
+    else:
+        q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
+                          for t in (q, k, v, o, do))
+        scratch = torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device)   # delta
+        extra = ()
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk,
                                                      dv)
                                          for s in t.stride()[:3]))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    cuda_lib.launch("flash_attention_bwd", int(q.dtype == torch.bfloat16),
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
-                    b, h, kv, sq, sk, d, dvh, int(causal),
-                    -1 if window is None else int(window), int(q_off),
-                    float(scale), cuda_lib.stream_ptr(q))
+    cuda_lib.launch(route, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), strides, b, h, kv, sq, sk, d, dvh,
+                    int(causal), -1 if window is None else int(window),
+                    int(q_off), *extra, float(scale), cuda_lib.stream_ptr(q))
     return dq, dk, dv
 
 

@@ -16,13 +16,22 @@ where it is not installed):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_flash_grad.py
 
 the forward kernels' ``lse`` output, ``flash_attention_bwd_cuda`` against
-``flash_attention_bwd_ref`` (fp32 within a relative L2 of 2^-14, summation
-order only; bf16 within 2^-6, the output's bf16 rounding plus delta taken
-from the bf16-rounded O), and that gradients on the kernel route exist and
-come from the backward kernel (the fault this slice repairs: the forward's
-output had no autograd history, so q/k/v got no gradient).
+``flash_attention_bwd_ref`` (fp32 on the CUDA-core kernel within a relative
+L2 of 2^-14, summation order only; bf16 on the wgmma kernel within 2^-6:
+P and dS rounded to bf16 before the products, each gradient's rounding,
+delta taken from the bf16-rounded O), each launch counted under its
+dtype's key and none under the other's, the bf16 kernel's tile edges
+(ragged Sq and Sk, key tiles no query sees, GQA 16, D 16 to 112 inside
+their instances, a window edge inside a tile, MLA's (192, 128) ragged at
+``q_off``), a refused bf16 launch that raises and launches nothing else,
+and that gradients on the kernel route exist and come from the backward
+kernel (a fault the kernel route once had: the forward's output had no
+autograd history, so q/k/v got no gradient).  On the CPU, a torch model of the bf16
+kernel's arithmetic holds within the same 2^-6 of the fp32 plain backward,
+and the backward's route follows the dtype.
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -45,6 +54,11 @@ CPU_CASES = {
     "noncausal_ragged": (2, 2, 2, 33, 70, 16, 16, False, None, 0),
     "mla_head_dims": (1, 4, 4, 24, 24, 24, 16, True, None, 0),
 }
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm().clamp_min(1e-30))
 
 
 def _inputs(case, seed=0):
@@ -119,6 +133,108 @@ def test_bwd_kernel_refuses_cpu_tensors():
         fa_ops.flash_attention_bwd_cuda(q, q, q, q, q, lse)
 
 
+def _wgmma_bwd_arithmetic(q, k, v, do, *, causal=True, drop_delta=False):
+    """The bf16 wgmma backward's arithmetic in torch, from bf16 inputs: O
+    and lse from the fp32 plain forward, O rounded to bf16 (the forward
+    kernel's output); delta = rowsum(dO ∘ O) and the scores in fp32; P =
+    2^(S·scale·log2 e − lse·log2 e), masked entries 0, rounded to bf16;
+    dS = P ∘ (dP − delta) from the rounded P, rounded to bf16; the five
+    products accumulate in fp32 and each gradient is rounded once.
+    ``drop_delta`` breaks it: dS = P ∘ dP."""
+    b, h, sq, d = q.shape
+    g = h // k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    kk, vv = (x.repeat_interleave(g, 1) for x in (kf, vf))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kk)
+    mask = torch.ones((sq, k.shape[2]), dtype=torch.bool)
+    if causal:
+        mask = torch.arange(k.shape[2])[None, :] <= torch.arange(sq)[:, None]
+    lse = torch.logsumexp((s * scale).masked_fill(~mask, float("-inf")), -1)
+    o = flash_attention_ref(qf, kf, vf, causal=causal).bfloat16().float()
+    delta = (dof * o).sum(-1, keepdim=True)
+    c = scale * math.log2(math.e)
+    p = torch.exp2(s * c - lse[..., None] * math.log2(math.e))
+    p = p.masked_fill(~mask, 0.0).bfloat16().float()
+    dp = torch.einsum("bhqe,bhke->bhqk", dof, vv)
+    ds = (p * (dp if drop_delta else dp - delta)).bfloat16().float()
+    dv_h = torch.einsum("bhqk,bhqe->bhke", p, dof)
+    dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    kv = k.shape[1]
+    dk = dk_h.reshape(b, kv, g, *dk_h.shape[2:]).sum(2)
+    dv = dv_h.reshape(b, kv, g, *dv_h.shape[2:]).sum(2)
+    return tuple(x.bfloat16() for x in (dq, dk, dv))
+
+
+def test_bf16_bound_holds_for_the_wgmma_kernels_arithmetic():
+    """BWD_REL_L2's bf16 bound holds for the wgmma backward's arithmetic
+    (bf16 P and dS as the products' operands, fp32 accumulation) against
+    the fp32 plain backward of the same bf16 inputs, at a small GQA causal
+    shape with unit-RMS q and k (as after the qk-norm); a kernel that drops
+    delta from dS breaks it."""
+    gen = torch.Generator().manual_seed(0)
+
+    def unit(x):
+        return (x / x.pow(2).mean(-1, keepdim=True).sqrt()).bfloat16()
+    q = unit(torch.randn((2, 4, 192, 64), generator=gen))
+    k = unit(torch.randn((2, 2, 192, 64), generator=gen))
+    v, do = (torch.randn(shape, generator=gen).bfloat16()
+             for shape in ((2, 2, 192, 64), (2, 4, 192, 64)))
+    want = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, do)),
+                                   causal=True)
+    got = _wgmma_bwd_arithmetic(q, k, v, do)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert _rel(g, w) <= BWD_REL_L2[torch.bfloat16], what
+    bad = _wgmma_bwd_arithmetic(q, k, v, do, drop_delta=True)
+    assert _rel(bad[0], want[0]) > BWD_REL_L2[torch.bfloat16]
+
+
+def test_bwd_group_split():
+    """The bf16 backward splits a GQA group over blocks only where its
+    blocks fall under two waves, into splits of at least one head: none at
+    qwen3-1.7b's or mixtral's train shape, 3 at chatglm3-6b's (16 heads a
+    kv head, 128 blocks), 2 at starcoder2-7b's; never for MHA."""
+    split = fa_ops.bwd_group_split
+    assert split(4, 8, 2, 2048, 132) == 1              # qwen3-1.7b
+    assert split(2, 8, 6, 6144, 132) == 1              # mixtral-8x22b
+    assert split(4, 2, 16, 2048, 132) == 3             # chatglm3-6b
+    assert split(4, 4, 9, 2048, 132) == 2              # starcoder2-7b
+    assert split(2, 128, 1, 4096, 132) == 1            # deepseek-v3 (MHA)
+    for group in range(1, 33):
+        for sk in (64, 130, 1000):
+            n = split(1, 1, group, sk, 132)
+            per = -(-group // n)
+            assert 1 <= n <= group and (n - 1) * per < group <= n * per
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "flash_attention_bwd_wgmma"),
+    (torch.float32, "flash_attention_bwd")])
+def test_bwd_route_is_chosen_by_dtype(monkeypatch, dtype, route):
+    """bf16 launches the wgmma backward and fp32 the CUDA-core one, by
+    dtype alone; a launch that fails raises, with no second launch on the
+    other kernel."""
+    from repro_torch.kernels import cuda_lib
+    calls = []
+
+    def failing_launch(kernel, *args):
+        calls.append(kernel)
+        raise RuntimeError(f"{kernel} launch failed")
+    monkeypatch.setattr(cuda_lib, "check_cuda", lambda *t: None)
+    monkeypatch.setattr(cuda_lib, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(cuda_lib, "sm_count", lambda d: 132)
+    monkeypatch.setattr(cuda_lib, "launch", failing_launch)
+    q = torch.zeros(1, 2, 32, 16, dtype=dtype)
+    lse = torch.zeros(1, 2, 32)
+    assert fa_ops.bwd_kernel_route(dtype) == route
+    with pytest.raises(RuntimeError, match=route):
+        fa_ops.flash_attention_bwd_cuda(q, q, q, q, q, lse)
+    assert calls == [route]
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        fa_ops.bwd_kernel_route(torch.float16)
+
+
 # -- the card ------------------------------------------------------------------
 
 @pytest.fixture
@@ -132,8 +248,10 @@ def card():
 
 # the bound of each dtype on the relative L2 error of dq, dk and dv against
 # the plain backward (fp32 from the same inputs): fp32 differs by summation
-# order; bf16 by one rounding of each gradient (2^-9 relative) and delta
-# taken from the bf16-rounded O (P rounded before P·V in the forward)
+# order; bf16 by the roundings of P and of dS to bf16 before the products
+# (2^-9 relative each; dS from the rounded P), one rounding of each gradient
+# (2^-9) and delta taken from the bf16-rounded O (P rounded before P·V in
+# the forward)
 BWD_REL_L2 = {torch.float32: 2 ** -14, torch.bfloat16: 2 ** -6}
 
 CARD_CASES = [
@@ -165,11 +283,6 @@ def _card_inputs(case, dtype, card, seed):
                           (b, h, sq, dv))]
 
 
-def _rel(got, want):
-    return float((got.double() - want.double()).norm()
-                 / want.double().norm().clamp_min(1e-30))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", range(len(CARD_CASES)))
@@ -185,7 +298,11 @@ def test_bwd_kernel(card, case, dtype):
     reset_launch_counts()
     got = fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention_bwd"] == 1
+    route = fa_ops.bwd_kernel_route(dtype)
+    assert route == {torch.bfloat16: "flash_attention_bwd_wgmma",
+                     torch.float32: "flash_attention_bwd"}[dtype]
+    assert LAUNCHES[route] == 1
+    assert all(n == 0 for key, n in LAUNCHES.items() if key != route), LAUNCHES
     want = flash_attention_bwd_ref(q, k, v, do, **masks)
     for g, w, t, what in zip(got, want, (q, k, v), ("dq", "dk", "dv")):
         assert g.dtype == dtype and g.shape == t.shape, what
@@ -246,7 +363,7 @@ def test_kernel_route_gradients_exist(card, dtype):
         grads[impl] = [t.grad for t in leaves]
         want = 1 if impl == "cuda" else 0
         assert LAUNCHES[fa_ops.kernel_route(dtype)] == want
-        assert LAUNCHES["flash_attention_bwd"] == want
+        assert LAUNCHES[fa_ops.bwd_kernel_route(dtype)] == want
     # bf16: the plain route's own backward rounds in other places too
     tol = BWD_REL_L2[dtype] if dtype == torch.float32 else 2 ** -5
     for g, r in zip(grads["cuda"], grads["ref"]):
@@ -274,7 +391,8 @@ def test_model_loss_gradients_on_the_kernel_route(card):
     loss, _, grads = TS.loss_and_grads(params, cfg, batch)
     n = cfg.n_layers
     assert LAUNCHES["flash_attention_wgmma"] == 2 * n
-    assert LAUNCHES["flash_attention_bwd"] == n
+    assert LAUNCHES["flash_attention_bwd_wgmma"] == n
+    assert LAUNCHES["flash_attention_bwd"] == 0
     ref_loss, _, ref_grads = TS.loss_and_grads(
         params, cfg.replace(attn_impl="ref"), batch)
     assert abs(float(loss) - float(ref_loss)) <= 2 ** -7 * abs(float(ref_loss))
@@ -284,3 +402,66 @@ def test_model_loss_gradients_on_the_kernel_route(card):
     for layer in grads["dense_stack"]:
         for name in ("wq", "wk", "wv"):
             assert float(layer["attn"][name]["w"].float().abs().max()) > 0
+
+
+# the bf16 kernel's tile edges: b, h, kv, sq, sk, d, dv, causal, window,
+# q_off, and the keys from which no query sees a key (dk, dv exactly 0)
+EDGE_CASES = [
+    ((1, 2, 1, 190, 333, 16, 16, True, None, 143), None),  # ragged, D 16
+    ((2, 4, 2, 77, 200, 48, 48, False, None, 0), None),    # ragged, D 48
+    ((1, 32, 2, 130, 130, 80, 80, True, None, 0), None),   # GQA 16, D 80
+    ((1, 4, 4, 300, 300, 112, 112, True, 70, 0), None),    # window edge in a tile
+    ((1, 2, 1, 64, 400, 64, 64, True, None, 0), 64),       # key tiles no query sees
+    ((2, 4, 4, 150, 270, 192, 128, True, None, 120), None),  # MLA ragged, q_off
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["auto", "whole"])
+@pytest.mark.parametrize("case", range(len(EDGE_CASES)))
+def test_bwd_wgmma_tile_edges(card, case, split, monkeypatch):
+    """The bf16 wgmma backward where its 128-key and 64-query tiles are cut:
+    within BWD_REL_L2 of the plain backward, one launch counted, and dk and
+    dv exactly 0 on keys that no query sees; with each GQA group split over
+    blocks as ``bwd_group_split`` says for these small grids, and whole."""
+    if split == "whole":
+        monkeypatch.setattr(fa_ops, "bwd_group_split", lambda *a: 1)
+    c, unseen = EDGE_CASES[case]
+    b, h, _, sq = c[:4]
+    masks = dict(causal=c[7], window=c[8], q_off=c[9])
+    if c[5] == 192:
+        masks["sm_scale"] = 192 ** -0.5
+    q, k, v, do = _card_inputs(c, torch.bfloat16, card, 100 + case)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=card)
+    o = fa_ops.flash_attention_cuda(q, k, v, lse=lse, **masks)
+    reset_launch_counts()
+    got = fa_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd_wgmma"] == 1
+    assert LAUNCHES["flash_attention_bwd"] == 0
+    want = flash_attention_bwd_ref(q, k, v, do, **masks)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(g).all()), what
+        assert _rel(g, w) <= BWD_REL_L2[torch.bfloat16], what
+    if unseen is not None:
+        for g, what in zip(got[1:], ("dk", "dv")):
+            assert bool((g[:, :, unseen:] == 0).all()), what
+            assert float(g[:, :, :unseen].float().abs().max()) > 0, what
+
+
+@pytest.mark.cuda
+def test_bwd_wgmma_refused_launch_raises(card, monkeypatch):
+    """A bf16 launch that the kernel's C entry refuses (here a head dim of
+    8, let past the wrapper's check) raises, and nothing else launches: not
+    the fp32 kernel, not the plain version."""
+    monkeypatch.setattr(fa_ops, "head_dims", lambda d, dv: (64, 64))
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(card, torch.bfloat16)
+                   for shape in ((1, 2, 64, 8), (1, 1, 64, 8), (1, 1, 64, 8),
+                                 (1, 2, 64, 8)))
+    lse = torch.zeros((1, 2, 64), dtype=torch.float32, device=card)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_attention_bwd_wgmma launch "
+                                           "failed"):
+        fa_ops.flash_attention_bwd_cuda(q, k, v, q, do, lse)
+    assert all(n == 0 for n in LAUNCHES.values()), LAUNCHES

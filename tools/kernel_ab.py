@@ -20,6 +20,12 @@
     # segment_scan: another segment_scan.cu, with its headers beside it
     python3 tools/kernel_ab.py segment_scan build/old/segment_scan.cu
 
+    # flash_attention_bwd: another source of the backward with a bf16
+    # instance, such as the CUDA-core one before the wgmma route
+    git show 03be953:src/repro_torch/csrc/flash_attention_bwd.cu \
+        > build/flash_attention_bwd_old.cu
+    python3 tools/kernel_ab.py flash_attention_bwd build/flash_attention_bwd_old.cu
+
 The other source is built with ``nvcc`` and the port's flags into
 ``build/kernel_ab/`` and called through a copy of the port's host work
 around its launch.  It must export these C entries:
@@ -38,7 +44,12 @@ around its launch.  It must export these C entries:
 * ``range_mask_launch(rows, cols, keep, n, rlo, rhi, clo, chi, stream)``;
 * ``segment_scan_launch(combine, keys, vals, out, n, scratch, stream)``
   with 4·ceil(n/1024) int32 of scratch: the three-pass source the port had
-  before its one-pass kernel.
+  before its one-pass kernel;
+* ``flash_attention_bwd_launch(dtype, q, k, v, o, dO, lse, delta, dq, dk,
+  dv, strides, B, H, KV, Sq, Sk, D, Dv, causal, window, q_off, scale,
+  stream)`` with dtype 1 for bf16, fp32 [B, H, Sq] delta scratch and 24
+  element strides ((b, h, s) of q, k, v, o, dO, dq, dk, dv): the
+  CUDA-core backward the port had before its bf16 wgmma route.
 
 ``rank_count`` runs on the ingest path's inputs
 (``chip_smoke.rank_count_inputs``: the base's and the delta's keys at
@@ -77,6 +88,14 @@ version (and the port's its order model) under sum, min and max, and each
 is timed in turns (old, new, new, old) by ``cuda_ms`` and by
 ``cuda_ms_clean_l2``, beside the 12-bytes-an-element bound.
 
+``flash_attention_bwd`` runs at chip_smoke's 11 train shapes
+(``chip_smoke.TRAIN_BWD_SHAPES``: bf16, seeded q, k, v and dO, lse and O
+from the forward kernel): both sources must be within
+``chip_smoke.BWD_REL_TOL`` (relative L2 of dq, dk and dv) of
+``flash_attention_bwd_ref``, and are timed in turns (old, new, new, old)
+by ``cuda_ms``, beside the bound and SDPA's backward (never called by the
+port).
+
 The last lines are the card's name and power limit and one JSON object of
 the times.
 """
@@ -109,6 +128,8 @@ ENTRIES = {
                    + [_I] * 4 + [_P]},
     "segment_scan": {"segment_scan_launch": [_I] + [_P] * 3
                      + [ctypes.c_longlong, _P, _P]},
+    "flash_attention_bwd": {"flash_attention_bwd_launch": [_I] + [_P] * 11
+                            + [_I] * 10 + [ctypes.c_float, _P]},
 }
 
 
@@ -464,9 +485,86 @@ def segment_scan_ab(old, dev) -> dict:
     return times
 
 
+def flash_attention_bwd_ab(old, dev) -> dict:
+    import math
+
+    import torch
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def old_call(x):
+        # the port wrapper's allocation, then the other source (bf16)
+        q, k, v, o, do, lse = (x[n] for n in ("q", "k", "v", "o", "do",
+                                              "lse"))
+        m = x["masks"]
+        b, h, sq, d = q.shape
+        kv, sk, dvh = k.shape[1], k.shape[2], v.shape[3]
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do,
+                                                         *grads)
+                                             for s in t.stride()[:3]))
+        scale = m["sm_scale"] or 1.0 / math.sqrt(d)
+        err = old.flash_attention_bwd_launch(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), strides, b, h, kv, sq, sk, d,
+            dvh, int(m["causal"]), m["window"] or -1, 0, scale,
+            cuda_lib.stream_ptr(q))
+        if err != 0:
+            raise RuntimeError(f"the old flash_attention_bwd failed: CUDA "
+                               f"error {err}")
+        return grads
+
+    def new_call(x):
+        return fa_ops.flash_attention_bwd_cuda(
+            *(x[n] for n in ("q", "k", "v", "o", "do", "lse")), **x["masks"])
+
+    gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(
+        chip_smoke.SERVE_SEED)
+    times = {}
+    for label, b, h, kv, s, d, kw in chip_smoke.TRAIN_BWD_SHAPES:
+        x = chip_smoke.bwd_inputs(b, h, kv, s, d, gen, **kw)
+        plain, _ = chip_smoke.bwd_plain(x)
+        want = plain()
+        rels = {}
+        for src, fn in (("old", old_call), ("new", new_call)):
+            got = fn(x)
+            rels[src] = [chip_smoke.rel_err(g, w) for g, w in zip(got, want)]
+            if max(rels[src]) > chip_smoke.BWD_REL_TOL:
+                raise SystemExit(f"kernel_ab: the {src} flash_attention_bwd "
+                                 f"at {label} is {rels[src]} (relative L2 of "
+                                 f"dq, dk, dv) from the plain version")
+            del got
+        del want
+        t = turns({"old": lambda: old_call(x), "new": lambda: new_call(x)},
+                  ("old", "new", "new", "old"), chip_smoke.cuda_ms, 3)
+        bound, by, _, n_ops = chip_smoke.bwd_bound(x)
+        lib_ms, backend = chip_smoke.sdpa_bwd_ms(x)
+        t.update({"old / new": t["old"] / t["new"], "bound_ms": bound,
+                  "bound_by": by, "gflop": n_ops / 1e9,
+                  "pct_of_bound": 100 * bound / t["new"],
+                  "sdpa_bwd_ms": lib_ms, "sdpa_mask": backend,
+                  "rel_l2": rels})
+        times[label] = t
+        lib = "n/a" if lib_ms is None else \
+            f"{lib_ms:.4f} ms ({backend}), new / SDPA {t['new'] / lib_ms:.3f}"
+        print(f"[time] flash_attention_bwd at {label}: old {t['old']:.4f} ms, "
+              f"new {t['new']:.4f} ms, old / new {t['old / new']:.2f}, bound "
+              f"{bound:.4f} ms ({by}), new at {t['pct_of_bound']:.2f}% of "
+              f"bound, SDPA backward {lib} (turns {json.dumps(t['turns'])}; "
+              f"relative L2 old {rels['old']}, new {rels['new']})",
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return times
+
+
 AB = {"rank_count": rank_count_ab, "bsr_pairlist": bsr_pairlist_ab,
       "bsr_spgemm": bsr_spgemm_ab, "range_mask": range_mask_ab,
-      "segment_scan": segment_scan_ab}
+      "segment_scan": segment_scan_ab,
+      "flash_attention_bwd": flash_attention_bwd_ab}
 
 
 def main() -> int:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What the compiler made of the semiring kernels, ``range_mask`` and
-``segment_scan``:
+"""What the compiler made of the semiring kernels, ``range_mask``,
+``segment_scan`` and the bf16 flash kernels:
 ptxas's register and spill report, and each kernel's instruction mix from
 ``cuobjdump -sass``.
 
@@ -12,8 +12,11 @@ and fails (exit 1) if
 
 * a kernel of ``csrc/semiring_matmul.cu``, ``csrc/bsr_spgemm.cu``,
   ``csrc/semiring_tf32_sm90.cu``, ``csrc/bsr_pairlist.cu``,
-  ``csrc/bsr_pairlist_tf32_sm90.cu``, ``csrc/range_mask.cu`` or
-  ``csrc/segment_scan.cu`` spills (spill stores or loads > 0);
+  ``csrc/bsr_pairlist_tf32_sm90.cu``, ``csrc/range_mask.cu``,
+  ``csrc/segment_scan.cu``, ``csrc/flash_attention_sm90.cu`` or
+  ``csrc/flash_attention_bwd_sm90.cu`` spills (spill stores or loads > 0);
+* an instance of the flash backward's ``flash_bwd_wgmma`` holds no
+  ``HGMMA`` (its five products must run on the tensor cores);
 * a ring kernel of a max/min semiring (``semiring_matmul_kernel``,
   ``bsr_spgemm_kernel``, ``bsr_spgemm_reduce_kernel``,
   ``bsr_pairlist_kernel`` and ``bsr_pairlist_reduce_kernel`` under
@@ -65,6 +68,7 @@ RING_KERNELS = ("semiring_matmul_kernel", "bsr_spgemm_kernel",
                 "bsr_spgemm_reduce_kernel", "bsr_pairlist_kernel",
                 "bsr_pairlist_reduce_kernel")
 TF32_KERNELS = ("tf32x3_kernel", "pair_tf32_kernel")
+FLASH_KERNELS = ("flash_fwd_wgmma", "flash_bwd_wgmma")
 NO_LOCAL_KERNELS = ("range_mask_kernel", "bsr_spgemm_kernel",
                     "segment_scan_kernel")
 SCAN_KERNEL = "segment_scan_kernel"
@@ -73,7 +77,8 @@ SCAN_OPS = ("3Sum", "3Min", "3Max")
 TF32_SLAB_HGMMA = "HGMMA.64x128x8.F32.TF32"
 CHECKED_SOURCES = ("semiring_matmul.cu", "bsr_spgemm.cu", "semiring_tf32_sm90.cu",
                    "bsr_pairlist.cu", "bsr_pairlist_tf32_sm90.cu", "range_mask.cu",
-                   "segment_scan.cu")
+                   "segment_scan.cu", "flash_attention_sm90.cu",
+                   "flash_attention_bwd_sm90.cu")
 
 
 def cuobjdump() -> str:
@@ -187,6 +192,16 @@ def main() -> int:
         ring = next((k for k in RING_KERNELS if k in fn), None)
         tf32 = next((k for k in TF32_KERNELS if k in fn), None)
         local = next((k for k in NO_LOCAL_KERNELS if k in fn), None)
+        flash = next((k for k in FLASH_KERNELS if k in fn), None)
+        if flash:
+            inst = re.search(r"ILi(\d+)ELi(\d+)E", fn)
+            key = f"{flash}<{inst.group(1)}, {inst.group(2)}>" if inst else flash
+            rows[key] = c
+            print(f"[sass] {key}: " + ", ".join(f"{k} {v}" for k, v in c.items()
+                                               if v), flush=True)
+            if flash == "flash_bwd_wgmma" and c["HGMMA"] == 0:
+                failures.append(f"{key}: no HGMMA instruction")
+            continue
         if not (ring or tf32 or local):
             continue
         if ring or tf32:
