@@ -102,6 +102,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      its bound, its plain version and SDPA's backward, and its share of a
      qwen3-1.7b train step (28 launches at the timed ms over the steps'
      median);
+   * the train-launch phase (module step 9f; the ``[train launch]``
+     lines): ``repro_torch.launch.train``'s ``main`` in process, as
+     ``python -m repro_torch.launch.train --arch qwen3-1.7b --seq-len 1024
+     --batch 4 --steps 8`` runs it (full width and depth, remat "full",
+     fp32 moments, batches from the D4M pipeline), with ``--ckpt-dir`` in
+     a temporary directory, ``--ckpt-every 3 --simulate-failure 5`` (the
+     step-3 checkpoint restores and step 3 runs again), then with no
+     failure and no checkpoint directory, each run counted: 56 forward and
+     28 backward wgmma flash launches a completed step, none on an fp32
+     route.  It fails unless restarts=1, every step's batch (replays
+     included) has the same digest in both runs, every step's loss is
+     within 2^-6 relative of the uninterrupted run's, a synchronous
+     ``save_checkpoint`` of the final state restored in place into a fresh
+     state gives back every leaf bit for bit (bf16 parameters, fp32
+     moments, the int32 step), and ``compress_tree`` over one full
+     gradient tree holds ``tests/test_compression.py``'s round-trip bound
+     and, over three error-feedback rounds, its unbiasedness bound.  It
+     prints the step seconds, each save's synchronous host copy and
+     writer seconds, the checkpoint bytes, the restore seconds, the peak
+     device memory and the host's peak RSS, the free disk and the
+     compression's ms and bytes, then the flash kernels alone at the
+     launcher's shape (4 x 1024) beside their bounds and SDPA's times.
+     The temporary directory goes in a ``finally``;
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -251,8 +274,8 @@ The kernels line lists the nine TPU kernels' ports and the port's own
 ``flash_attention_bwd`` (no TPU counterpart: it replaces XLA's
 differentiation of the JAX package's attention reference path; route
 ``cuda-wgmma``, ``csrc/flash_attention_bwd_sm90.cu``, its launches the
-train phase's bf16 ones); the flash row's launches add the train phase's
-forward launches.
+train phase's and train-launch phase's bf16 ones); the flash row's
+launches add both phases' forward launches.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -1816,6 +1839,287 @@ def train_phase(dev, report, failures):
         "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
 
 
+# the train-launch phase (module step 9f): the port's launcher
+# (repro_torch.launch.train's main, as ``python -m repro_torch.launch.train``
+# runs it) in process at qwen3-1.7b's full width and depth, remat "full",
+# fp32 moments: LAUNCH_STEPS steps of LAUNCH_BATCH x LAUNCH_SEQ tokens from
+# the D4M pipeline (its 64-document corpus holds 1406 tokens: 1024 is the
+# largest power of two it serves), a checkpoint every LAUNCH_CKPT_EVERY
+# steps and a simulated failure at step call LAUNCH_FAIL_AT (the step-3
+# checkpoint restores, step 3 runs again); then the same arguments with no
+# failure and no checkpoint directory.  A checkpoint of this state is 17.2
+# GB (1.72e9 bf16 parameters, fp32 m and v): the failure run keeps two, and
+# they are deleted before the round trip writes a third, so the phase needs
+# LAUNCH_DISK_BYTES free (a card machine has had 80 GB: no depth cut)
+LAUNCH_ARCH, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS = "qwen3-1.7b", 4, 1024, 8
+LAUNCH_CKPT_EVERY, LAUNCH_FAIL_AT = 3, 5
+LAUNCH_CALLS = [0, 1, 2, 3, 3, 4, 5, 6, 7]   # step of each completed call
+LAUNCH_DISK_BYTES = 2 * 17.3e9
+# every step's loss against the uninterrupted run's: the same weights and
+# batches, but the flash backward's dQ atomics add in another order in
+# each run, and the difference grows over the steps
+LAUNCH_LOSS_RTOL = 2 ** -6
+# gradient compression over one full gradient tree: LAUNCH_EF_SCALES error-
+# feedback rounds of the final state's gradients times each scale
+LAUNCH_EF_SCALES = (1.0, -0.5, 2.0)
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.optim import tree_leaves
+    return sum(x.nbytes for leaf in tree_leaves(tree)
+               for x in (leaf.values() if isinstance(leaf, dict) else [leaf]))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def compression_check(cfg, state, batch, failures) -> dict:
+    """``compress_tree`` over one full gradient tree (the gradients of
+    ``state``'s parameters on ``batch``): the round trip within one
+    quantization step of each leaf's largest value, and, over the error-
+    feedback rounds of LAUNCH_EF_SCALES, the sum of what was sent within
+    the carried residual of the sum of the true gradients (+1e-4), each
+    leaf as ``tests/test_compression.py`` asserts; its ms (each round's:
+    the first allocates the error state) and bytes."""
+    import torch
+
+    from repro_torch.distributed import compress_tree, decompress_tree
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import tree_leaves, tree_map
+    _, _, grads = steps_lib.loss_and_grads(state[0], cfg, batch)
+    del state
+    sums = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for g in tree_leaves(grads)]
+    sent = [torch.zeros_like(s) for s in sums]
+    err, worst_rt = None, 0.0
+    out = {"ms": [], "grad_bytes": tree_bytes(grads),
+           "leaves": len(tree_leaves(grads))}
+    for i, c in enumerate(LAUNCH_EF_SCALES):
+        g = tree_map(lambda x: x * c, grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp, err = compress_tree(g, err)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["compressed_bytes"] = tree_bytes(comp)
+        deq = decompress_tree(comp, g)
+        for s, d, gl, dl in zip(sums, sent, tree_leaves(g), tree_leaves(deq)):
+            s.add_(gl.float())
+            d.add_(dl)
+            if i == 0:   # from a zero error state: deq against g itself
+                bound = float(gl.float().abs().max()) / 127 + 1e-6
+                worst_rt = max(worst_rt,
+                               float((dl - gl.float()).abs().max()) / bound)
+        del g, comp, deq
+    worst_ef = max(float((d - s).abs().max())
+                   / (float(e.abs().max()) + 1e-4)
+                   for s, d, e in zip(sums, sent, tree_leaves(err)))
+    out.update(round_trip_over_bound=worst_rt, feedback_over_bound=worst_ef)
+    if not (worst_rt <= 1.0 and worst_ef <= 1.0):
+        failures.append(f"train launch: compression round trip "
+                        f"{worst_rt:.3f} or error feedback {worst_ef:.3f} "
+                        f"of its bound (limit 1)")
+    return out
+
+
+def train_launch_phase(dev, report, failures):
+    """Module step 9f on the card: the launcher's failure run (counted),
+    the round trip of its final state, the uninterrupted run (counted),
+    gradient compression on its final state, then the flash kernels alone
+    at the launcher's attention shape.  Returns the counted (forward,
+    backward) flash launches."""
+    import resource
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.optim import tree_leaves
+
+    argv = ["--arch", LAUNCH_ARCH, "--seq-len", str(LAUNCH_SEQ), "--batch",
+            str(LAUNCH_BATCH), "--steps", str(LAUNCH_STEPS), "--device",
+            DEVICE]
+    cfg = train_lib.train_config(train_lib.parse_args(argv))
+    want_fb = train_launches_wanted(cfg)
+    tmp = tempfile.mkdtemp(prefix="train_launch_")
+    out = {"card": nvidia_smi_line(), "argv": argv}
+    counted = [0, 0]
+
+    def counted_run(extra):
+        rep = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        train_lib.main(argv + extra, report=rep)
+        fb = (LAUNCHES["flash_attention_wgmma"],
+              LAUNCHES["flash_attention_bwd_wgmma"])
+        fp32 = LAUNCHES["flash_attention"] + LAUNCHES["flash_attention_bwd"]
+        counted[0] += fb[0]
+        counted[1] += fb[1]
+        n = len(rep["calls"])
+        want = (want_fb[0] * n, want_fb[1] * n)
+        if fb != want or fp32:
+            failures.append(f"train launch {extra}: flash launches {fb} "
+                            f"(fp32 {fp32}), want {want} for {n} steps")
+        rep.update(flash_launches=list(fb), want=list(want),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   step_s=sorted(c["s"] for c in rep["calls"])[n // 2])
+        return rep
+
+    try:
+        free = shutil.disk_usage(tmp).free
+        out["disk_free_bytes"] = free
+        log(f"[train launch] ({out['card']}) {LAUNCH_ARCH}: {cfg.n_layers} "
+            f"layers uncut, remat {cfg.remat}; free disk {free / 1e9:.1f} "
+            f"GB at {tmp} (needs {LAUNCH_DISK_BYTES / 1e9:.1f} GB)")
+        if free < LAUNCH_DISK_BYTES:
+            raise RuntimeError(f"{free / 1e9:.1f} GB free for checkpoints, "
+                               f"{LAUNCH_DISK_BYTES / 1e9:.1f} GB needed")
+        ckpt_dir = os.path.join(tmp, "run")
+        fail = counted_run(["--ckpt-dir", ckpt_dir, "--ckpt-every",
+                            str(LAUNCH_CKPT_EVERY), "--simulate-failure",
+                            str(LAUNCH_FAIL_AT)])
+        ckpt_bytes = [dir_bytes(os.path.join(ckpt_dir, n))
+                      for n in sorted(os.listdir(ckpt_dir))]
+        shutil.rmtree(ckpt_dir)
+        state = fail.pop("state")
+        # the round trip: a synchronous save of the final state, restored
+        # in place into a fresh state
+        rt_dir = os.path.join(tmp, "round_trip")
+        t0 = time.perf_counter()
+        save_checkpoint(rt_dir, LAUNCH_STEPS, state)
+        save_s = time.perf_counter() - t0
+        target = train_lib.make_state(cfg, steps_lib.TrainOptions(), 1,
+                                      dev)
+        t0 = time.perf_counter()
+        got, step, _ = restore_checkpoint(rt_dir, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        pairs = list(zip(tree_leaves(got), tree_leaves(state)))
+        same = sum(bool(torch.equal(a, b)) for a, b in pairs)
+        dtypes = sorted({str(b.dtype).split(".")[1] for _, b in pairs})
+        out["round_trip"] = {"leaves": len(pairs), "equal": same,
+                             "dtypes": dtypes, "bytes": dir_bytes(rt_dir),
+                             "save_s": save_s, "restore_s": restore_s}
+        if same != len(pairs) or step != LAUNCH_STEPS:
+            failures.append(f"train launch: checkpoint round trip gave "
+                            f"{same} of {len(pairs)} leaves equal")
+        del state, target, got, pairs
+        shutil.rmtree(rt_dir)
+        torch.cuda.empty_cache()
+
+        clean = counted_run([])
+        out["compression"] = compression_check(
+            cfg, clean.pop("state"), train_launch_batch(argv), failures)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the two runs against each other
+    by_step = {c["step"]: c for c in clean["calls"]}
+    steps = [c["step"] for c in fail["calls"]]
+    diffs = [abs(c["loss"] - by_step[c["step"]]["loss"])
+             / abs(by_step[c["step"]]["loss"]) for c in fail["calls"]]
+    same_batches = all(c["batch"] == by_step[c["step"]]["batch"]
+                       for c in fail["calls"])
+    if (fail["restarts"], fail["steps"], steps) != (1, LAUNCH_STEPS,
+                                                    LAUNCH_CALLS):
+        failures.append(f"train launch: restarts {fail['restarts']}, steps "
+                        f"{fail['steps']}, calls {steps}")
+    if (clean["restarts"], [c["step"] for c in clean["calls"]]) != \
+            (0, list(range(LAUNCH_STEPS))):
+        failures.append(f"train launch: the uninterrupted run made "
+                        f"{clean['restarts']} restarts")
+    if not same_batches:
+        failures.append("train launch: a step's batch differs between the "
+                        "runs")
+    if not (max(diffs) <= LAUNCH_LOSS_RTOL and all(
+            math.isfinite(c["loss"]) for c in fail["calls"])):
+        failures.append(f"train launch: losses {diffs} relative to the "
+                        f"uninterrupted run's (limit {LAUNCH_LOSS_RTOL})")
+    out.update(fail_run=fail, clean_run=clean, loss_rel=diffs,
+               same_batches=same_batches, ckpt_bytes=ckpt_bytes,
+               rss_peak_gb=resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 1e6)
+    rt, comp = out["round_trip"], out["compression"]
+    log(f"[train launch] failure run: {fail['steps']} steps, restarts="
+        f"{fail['restarts']}, step calls {steps} ({len(steps)} completed, "
+        f"failure at call {LAUNCH_FAIL_AT}); uninterrupted run: "
+        f"{clean['steps']} steps, restarts={clean['restarts']}")
+    log(f"[train launch] seconds a step (median of the calls): failure run "
+        f"{fail['step_s']:.3f}, uninterrupted {clean['step_s']:.3f}; "
+        f"whole runs {fail['seconds']:.1f} s and {clean['seconds']:.1f} s; "
+        "each call: " + ", ".join(f"{c['s']:.3f}" for c in fail["calls"])
+        + " and " + ", ".join(f"{c['s']:.3f}" for c in clean["calls"]))
+    for s in fail["saves"]:
+        log(f"[train launch] save at step {s['step']}: {s['bytes']:,} bytes, "
+            f"host copy {s['copy_s']:.3f} s (synchronous), writer "
+            f"{s.get('write_s', float('nan')):.2f} s (in the background)")
+    log(f"[train launch] checkpoint bytes on disk {ckpt_bytes}; restore "
+        f"after the failure "
+        + ", ".join(f"{r:.2f}" for r in fail["restores"])
+        + f" s (not counting its wait for the writer); round trip of the "
+        f"final "
+        f"state: {rt['leaves']} leaves ({', '.join(rt['dtypes'])}), "
+        f"{rt['equal']} equal bit for bit, {rt['bytes']:,} bytes, save "
+        f"{rt['save_s']:.2f} s, restore in place {rt['restore_s']:.2f} s")
+    log(f"[train launch] losses: failure run "
+        + ", ".join(f"{c['step']}:{c['loss']:.4f}" for c in fail["calls"])
+        + "; uninterrupted " + ", ".join(
+            f"{c['step']}:{c['loss']:.4f}" for c in clean["calls"])
+        + f"; largest relative difference {max(diffs):.3e} (limit "
+        f"{LAUNCH_LOSS_RTOL:.3e}); batches identical: {same_batches}")
+    log(f"[train launch] peak device memory {fail['peak_gb']:.2f} GB "
+        f"(failure run), {clean['peak_gb']:.2f} GB (uninterrupted); host "
+        f"peak RSS {out['rss_peak_gb']:.2f} GB (the process's, whole run); "
+        f"flash launches {fail['flash_launches'][0]} / "
+        f"{fail['flash_launches'][1]} and {clean['flash_launches'][0]} / "
+        f"{clean['flash_launches'][1]} forward / backward (want "
+        f"{fail['want'][0]} / {fail['want'][1]} and {clean['want'][0]} / "
+        f"{clean['want'][1]})")
+    log(f"[train launch] compress_tree over {comp['leaves']} gradient "
+        f"leaves: " + ", ".join(f"{ms:.2f}" for ms in comp["ms"])
+        + f" ms (rounds 1-{len(comp['ms'])}), {comp['grad_bytes']:,} bytes "
+        f"of bf16 "
+        f"gradients to {comp['compressed_bytes']:,} (q int8 + s fp32); "
+        f"round trip {comp['round_trip_over_bound']:.3f} of its bound, "
+        f"error feedback over {len(LAUNCH_EF_SCALES)} rounds "
+        f"{comp['feedback_over_bound']:.3f} of its bound (limits 1)")
+
+    # the flash kernels alone at the launcher's attention shape
+    gen = torch.Generator(device=DEVICE).manual_seed(SERVE_SEED)
+    label = f"{LAUNCH_ARCH} at {LAUNCH_BATCH} x {LAUNCH_SEQ}"
+    out["flash_alone"] = flash_alone(LAUNCH_ARCH, LAUNCH_BATCH, cfg.n_heads,
+                                     cfg.n_kv_heads, LAUNCH_SEQ, cfg.dh,
+                                     gen, failures, label=label)
+    out["bwd_alone"] = flash_bwd_alone(label, LAUNCH_BATCH, cfg.n_heads,
+                                       cfg.n_kv_heads, LAUNCH_SEQ, cfg.dh,
+                                       gen, failures)
+    report["train_launch"] = out
+    return tuple(counted)
+
+
+def train_launch_batch(argv):
+    """The launcher's batch after its last step, on the card."""
+    import torch
+
+    from repro_torch.data import CorpusPipeline, synth_corpus
+    from repro_torch.launch import train as train_lib
+    args = train_lib.parse_args(argv)
+    p = CorpusPipeline(synth_corpus(n_docs=64, seed=args.seed),
+                       seq_len=args.seq_len, batch_per_shard=args.batch,
+                       seed=args.seed)
+    p.load_state_dict({"step": args.steps, "seed": args.seed, "epoch": 0})
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in p.next_batch().items()}
+
+
 def serve_summary(drv: dict) -> dict:
     """Per serve mix: requests, client latency p50/p99 and throughput,
     the server's exec_s beside the in-process collect() (and its
@@ -1974,6 +2278,16 @@ def main() -> int:
     flash_row["launches"] += train_fwd
     report["train_phase_s"] = time.perf_counter() - t0
     log(f"[train] train phase {report['train_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- the train-launch phase (module step 9f): the launcher, counted ----
+    t0 = time.perf_counter()
+    fwd, bwd = train_launch_phase(dev, report, failures)
+    flash_row["launches"] += fwd
+    bwd_row["launches"] += bwd
+    report["train_launch_phase_s"] = time.perf_counter() - t0
+    log(f"[train launch] train-launch phase "
+        f"{report['train_launch_phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     # the main path, counted

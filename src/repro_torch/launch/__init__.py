@@ -1,2 +1,4 @@
-"""Step builders and the serving driver (the JAX package's
-``repro.launch``, prefill and decode of dense models only)."""
+"""Step builders (train, prefill, serve) and the launchers: serving
+(``launch.serve``) and training (``launch.train``), the JAX package's
+``repro.launch`` on one device.  Its mesh, sharding rules and dry-run
+have no port yet (module step 10)."""
