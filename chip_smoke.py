@@ -125,6 +125,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      compression's ms and bytes, then the flash kernels alone at the
      launcher's shape (4 x 1024) beside their bounds and SDPA's times.
      The temporary directory goes in a ``finally``;
+   * the mesh phase (module step 10; the ``[mesh]`` lines):
+     ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
+     train_4k`` and ``--shape decode_32k``, each in a process of its own
+     as rank 0 of a fake 256-rank group on the 16x16 mesh (full width and
+     28 layers, every tensor at its per-rank shard size), their records
+     printed beside the card's name and power limit.  It fails unless
+     each record is ``ok`` at 256 ranks with a peak under the card's
+     memory, and train_4k launched bf16 flash forwards and backwards, made
+     all-gathers and all-reduces or reduce-scatters and has a useful-FLOPs
+     ratio in (0, 1] (decode stays on the plain path and launches no flash
+     kernel).  Then ``chip_smoke.py --mesh-local`` in a process of its
+     own: qwen3 SMOKE's train and decode steps in bf16 on a 2x2 mesh of
+     simulated ranks (``LocalTensorMode``), the flash kernels launched on
+     each rank's local shards, against the same steps unsharded on the
+     card: the loss, the gradient norm, every gradient leaf and every
+     first moment after the step, and the decode logits, within limits
+     (MESH_*_TOL) set from a bf16 control (the unsharded bf16 steps
+     against fp32 ones) and printed beside it, and an unsharded
+     checkpoint restored sharded
+     (every rank's block exact).  The flash rows' launches add the
+     phase's; ``--mesh-phase-only`` runs the build and this phase alone;
    * the main path: the clustered workload at n=18 (2^21 triples per
      array, ~164k x 165k keys): ``from_triples``, a row ``Range``
      selection, ``A + B``, ``A @ B`` (planned ``bsr``),
@@ -274,8 +295,8 @@ The kernels line lists the nine TPU kernels' ports and the port's own
 ``flash_attention_bwd`` (no TPU counterpart: it replaces XLA's
 differentiation of the JAX package's attention reference path; route
 ``cuda-wgmma``, ``csrc/flash_attention_bwd_sm90.cu``, its launches the
-train phase's and train-launch phase's bf16 ones); the flash row's
-launches add both phases' forward launches.
+train phase's, train-launch phase's and mesh phase's bf16 ones); the
+flash row's launches add those phases' forward launches.
 
 The last three lines of standard output are the kernels JSON line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -2199,6 +2220,304 @@ def segment_scan_inputs(pair_ids, gen) -> dict:
             "2^24": big.to(dev)}
 
 
+# the mesh phase (module step 10): qwen3-1.7b's train_4k and decode_32k
+# cells of the 16x16 mesh, each run by ``python -m repro_torch.launch.dryrun``
+# in a process of its own as rank 0 of a fake 256-rank group (every
+# collective a no-op), full width and depth, each tensor at its per-rank
+# shard size; then qwen3 SMOKE's train and decode steps on a 2x2 mesh under
+# LocalTensorMode against the same steps unsharded, and a checkpoint of an
+# unsharded SMOKE state restored sharded on that mesh (``chip_smoke.py
+# --mesh-local``, a process of its own: both need a default group)
+MESH_ARCH = "qwen3-1.7b"
+MESH_CELLS = ("train_4k", "decode_32k")
+MESH_CELL_TIMEOUT = 900
+# the 2x2 steps run in bf16, the flash kernels on each rank's local
+# shards, against the same steps unsharded in bf16 on the card: the loss's
+# relative difference, the gradient norm's, the largest relative L2
+# difference of any gradient leaf and of any first-moment leaf after the
+# step, and the decode logits' relative L2.  The bf16 control (the
+# unsharded bf16 steps against fp32 ones: the rounding that bf16 alone
+# brings) is printed beside them; each limit is 2-10x the larger of the
+# sharded reading and the control in the runs written in PERF.md (loss
+# and grad norm 1e-4, worst gradient leaf 0.016, logits 5e-3 to 7e-3),
+# where a lost or doubled partial sum moves a leaf by O(1).  An updated
+# parameter within 2 x lr (a first AdamW step moves a parameter by at
+# most lr·(1 + wd·|p|)) plus one bf16 ulp of the leaf's largest entry
+MESH_LOSS_TOL = 2 ** -10
+MESH_GNORM_TOL = 2 ** -10
+MESH_GRAD_TOL = 2 ** -4
+MESH_LOGITS_TOL = 2 ** -6
+MESH_LOCAL_B, MESH_LOCAL_S = 4, 128
+
+
+def _rel(a, b) -> float:
+    """The relative L2 difference of ``a`` from ``b`` (as fp32)."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The paths of ``tree``'s leaves, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix.lstrip("/")]
+
+
+def _worst_leaf(got, want) -> tuple:
+    """The largest relative L2 difference of a leaf of ``got`` (DTensors
+    or plain) from the same leaf of ``want``, and the leaf's path."""
+    from repro_torch.models.pjit_utils import whole
+    from repro_torch.optim import tree_leaves
+    errs = [_rel(whole(a), b) for a, b in zip(tree_leaves(got),
+                                               tree_leaves(want))]
+    i = max(range(len(errs)), key=lambda j: (math.isnan(errs[j]), errs[j]))
+    return errs[i], _leaf_names(want)[i]
+
+
+def mesh_local_main() -> int:
+    """``--mesh-local``: (b) and (c) of the mesh phase in this process →
+    one JSON line."""
+    import copy
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed._local_tensor import LocalTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import LAUNCHES, cuda_lib
+    from repro_torch.launch import mesh as MS, sharding as SH, steps as S
+    from repro_torch.models import model as M
+    from repro_torch.models.logical import param_logical
+    from repro_torch.models.pjit_utils import use_mesh, whole
+    from repro_torch.optim import adamw_init, tree_leaves, tree_unflatten
+    cuda_lib.load()
+    dev = torch.device(DEVICE)
+    cfg = get_smoke(MESH_ARCH)
+    cfg32 = cfg.replace(param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    b, s = MESH_LOCAL_B, MESH_LOCAL_S
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tok = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    batch = {"tokens": tok[:, :s].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    opts = S.TrainOptions(microbatch=1)
+    params = M.init(M.make_generator(0, dev), cfg)
+    params32 = tree_unflatten(params, [t.float()
+                                       for t in tree_leaves(params)])
+
+    def gnorm(grads):
+        return math.sqrt(sum(float(g.float().square().sum())
+                             for g in tree_leaves(grads)))
+
+    def decode_logits(c, p):
+        cache = M.init_cache(c, b, s + 1, device=dev)
+        _, pc = S.make_prefill_step(c)(p, batch["tokens"])
+        for key in ("k", "v"):
+            cache["dense_stack"][key][:, :, :s] = pc["dense_stack"][key]
+        cache["dense_stack"]["len"][:] = s
+        lg, _ = S.make_serve_step(c)(p, copy.deepcopy(cache), tok[:, s:],
+                                     torch.tensor(s))
+        return lg, cache
+
+    # the unsharded steps on the card, in bf16 and (the control) in fp32
+    loss_c, _, g_c = S.loss_and_grads(params32, cfg32, batch)
+    lg_c, _ = decode_logits(cfg32, params32)
+    loss_0, _, g_0 = S.loss_and_grads(params, cfg, batch)
+    p0, s0, m0 = S.make_train_step(cfg, opts)(
+        copy.deepcopy(params), adamw_init(params), batch)
+    lg0, cache = decode_logits(cfg, params)
+    out = {"torch": torch.__version__}
+    worst_g0, leaf_g0 = _worst_leaf(g_0, g_c)
+    out["control"] = {
+        "loss": abs(float(loss_0) - float(loss_c)) / abs(float(loss_c)),
+        "grad_norm": abs(gnorm(g_0) - gnorm(g_c)) / gnorm(g_c),
+        "grad_leaf": worst_g0, "grad_leaf_name": leaf_g0,
+        "logits_rel_l2": _rel(lg0, lg_c)}
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        with LocalTensorMode(4):
+            mesh = MS.make_host_mesh(2, 2, device="cuda")
+            cuda_lib.reset_launch_counts()
+            step, (dp, ds, db) = S.build_sharded(
+                cfg, ShapeSpec("t", "train", s, b), mesh, opts,
+                params=params, batch=batch)
+            with use_mesh(mesh, opts.parallelism):
+                loss_1, _, g_1 = S.loss_and_grads(dp, cfg, db)
+            p1, s1, m1 = step(dp, ds, db)
+            dstep, dargs = S.build_sharded(
+                cfg, ShapeSpec("d", "decode", s + 1, b), mesh, opts,
+                params=params, batch={"tokens": tok[:, s:].contiguous()},
+                cache=cache)
+            lg1, _ = dstep(*dargs)
+            torch.cuda.synchronize()
+            out["launches"] = dict(LAUNCHES)
+            worst_g, leaf_g = _worst_leaf(g_1, g_0)
+            worst_m, leaf_m = _worst_leaf(s1["m"], s0["m"])
+            loss = float(whole(m1["loss"]))
+            out["train"] = {
+                "loss": loss, "loss_0": float(m0["loss"]),
+                "loss_grads": float(whole(loss_1)),
+                "loss_grads_0": float(loss_0),
+                "grad_norm": float(whole(m1["grad_norm"])),
+                "grad_norm_0": float(m0["grad_norm"]),
+                "grad_leaf": worst_g, "grad_leaf_name": leaf_g,
+                "moment_leaf": worst_m, "moment_leaf_name": leaf_m,
+                "n_leaves": len(tree_leaves(g_0)),
+                "param_excess": max(
+                    float((whole(a).float() - b0.float()).abs().max())
+                    - 2 * opts.peak_lr
+                    - float(b0.float().abs().max()) * 2 ** -8
+                    for a, b0 in zip(tree_leaves(p1), tree_leaves(p0)))}
+            out["decode"] = {"rel_l2": _rel(whole(lg1), lg0)}
+            # (c) an unsharded state saved, restored sharded: each rank's
+            # block against the slice of the original
+            specs = SH.param_specs(params, param_logical(cfg), cfg, mesh)
+            with tempfile.TemporaryDirectory() as d:
+                save_checkpoint(d, 1, params)
+                st, _, _ = restore_checkpoint(d, params,
+                                              shardings=(specs, mesh))
+                worst, blocks = 0.0, 0
+                layout = mesh.mesh
+                for t, orig, sp in zip(tree_leaves(st), tree_leaves(params),
+                                       SH.spec_leaves(specs)):
+                    for r, loc in t.to_local()._local_tensors.items():
+                        coord = tuple(int(c) for c in
+                                      (layout == r).nonzero()[0])
+                        want = orig[SH.block_slices(orig.shape, sp, mesh,
+                                                    coord)]
+                        worst = max(worst, float(
+                            (loc.float() - want.float()).abs().max()))
+                        blocks += 1
+            out["restore"] = {"max_abs": worst, "blocks": blocks}
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def mesh_phase(dev, report, failures) -> tuple:
+    """The mesh phase (see MESH_ARCH): the two dry-run cells and the
+    LocalTensorMode checks, each process of its own → the (forward,
+    backward) bf16 flash launches they counted."""
+    import torch
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    total = torch.cuda.get_device_properties(0).total_memory
+    fwd = bwd = 0
+    report["mesh"] = {}
+    for cell in MESH_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             MESH_ARCH, "--shape", cell], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=MESH_CELL_TIMEOUT)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            failures.append(f"mesh dry run {cell}: exit {proc.returncode}: "
+                            f"{(lines or [proc.stderr[-1500:]])[-1][:1500]}")
+            continue
+        rec = json.loads(lines[-1])
+        rec["process_s"] = wall
+        report["mesh"][cell] = rec
+        log(f"[mesh] {MESH_ARCH} {cell} 16x16 rank 0 of 256 on "
+            f"{nvidia_smi_line()}: " + json.dumps(rec))
+        fl = rec.get("flash_launches", {})
+        peak = rec.get("memory", {}).get("peak_bytes")
+        if rec.get("status") != "ok" or rec.get("n_chips") != 256:
+            failures.append(f"mesh dry run {cell}: status "
+                            f"{rec.get('status')}, n_chips "
+                            f"{rec.get('n_chips')}")
+            continue
+        if peak is None or not 0 < peak < total:
+            failures.append(f"mesh dry run {cell}: peak {peak} B against "
+                            f"the card's {total} B")
+        if cell == "train_4k":
+            counts = rec["collectives"]["counts"]
+            ratio = rec.get("useful_flops_ratio")
+            if fl.get("flash_attention_wgmma", 0) < 1 \
+                    or fl.get("flash_attention_bwd_wgmma", 0) < 1:
+                failures.append(f"mesh train_4k launched no bf16 flash "
+                                f"forward or backward: {fl}")
+            if counts["all-gather"] < 1 or (counts["all-reduce"] < 1
+                                            and counts["reduce-scatter"] < 1):
+                failures.append(f"mesh train_4k collectives {counts}")
+            if ratio is None or not 0 < ratio <= 1:
+                failures.append(f"mesh train_4k useful_flops_ratio {ratio}")
+        else:
+            log(f"[mesh] {cell}: self-attention decode stays on the plain "
+                f"path (a query over a cache), so it launches no flash "
+                f"kernel: {fl}")
+        fwd += fl.get("flash_attention_wgmma", 0)
+        bwd += fl.get("flash_attention_bwd_wgmma", 0)
+    # (b) and (c): a process of its own with a fake 4-rank group
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--mesh-local"], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=MESH_CELL_TIMEOUT)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        failures.append(f"mesh --mesh-local: exit {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+        return fwd, bwd
+    res = json.loads(lines[-1])
+    report["mesh"]["local"] = res
+    launches = res.get("launches", {})
+    fwd += launches.get("flash_attention_wgmma", 0)
+    bwd += launches.get("flash_attention_bwd_wgmma", 0)
+    tr, de, rs, ctl = res["train"], res["decode"], res["restore"], \
+        res["control"]
+    loss_d = abs(tr["loss"] - tr["loss_0"]) / abs(tr["loss_0"])
+    gnorm_d = abs(tr["grad_norm"] - tr["grad_norm_0"]) / \
+        abs(tr["grad_norm_0"])
+    log(f"[mesh] qwen3 SMOKE bf16 on a 2x2 mesh under LocalTensorMode "
+        f"against the unsharded steps on the card (bf16 control: the "
+        f"unsharded bf16 steps against fp32 ones): loss {tr['loss']} vs "
+        f"{tr['loss_0']} (relative {loss_d}, control {ctl['loss']}), grad "
+        f"norm {tr['grad_norm']} vs {tr['grad_norm_0']} (relative {gnorm_d}"
+        f", control {ctl['grad_norm']}), worst gradient leaf of "
+        f"{tr['n_leaves']} relative L2 {tr['grad_leaf']} "
+        f"({tr['grad_leaf_name']}; control {ctl['grad_leaf']}, "
+        f"{ctl['grad_leaf_name']}), worst first-moment leaf "
+        f"{tr['moment_leaf']} ({tr['moment_leaf_name']}), updated params past 2 lr + 1 ulp by "
+        f"{tr['param_excess']}, decode logits relative L2 {de['rel_l2']} "
+        f"(control {ctl['logits_rel_l2']}); flash launches on local "
+        f"shards {launches}; an unsharded checkpoint restored sharded: "
+        f"{rs['blocks']} rank blocks, max |diff| {rs['max_abs']}")
+    # each check fails on NaN or inf (no comparison with them holds)
+    checks = (("loss", loss_d, MESH_LOSS_TOL),
+              ("loss of the gradient pass", abs(
+                  tr["loss_grads"] - tr["loss_grads_0"])
+               / abs(tr["loss_grads_0"]), MESH_LOSS_TOL),
+              ("grad norm", gnorm_d, MESH_GNORM_TOL),
+              ("worst gradient leaf", tr["grad_leaf"], MESH_GRAD_TOL),
+              ("worst first-moment leaf", tr["moment_leaf"], MESH_GRAD_TOL),
+              ("updated params past their bound", tr["param_excess"], 0.0),
+              ("decode logits relative L2", de["rel_l2"], MESH_LOGITS_TOL))
+    for name, x, tol in checks:
+        if not (x <= tol):
+            failures.append(f"mesh 2x2 {name}: {x} against {tol}")
+    if not (rs["max_abs"] == 0.0 and rs["blocks"] >= 1):
+        failures.append(f"mesh sharded restore: {rs}")
+    if launches.get("flash_attention_wgmma", 0) < 1 \
+            or launches.get("flash_attention_bwd_wgmma", 0) < 1:
+        failures.append(f"mesh 2x2 steps launched no bf16 flash kernel on "
+                        f"local shards: {launches}")
+    return fwd, bwd
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-clustered", type=int, default=18,
@@ -2206,6 +2525,12 @@ def main() -> int:
                     "not fit the time limit)")
     ap.add_argument("--report", default=None,
                     help="also write every number as JSON to this path")
+    ap.add_argument("--mesh-local", action="store_true",
+                    help="(internal) the mesh phase's LocalTensorMode "
+                    "checks, in a process of their own")
+    ap.add_argument("--mesh-phase-only", action="store_true",
+                    help="build the kernels, run the mesh phase, and stop "
+                    "(no kernels line, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2245,6 +2570,9 @@ def main() -> int:
               f"next to this script: {exc}", file=sys.stderr)
         return 2
 
+    if args.mesh_local:
+        return mesh_local_main()
+
     # the plain versions and library yardsticks run in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2260,6 +2588,19 @@ def main() -> int:
     cuda_lib.load()
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] kernels built and loaded in {report['build_s']:.1f} s")
+    if args.mesh_phase_only:
+        t0 = time.perf_counter()
+        fwd, bwd = mesh_phase(dev, report, failures)
+        log(f"[mesh] mesh phase {time.perf_counter() - t0:.1f} s, bf16 "
+            f"flash launches {fwd} forward, {bwd} backward")
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)),
+                        exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        for f in failures:
+            print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
 
     # -- phase 2: the serve path, counted (its checks and kernel 9 follow) ---
     flash_row = serve_phase(dev, report, failures)
@@ -2289,6 +2630,15 @@ def main() -> int:
     log(f"[train launch] train-launch phase "
         f"{report['train_launch_phase_s']:.1f} s")
     torch.cuda.empty_cache()
+
+    # -- the mesh phase (module step 10): dry-run cells, 2x2 LocalTensor --
+    t0 = time.perf_counter()
+    fwd, bwd = mesh_phase(dev, report, failures)
+    flash_row["launches"] += fwd
+    bwd_row["launches"] += bwd
+    report["mesh_phase_s"] = time.perf_counter() - t0
+    log(f"[mesh] mesh phase {report['mesh_phase_s']:.1f} s, bf16 flash "
+        f"launches {fwd} forward, {bwd} backward")
 
     # the main path, counted
     gen_n, uni_n = args.n_clustered, N_UNIFORM

@@ -42,9 +42,14 @@ Design:
   a complete checkpoint.
 * **Restore in place.**  ``restore_checkpoint`` overwrites every tensor
   leaf of the target on the target's own device, a leaf a failed step
-  may have half-updated included.  The JAX package's ``shardings``
-  (re-sharding onto the current mesh) has no counterpart until the port
-  has a mesh for training (ROADMAP.md, module step 10).
+  may have half-updated included.
+* **Elastic restore.**  Leaves are stored as GLOBAL arrays: a DTensor
+  leaf is saved whole (``full_tensor``), as the JAX package saves a
+  sharded array.  ``restore_checkpoint(..., shardings=(specs, mesh))``
+  re-shards each leaf onto the current DeviceMesh: every rank reads only
+  its own block of the memory-mapped ``.npy`` and wraps it with
+  ``DTensor.from_local``, so any mesh whose dims divide the leaves
+  restores a checkpoint written under any other (or none).
 """
 from __future__ import annotations
 
@@ -58,21 +63,32 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.pjit_utils import whole
+
 BF16 = "bfloat16"     # its manifest dtype
 BF16_DESCR = "<V2"   # its .npy header's descr (ml_dtypes' bfloat16)
 
 
-def _flatten_with_paths(tree, prefix: Tuple = ()) -> List[Tuple[str, Any]]:
+def _is_spec(t) -> bool:
+    from repro_torch.launch.sharding import P
+    return isinstance(t, P)
+
+
+def _flatten_with_paths(tree, prefix: Tuple = (),
+                        is_leaf=None) -> List[Tuple[str, Any]]:
     """``(key, leaf)`` pairs of ``tree`` in ``jax.tree_util``'s order."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [("/".join(str(p) for p in prefix), tree)]
     if isinstance(tree, dict):
         items = ((k, tree[k]) for k in sorted(tree))
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
     else:
         return [("/".join(str(p) for p in prefix), tree)]
-    return [kv for k, v in items for kv in _flatten_with_paths(v, prefix + (k,))]
+    return [kv for k, v in items
+            for kv in _flatten_with_paths(v, prefix + (k,), is_leaf)]
 
 
 def _unflatten(tree, leaves):
@@ -92,6 +108,7 @@ def _to_host(leaf):
     """A host copy of ``leaf`` that no later in-place update can reach (a
     CPU tensor is cloned too).  A card leaf's copy is asynchronous, into
     pinned memory: synchronize before reading it."""
+    leaf = whole(leaf)
     if isinstance(leaf, torch.Tensor):
         if leaf.is_cuda:
             out = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
@@ -104,6 +121,7 @@ def _to_host(leaf):
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """``leaf`` as the array written to disk and its manifest dtype."""
+    leaf = whole(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -126,8 +144,9 @@ def _write_leaf(path: str, arr: np.ndarray, dtype: str) -> None:
         arr.tofile(f)
 
 
-def _read_leaf(path: str, dtype: str) -> torch.Tensor:
-    arr = np.load(path)
+def _as_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A loaded (C-contiguous, writable) array as a tensor of the manifest's
+    dtype."""
     if dtype == BF16:
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     dt = np.dtype(dtype)
@@ -135,6 +154,26 @@ def _read_leaf(path: str, dtype: str) -> torch.Tensor:
         arr = (arr.view(dt) if arr.dtype.kind == "V"
                and arr.dtype.itemsize == dt.itemsize else arr.astype(dt))
     return torch.from_numpy(arr)
+
+
+def _read_leaf(path: str, dtype: str) -> torch.Tensor:
+    return _as_tensor(np.load(path), dtype)
+
+
+def _read_sharded(path: str, dtype: str, spec, mesh, device):
+    """The DTensor of one leaf placed by ``spec`` on ``mesh``: each rank
+    reads its own block of the memory-mapped array."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import sharding as shd
+    arr = np.load(path, mmap_mode="r")
+    local = shd.per_rank(mesh, lambda c: _as_tensor(
+        np.array(arr[shd.block_slices(arr.shape, spec, mesh, c)]),
+        dtype).to(device))
+    return DTensor.from_local(local, mesh, shd.placements(spec, mesh),
+                              run_check=False, shape=torch.Size(arr.shape),
+                              stride=torch.empty(arr.shape,
+                                                 device="meta").stride())
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Dict[str, Any],
@@ -174,7 +213,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, target_state: Dict[str, Any],
-                       *, step: Optional[int] = None, device=None):
+                       *, step: Optional[int] = None, device=None,
+                       shardings=None):
     """Restore into the structure of ``target_state`` → ``(state, step,
     extra)``.
 
@@ -182,7 +222,11 @@ def restore_checkpoint(ckpt_dir: str, target_state: Dict[str, Any],
     place on its own device (its dtype must be the checkpoint's), and each
     other leaf (a numpy array or a number) becomes a CPU tensor; with a
     ``device``, every leaf becomes a new tensor there and the target gives
-    only the structure and the shapes.  A key the checkpoint lacks raises
+    only the structure and the shapes.  ``shardings=(specs, mesh)``: a tree
+    of partition specs (``launch.sharding.P``, the target's structure) and
+    their DeviceMesh; every leaf becomes a DTensor placed by its spec,
+    each rank's block read from the memory-mapped array onto ``device``
+    (default: the mesh's device type).  A key the checkpoint lacks raises
     ``KeyError``, a shape that differs ``ValueError``.
     """
     step = step if step is not None else latest_step(ckpt_dir)
@@ -193,17 +237,26 @@ def restore_checkpoint(ckpt_dir: str, target_state: Dict[str, Any],
         manifest = json.load(f)
 
     by_key = {m["key"]: m for m in manifest["leaves"]}
+    specs = mesh = None
+    if shardings is not None:
+        spec_tree, mesh = shardings
+        specs = dict(_flatten_with_paths(spec_tree, is_leaf=_is_spec))
+        device = device or mesh.device_type
     new_leaves = []
     for key, leaf in _flatten_with_paths(target_state):
         meta = by_key.get(key)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {key}")
-        src = _read_leaf(os.path.join(base, "arrays", meta["file"]),
-                         meta["dtype"])
-        if tuple(src.shape) != tuple(np.shape(leaf)):
+        path = os.path.join(base, "arrays", meta["file"])
+        if tuple(meta["shape"]) != tuple(np.shape(leaf)):
             raise ValueError(
-                f"shape mismatch for {key}: ckpt {tuple(src.shape)} vs "
+                f"shape mismatch for {key}: ckpt {tuple(meta['shape'])} vs "
                 f"target {tuple(np.shape(leaf))}")
+        if specs is not None:
+            new_leaves.append(_read_sharded(path, meta["dtype"], specs[key],
+                                            mesh, device))
+            continue
+        src = _read_leaf(path, meta["dtype"])
         if device is None and isinstance(leaf, torch.Tensor):
             if leaf.dtype != src.dtype:
                 raise ValueError(f"dtype mismatch for {key}: ckpt "

@@ -240,10 +240,19 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
 
 
 def check_cuda(*tensors: torch.Tensor) -> None:
-    """Raise unless every tensor lies on one CUDA device of compute
-    capability 9.0 (the kernels are built for sm_90a only)."""
+    """Raise unless every tensor is a plain tensor (an ``nn.Parameter``
+    too, not a DTensor or a ``LocalTensor``: a kernel reads raw device
+    pointers, which a tensor subclass's wrapper does not have) on one CUDA
+    device of compute capability 9.0 (the kernels are built for sm_90a
+    only)."""
     dev = tensors[0].device
     for t in tensors:
+        if type(t) not in (torch.Tensor, torch.nn.Parameter):
+            raise TypeError(
+                f"the CUDA kernel takes plain tensors, not a "
+                f"{type(t).__name__}: run it on each rank's local shard "
+                f"(torch.distributed.tensor.experimental.local_map, as "
+                f"models/attention.py does for the flash kernel)")
         if not t.is_cuda:
             raise ValueError("the CUDA kernel needs CUDA tensors; got one "
                              f"on {t.device} (use impl='ref' on the CPU)")

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -274,6 +275,106 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+# ---------------------------------------------------------------------------
+# costs the step counters cannot see, and per-rank launches
+# ---------------------------------------------------------------------------
+
+_COST = None   # {"flops": .., "bytes": ..} while a count_cost() block runs
+
+
+class count_cost:
+    """Inside the block every kernel launch of this module adds its FLOPs
+    and HBM bytes to ``self.cost``, by the formulas of the kernels' bounds:
+    forward 2·(D + Dv) FLOPs a visible (query, key) pair, q, k, v and the
+    output (and ``lse``) moved once; backward 2·(3·D + 2·Dv) a pair, q, k,
+    v and dO read, dq, dk, dv written, o and ``lse`` read.  FLOP counters
+    over aten ops (``torch.utils.flop_counter``) do not see an extension's
+    launch; the plain route's ops they do see, so it adds nothing here."""
+
+    def __enter__(self):
+        global _COST
+        self._before = _COST
+        self.cost = _COST = {"flops": 0, "bytes": 0, "launches": 0}
+        return self
+
+    def __exit__(self, *exc):
+        global _COST
+        _COST = self._before
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window=None,
+                  q_off: int = 0) -> int:
+    """(query, key) pairs the masks leave visible, per (batch, head)."""
+    if not causal and window is None:
+        return sq * sk
+    total = 0
+    for i in range(sq):
+        pos = q_off + i
+        hi = min(sk, pos + 1) if causal else sk
+        lo = max(0, pos - window + 1) if window is not None else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _add_cost(q, k, v, *, bwd: bool, causal, window, q_off, lse) -> None:
+    if _COST is None:
+        return
+    b, h, sq, d = q.shape
+    sk, dv = k.shape[2], v.shape[3]
+    pairs = visible_pairs(sq, sk, causal, window, q_off) * b * h
+    el = q.element_size()
+    io = q.numel() + k.numel() + v.numel() + b * h * sq * dv
+    if bwd:
+        _COST["flops"] += 2 * (3 * d + 2 * dv) * pairs
+        _COST["bytes"] += 2 * el * (q.numel() + k.numel() + v.numel()
+                                    + b * h * sq * dv) \
+            + el * b * h * sq * dv + 4 * b * h * sq
+    else:
+        _COST["flops"] += 2 * (d + dv) * pairs
+        _COST["bytes"] += el * io + (4 * b * h * sq if lse else 0)
+    _COST["launches"] += 1
+
+
+def _per_rank(fn):
+    """``fn`` run once per simulated rank on that rank's plain tensors
+    under ``LocalTensorMode`` (its tensor results joined into
+    LocalTensors), as is elsewhere: the extension never sees a tensor
+    subclass.  Until ``torch.distributed._local_tensor`` is imported no
+    such mode can be active, so one-card code neither imports it nor
+    wraps ``fn``."""
+    mod = sys.modules.get("torch.distributed._local_tensor")
+    return fn if mod is None else mod.maybe_run_for_local_tensor(fn)
+
+
+def _fwd_launch(q, k, v, causal, window, sm_scale, q_off, with_lse):
+    """One forward launch in the model layout → (out, lse or None)."""
+    shape = q.shape
+    out = q.new_empty(shape[:3] + v.shape[3:])
+    lse = (torch.empty((shape[0], shape[2], shape[1]), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flash_attention_cuda(qt, kt, vt, causal=causal, window=window,
+                         sm_scale=sm_scale, q_off=q_off,
+                         out=out.transpose(1, 2), lse=lse)
+    _add_cost(qt, kt, vt, bwd=False, causal=causal, window=window,
+              q_off=q_off, lse=with_lse)
+    return out, lse
+
+
+def _bwd_launch(q, k, v, out, dout, lse, causal, window, sm_scale, q_off):
+    """One backward launch in the model layout → (dq, dk, dv)."""
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    ts = [t.transpose(1, 2) for t in (q, k, v, out, dout)]
+    flash_attention_bwd_cuda(*ts, lse, dq=dq.transpose(1, 2),
+                             dk=dk.transpose(1, 2), dv=dv.transpose(1, 2),
+                             causal=causal, window=window, sm_scale=sm_scale,
+                             q_off=q_off)
+    _add_cost(*ts[:3], bwd=True, causal=causal, window=window, q_off=q_off,
+              lse=True)
+    return dq, dk, dv
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel route under autograd, in the model's layout: q [B,Sq,H,D],
     k [B,Sk,KV,D], v [B,Sk,KV,Dv] → [B,Sq,H,Dv].  The forward launches the
@@ -283,27 +384,17 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, sm_scale, q_off):
-        b, sq, h, _ = q.shape
-        out = q.new_empty(q.shape[:3] + v.shape[3:])
-        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal, window=window,
-                             sm_scale=sm_scale, q_off=q_off,
-                             out=out.transpose(1, 2), lse=lse)
+        out, lse = _per_rank(_fwd_launch)(q, k, v, causal, window, sm_scale,
+                                          q_off, True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks = dict(causal=causal, window=window, sm_scale=sm_scale,
-                         q_off=q_off)
+        ctx.masks = (causal, window, sm_scale, q_off)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
-                      for t in (q, k, v))
-        flash_attention_bwd_cuda(*(t.transpose(1, 2)
-                                   for t in (q, k, v, out, dout)), lse,
-                                 dq=dq.transpose(1, 2), dk=dk.transpose(1, 2),
-                                 dv=dv.transpose(1, 2), **ctx.masks)
+        dq, dk, dv = _per_rank(_bwd_launch)(q, k, v, out, dout, lse,
+                                            *ctx.masks)
         return dq, dk, dv, None, None, None, None
 
 
@@ -319,16 +410,13 @@ def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
     On the kernel route with autograd recording, :class:`FlashAttentionFn`
     (the backward kernel computes the gradients).
     """
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if cuda_lib.resolve_impl(impl, q) == "ref":
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         return flash_attention_ref(qt, kt, vt, causal=causal, window=window,
                                    sm_scale=sm_scale,
                                    q_off=q_off).transpose(1, 2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, window, sm_scale,
                                       q_off)
-    out = q.new_empty(q.shape[:3] + v.shape[3:])
-    flash_attention_cuda(qt, kt, vt, causal=causal, window=window,
-                         sm_scale=sm_scale, q_off=q_off,
-                         out=out.transpose(1, 2))
-    return out
+    return _per_rank(_fwd_launch)(q, k, v, causal, window, sm_scale, q_off,
+                                  False)[0]

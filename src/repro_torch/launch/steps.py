@@ -6,20 +6,24 @@ or MLA, SSM, hybrid, encoder-decoder).  The encoder-decoder's prefill takes
 the frame embeddings and caches the encoder's cross K/V; its serve step
 reads them from the cache and takes no frames.
 
-The JAX package's ``launch/steps.py`` also builds the jitted, sharded
-variants for its dry-run (ROADMAP.md, module step 10); those have no port
-yet.  PyTorch runs eagerly, so each ``make_*_step`` returns a plain
-function.
+PyTorch runs eagerly, so each ``make_*_step`` returns a plain function.
+:func:`build_sharded` is the counterpart of the JAX package's
+``build_jitted``: it places the parameters, the optimizer state, the batch
+and the caches on a DeviceMesh as DTensors (``launch/sharding.py``'s
+specs) and returns the step, run under the mesh (``models/pjit_utils.
+use_mesh``), with its arguments.  The same step functions run unsharded
+on plain tensors and sharded on DTensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import model as M
+from repro_torch.models.pjit_utils import is_dtensor
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
                                tree_leaves, tree_unflatten)
 
@@ -27,9 +31,11 @@ from repro_torch.optim import (adamw_update, clip_by_global_norm,
 @dataclasses.dataclass(frozen=True)
 class TrainOptions:
     """The JAX package's train options, field for field.  ``fsdp``,
-    ``fsdp_over_pod``, ``parallelism`` and ``offload_opt_state`` place
-    parameters and moments on a mesh; on one card they have no effect
-    (module step 10 decides their meaning on several cards)."""
+    ``fsdp_over_pod`` and ``parallelism`` choose the sharding rules
+    (``launch/sharding.py``) that :func:`build_sharded` places parameters,
+    moments and batches by; an unsharded step ignores them.
+    ``offload_opt_state`` is a field only, in the JAX package too (nothing
+    reads it there): it has no effect."""
     peak_lr: float = 3e-4
     weight_decay: float = 0.1
     b1: float = 0.9
@@ -56,17 +62,27 @@ def default_train_options(cfg: ModelConfig) -> TrainOptions:
     return TrainOptions()
 
 
-def auto_microbatch(cfg: ModelConfig, shape: ShapeSpec,
-                    residual_budget: float = 4e9) -> int:
-    """Grad-accumulation chunks bounding the saved-residual footprint on
-    one device (the JAX package divides the batch over its mesh's data
-    axes first; here their size is 1).
+def auto_microbatch(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
+                    residual_budget: float = 4e9,
+                    parallelism: str = "2d") -> int:
+    """Grad-accumulation chunks bounding the saved-residual footprint per
+    device: the batch is divided over the mesh's batch dims first (``mesh``
+    a DeviceMesh or ``{name: size}``; None is one device).
 
     The layer loop saves one d_model residual per layer per live token
     (full-remat policy), i.e. ``L·d·2B`` bytes/token.  Choose the smallest
     power-of-two split keeping that under ``residual_budget``.
     """
-    b_local = max(shape.global_batch, 1)
+    data_sz = 1
+    if mesh is not None:
+        from .mesh import batch_axes, mesh_shape
+        sizes = mesh_shape(mesh)
+        axes = list(batch_axes(sizes))
+        if parallelism == "fsdp_only":
+            axes.append("model")
+        for a in axes:
+            data_sz *= sizes[a]
+    b_local = max(shape.global_batch // data_sz, 1)
     tokens = b_local * shape.seq_len
     per_token = cfg.n_layers * cfg.d_model * 2  # bf16 residual per layer
     tokens_budget = max(int(residual_budget / per_token), shape.seq_len)
@@ -113,6 +129,30 @@ def est_param_count(cfg: ModelConfig) -> float:
 # train step
 # ---------------------------------------------------------------------------
 
+def _like_param(g, p):
+    """A DTensor gradient placed as its parameter (partial sums reduced,
+    or reduce-scattered onto the parameter's shards)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _rows(x, i: int, n: int):
+    """Microbatch ``i`` of ``n``: rows ``[i·b/n, (i+1)·b/n)`` of a plain
+    tensor; of a DTensor batch-sharded on dim 0, those rows of each rank's
+    shard (the same mean gradient over ``n`` equal microbatches, and no
+    rank gathers the batch)."""
+    if is_dtensor(x) and any(getattr(pl, "dim", None) == 0
+                             for pl in x.placements):
+        from torch.distributed.tensor import DTensor
+        loc = x.to_local()
+        mb = loc.shape[0] // n
+        return DTensor.from_local(loc[i * mb:(i + 1) * mb], x.device_mesh,
+                                  x.placements, run_check=False)
+    mb = x.shape[0] // n
+    return x[i * mb:(i + 1) * mb]
+
+
 def loss_and_grads(params, cfg: ModelConfig, batch: dict):
     """``lm_loss`` and its gradient with respect to every parameter leaf
     (``jax.value_and_grad`` of the JAX package's ``lm_loss``) → ``(loss,
@@ -128,7 +168,7 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict):
     finally:
         for t in leaves:
             t.requires_grad_(False)
-    grads = [torch.zeros_like(t) if g is None else g
+    grads = [torch.zeros_like(t) if g is None else _like_param(g, t)
              for t, g in zip(leaves, grads)]
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, grads)
@@ -144,22 +184,28 @@ def _accumulated_grads(params, cfg: ModelConfig, batch: dict, n_micro: int,
     if b % n_micro:
         raise ValueError(f"batch {b} is not a multiple of {n_micro} "
                          f"microbatches")
-    mb = b // n_micro
-    acc = [torch.zeros(t.shape, dtype=acc_dtype, device=t.device)
+    acc = [torch.zeros_like(t, dtype=acc_dtype)
            for t in tree_leaves(params)]
-    total = torch.zeros((), dtype=torch.float32,
-                        device=batch["tokens"].device)
+    total = 0.0
     for i in range(n_micro):
-        micro = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
+        micro = {k: _rows(x, i, n_micro) for k, x in batch.items()}
         loss, metrics, grads = loss_and_grads(params, cfg, micro)
-        for a, g in zip(acc, tree_leaves(grads)):
-            a.add_(g.to(acc_dtype))
+        for j, g in enumerate(tree_leaves(grads)):
+            acc[j] = _acc_add(acc[j], g.to(acc_dtype))
         total = total + loss
         del grads
     scale = 1.0 / n_micro  # n_micro is a power of two: exact in bf16
-    for a in acc:
-        a.mul_(scale)
+    acc = [a * scale if is_dtensor(a) else a.mul_(scale)
+           for a in acc]
     return total * scale, metrics, tree_unflatten(params, acc)
+
+
+def _acc_add(a, g):
+    """``a + g`` into ``a``'s storage; a DTensor out of place (a replicated
+    DTensor's local tensor may be one tensor for every rank that
+    ``LocalTensorMode`` simulates, which an in-place add would update once
+    per rank)."""
+    return a + g if is_dtensor(a) else a.add_(g)
 
 
 def make_train_step(cfg: ModelConfig, opts: TrainOptions):
@@ -256,3 +302,181 @@ def make_serve_step(cfg: ModelConfig):
                                          cache=cache, positions=positions)
         return logits[:, 0], new_cache
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# sharded assembly for a DeviceMesh (the JAX package's build_jitted)
+# ---------------------------------------------------------------------------
+
+def _place(tree, specs, mesh, *, seed: Optional[int] = None, device=None,
+           fill=None):
+    """DTensors of ``tree``'s leaves placed by ``specs`` on ``mesh``.  With
+    ``seed`` None each whole leaf is distributed (``distribute_tensor``);
+    otherwise ``tree`` holds shapes (fake tensors) and each rank draws only
+    its own shard on ``device``, never the whole tensor: N(0, 0.02) floats
+    from the seed, or ``fill(name, local_shape, dtype)`` where given."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from . import sharding as shd
+    gen = None
+    if seed is not None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+    def one(path, t, spec):
+        pl = shd.placements(spec, mesh)
+        if gen is None:
+            return distribute_tensor(t, mesh, pl)
+        loc = shd.local_shape(t.shape, spec, mesh)
+        val = fill(path[-1], loc, t.dtype) if fill else None
+        if val is None:
+            if t.dtype.is_floating_point:
+                val = (torch.randn(loc, generator=gen, device=device)
+                       * 0.02).to(t.dtype)
+            else:
+                val = torch.zeros(loc, dtype=t.dtype, device=device)
+        return DTensor.from_local(val, mesh, pl, run_check=False,
+                                  shape=t.shape,
+                                  stride=torch.empty(t.shape,
+                                                     device="meta").stride())
+
+    def walk(path, t, s):
+        if isinstance(s, tuple):          # a spec
+            return one(path, t, s)
+        if isinstance(s, dict):
+            return {k: walk(path + (k,), t[k], s[k]) for k in s}
+        return [walk(path + (i,), a, b) for i, (a, b) in
+                enumerate(zip(t, s))]
+
+    return walk((), tree, specs)
+
+
+def _sharded(fn, mesh, parallelism: str):
+    def step(*args):
+        from repro_torch.models.pjit_utils import use_mesh
+        with use_mesh(mesh, parallelism):
+            return fn(*args)
+    step.__name__ = getattr(fn, "__name__", "step")
+    return step
+
+
+def build_sharded(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                  opts: Optional[TrainOptions] = None, *, params=None,
+                  batch=None, cache=None, seed: Optional[int] = None,
+                  device=None):
+    """The step of ``shape.kind`` on the DeviceMesh ``mesh`` → ``(step,
+    args)``: ``step(*args)`` runs it under the mesh.  ``args`` are
+    DTensors placed by the JAX package's specs (``fsdp``,
+    ``fsdp_over_pod`` and ``parallelism`` from ``opts``):
+
+      * train: ``(params, opt_state, batch)``, moments by
+        ``opt_state_specs`` (q8 scales drop the last axis); ``microbatch``
+        0 means :func:`auto_microbatch` on this mesh;
+      * prefill: ``(params, tokens)`` (and ``enc_inputs`` for whisper);
+      * decode: ``(params, cache, tokens, pos)``, the cache by
+        ``cache_specs``, full (``len`` = seq_len - 1).
+
+    Given ``params`` (and ``batch`` / ``cache``), whole tensors are
+    distributed; with ``seed`` instead, every rank draws its own shards
+    on ``device`` from the seed and nothing is materialised whole (the
+    dry run; batch tokens are zeros)."""
+    from repro_torch.models.logical import param_logical, param_shapes
+    from repro_torch.optim import adamw_init
+    from . import sharding as shd
+    from .sharding import P
+
+    opts = opts or default_train_options(cfg)
+    shapes = param_shapes(cfg)
+    pspecs = shd.param_specs(shapes, param_logical(cfg), cfg, mesh,
+                             fsdp=opts.fsdp, fsdp_over_pod=opts.fsdp_over_pod,
+                             parallelism=opts.parallelism)
+    drawn = params is None
+    if drawn and seed is None:
+        raise ValueError("build_sharded needs params or a seed")
+    d_params = (_place(shapes, pspecs, mesh, seed=seed, device=device)
+                if drawn else shd.shard_tree(params, pspecs, mesh))
+    b, s = shape.global_batch, shape.seq_len
+    bsp = shd.batch_spec(b, mesh, ndim=2, parallelism=opts.parallelism)
+
+    def fake(fn):
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            return fn()
+
+    def tokens_like(n_seq):
+        return fake(lambda: torch.zeros((b, n_seq), dtype=torch.int32))
+
+    if shape.kind == "train":
+        if opts.microbatch == 0:
+            opts = dataclasses.replace(opts, microbatch=auto_microbatch(
+                cfg, shape, mesh, residual_budget=opts.residual_budget,
+                parallelism=opts.parallelism))
+        st_shapes = fake(lambda: adamw_init(shapes,
+                                            state_policy=opts.opt_state_policy))
+        ospecs = shd.opt_state_specs(pspecs, st_shapes)
+        if drawn:       # zeroed moments, as adamw_init makes them
+            d_state = _place(st_shapes, ospecs, mesh, seed=seed,
+                             device=device,
+                             fill=lambda _, loc, dt: torch.zeros(
+                                 loc, dtype=dt, device=device))
+        else:
+            d_state = shd.shard_tree(
+                adamw_init(params, state_policy=opts.opt_state_policy),
+                ospecs, mesh)
+        bspecs = {"tokens": bsp, "labels": bsp}
+        if cfg.encdec:
+            bspecs["enc_inputs"] = P(bsp[0], None, None)
+        if batch is None:
+            bt = {"tokens": tokens_like(s), "labels": tokens_like(s)}
+            if cfg.encdec:
+                bt["enc_inputs"] = fake(lambda: torch.zeros(
+                    (b, cfg.encdec["enc_frames"], cfg.d_model),
+                    dtype=cfg.compute_dtype))
+            d_batch = _place(bt, bspecs, mesh, seed=seed, device=device)
+        else:
+            d_batch = shd.shard_tree(batch, {k: bspecs[k] for k in batch},
+                                     mesh)
+        step = _sharded(make_train_step(cfg, opts), mesh, opts.parallelism)
+        return step, (d_params, d_state, d_batch)
+    if shape.kind == "prefill":
+        toks = batch["tokens"] if batch is not None else None
+        d_tok = (shd.shard_tree(toks, bsp, mesh) if toks is not None else
+                 _place(tokens_like(s), bsp, mesh, seed=seed, device=device))
+        args = (d_params, d_tok)
+        if cfg.encdec:
+            esp = P(bsp[0], None, None)
+            enc = batch["enc_inputs"] if batch is not None else fake(
+                lambda: torch.zeros((b, cfg.encdec["enc_frames"],
+                                     cfg.d_model), dtype=cfg.compute_dtype))
+            args += ((shd.shard_tree(enc, esp, mesh) if batch is not None
+                      else _place(enc, esp, mesh, seed=seed,
+                                  device=device)),)
+        step = _sharded(make_prefill_step(cfg), mesh, opts.parallelism)
+        return step, args
+    # decode: one new token against a full cache of seq_len
+    c_shapes = fake(lambda: M.init_cache(cfg, b, s, device="cpu"))
+    cspecs = shd.cache_specs(cfg, c_shapes, mesh, b)
+    if cache is None:
+        def fill(name, loc, dt):
+            if name == "len":
+                return torch.full(loc, s - 1, dtype=dt, device=device)
+            return torch.zeros(loc, dtype=dt, device=device)
+        d_cache = _place(c_shapes, cspecs, mesh, seed=seed, device=device,
+                         fill=fill)
+    else:
+        d_cache = shd.shard_tree(cache, cspecs, mesh)
+    toks = batch["tokens"] if batch is not None else None
+    d_tok = (shd.shard_tree(toks, bsp, mesh) if toks is not None else
+             _place(fake(lambda: torch.zeros((b, 1), dtype=torch.int32)),
+                    bsp, mesh, seed=seed, device=device))
+    pos = _first_len(d_cache)
+    step = _sharded(make_serve_step(cfg), mesh, opts.parallelism)
+    return step, (d_params, d_cache, d_tok, pos)
+
+
+def _first_len(cache):
+    """The cache cursor: the first stack's ``len`` [L], entry 0 (a
+    replicated DTensor, never read back to the host)."""
+    for sub in cache.values():
+        if "len" in sub:
+            return sub["len"][0]
+    raise ValueError("the cache has no len")

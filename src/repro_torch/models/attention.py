@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .layers import apply_rope, init_linear, linear, rms_norm_simple, rope_freqs
+from .pjit_utils import is_dtensor
 
 Params = Dict[str, Any]
 
@@ -73,6 +74,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     whose ``q_positions`` start elsewhere than 0 passes that start as
     ``q_off``, a Python int.
     """
+    if is_dtensor(q):
+        local = _local_attention(q, k, v, q_positions=q_positions,
+                                 k_positions=k_positions, causal=causal,
+                                 window=window, k_valid_len=k_valid_len,
+                                 chunk=chunk, impl=impl, sm_scale=sm_scale,
+                                 q_off=q_off)
+        if local is not None:
+            return local
     if impl != "ref" and k_valid_len is None:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         return flash_attention(q, k, v, q_positions=q_positions,
@@ -94,12 +103,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kp = k_positions[None, :]
         mask = torch.ones((qc.shape[1], k.shape[1]), dtype=torch.bool,
                           device=q.device)
+        # out of place: under a mesh the positions may be DTensors
         if causal:
-            mask &= kp <= qp
+            mask = mask & (kp <= qp)
         if window is not None:
-            mask &= (qp - kp) < window
+            mask = mask & ((qp - kp) < window)
         if k_valid_len is not None:
-            mask &= k_idx[None, :] < k_valid_len
+            mask = mask & (k_idx[None, :] < k_valid_len)
         s = s.masked_fill(~mask, float("-inf"))
         p = torch.softmax(s, dim=-1)
         p = torch.where(torch.isnan(p), 0.0, p)       # fully-masked rows
@@ -116,6 +126,85 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    q_positions[i:i + chunk])
                          for i in range(0, sq, chunk)], dim=1)
     return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def kv_heads_of_shard(c: int, h: int, kv: int, m: int) -> range:
+    """The kv heads that q heads ``[c·h/m, (c+1)·h/m)`` read under GQA
+    (q head ``i`` reads kv head ``i // (h/kv)``), when the q heads shard
+    over a `model` dim of ``m`` and the kv heads do not."""
+    hl, g = h // m, h // kv
+    first, last = (c * hl) // g, ((c + 1) * hl - 1) // g
+    n = last - first + 1
+    if hl % n or (hl < g and g % hl):
+        raise ValueError(f"{h} q heads over {m} ranks do not meet {kv} kv "
+                         f"heads in whole GQA groups")
+    return range(first, last + 1)
+
+
+def _local_attention(q, k, v, *, q_positions, k_positions, causal, window,
+                     k_valid_len, chunk, impl, sm_scale, q_off):
+    """Attention on DTensor q/k/v, each rank on its local shards
+    (``local_map``): the flash kernel never sees a DTensor.  The batch
+    shards over the batch dims and q's heads over `model`.  K/V's heads
+    shard over `model` too when they divide it; otherwise (qwen3: 8 kv
+    heads, `model` 16) K/V stay replicated over `model` and each rank
+    takes, by its `model` coordinate, only the kv heads that its q heads
+    read (:func:`kv_heads_of_shard`): no rank holds H copies of K/V.  The
+    plain path over a cache (decode) goes local only when the kv heads
+    shard; a head-dim-sharded cache stays with DTensor's ops (→ None), so
+    that no rank gathers the cache."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.sharding import P, per_rank, placements
+    from .pjit_utils import batch_axes_in_mesh
+
+    mesh = q.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    b, h, kvh = q.shape[0], q.shape[2], k.shape[2]
+    b_axes = list(batch_axes_in_mesh()
+                  or [a for a in ("pod", "data") if a in sizes])
+    while b_axes and b % math.prod(sizes[a] for a in b_axes):
+        b_axes.pop()
+    m = sizes.get("model", 1)
+    model_dim = mesh.mesh_dim_names.index("model") if "model" in sizes \
+        else None
+    heads = ("model" if "model" in sizes and "model" not in b_axes
+             and h % m == 0 else None)
+    kv_ax = heads if heads and kvh % m == 0 else None
+    flash = impl != "ref" and k_valid_len is None
+    if not flash and heads and not kv_ax:
+        return None
+    q_pl = placements(P(tuple(b_axes) or None, None, heads, None), mesh)
+    kv_pl = placements(P(tuple(b_axes) or None, None, kv_ax, None), mesh)
+    idx = None
+    if heads and not kv_ax:
+        idx = per_rank(mesh, lambda c: torch.tensor(
+            kv_heads_of_shard(c[model_dim], h, kvh, m), device=k.device))
+    # the positions and valid length: small and replicated
+    qp, kp, kvl = (t.full_tensor() if is_dtensor(t) else t
+                   for t in (q_positions, k_positions, k_valid_len))
+
+    def local(ql, kl, vl):
+        if idx is not None:
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        if flash:
+            return flash_attention(ql, kl, vl, causal=causal, window=window,
+                                   sm_scale=sm_scale, impl=impl, q_off=q_off)
+        return chunked_attention(ql, kl, vl, q_positions=qp, k_positions=kp,
+                                 causal=causal, window=window,
+                                 k_valid_len=kvl, chunk=chunk, impl="ref",
+                                 sm_scale=sm_scale, q_off=q_off)
+
+    # a rank's K/V gradient covers only the kv heads it took: over `model`
+    # the replicated K/V's gradient is the sum of the ranks' (Partial)
+    kv_grad = tuple(Partial() if idx is not None and i == model_dim else pl
+                    for i, pl in enumerate(kv_pl))
+    return local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -136,13 +225,23 @@ def init_gqa(gen, cfg) -> Params:
     return p
 
 
+def _split_heads(y: torch.Tensor, b: int, s: int, n: int,
+                 dh: int) -> torch.Tensor:
+    """[B, S, n·dh] → [B, S, n, dh].  A DTensor whose columns shard over
+    `model` (the rules shard the "heads" axis) keeps that shard on the
+    heads when ``n`` divides `model`; otherwise the columns are gathered
+    first (qwen3's 8 kv heads over 16 ranks: half a head each)."""
+    from .pjit_utils import constrain_heads
+    return constrain_heads(y, n).reshape(b, s, n, dh)
+
+
 def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             rope: bool = True):
     b, sq, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(b, sq, h, dh)
-    k = linear(p["wk"], x).reshape(b, sq, kvh, dh)
-    v = linear(p["wv"], x).reshape(b, sq, kvh, dh)
+    q = _split_heads(linear(p["wq"], x), b, sq, h, dh)
+    k = _split_heads(linear(p["wk"], x), b, sq, kvh, dh)
+    v = _split_heads(linear(p["wv"], x), b, sq, kvh, dh)
     if cfg.qk_norm:
         q = rms_norm_simple(q, p["q_g"])
         k = rms_norm_simple(k, p["k_g"])
@@ -227,22 +326,45 @@ def gqa_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
 
     if mode != "decode":
         raise ValueError(f"unknown attention mode {mode!r}")
-    # decode: sq == 1, append at the cache cursor.  The JAX package pins
-    # q/k/v shardings here (pjit_utils); one card has nothing to pin.
+    # decode: sq == 1, append at the cache cursor.  Under a mesh whose
+    # `model` dim the kv heads do not divide, q/k/v shard their head dim
+    # as the cache does (pjit_utils)
     if cache is None:
         raise ValueError("decode mode needs a cache")
+    from .pjit_utils import constrain_decode_qkv
+    q, k, v = constrain_decode_qkv(q, k, v, cfg.n_kv_heads)
     pos = cache["len"]            # int32 scalar tensor: tokens cached so far
     sc = cache["k"].shape[1]
     slot = (pos % sc if window is not None else pos).reshape(1).long()
-    k_cache = cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    v_cache = cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    k_cache = _write_slots(cache["k"], slot, k)
+    v_cache = _write_slots(cache["v"], slot, v)
     k_pos = _cache_positions(pos, sc, window, device=x.device)
     valid = torch.clamp(pos + 1, max=sc)
     out = chunked_attention(
         q, k_cache, v_cache, q_positions=positions, k_positions=k_pos,
         causal=True, window=window, k_valid_len=valid, impl=cfg.attn_impl)
-    out = linear(p["wo"], out.reshape(b, sq, -1))
+    # a head-dim-sharded output is gathered over its head dim before the
+    # heads merge (DTensor cannot flatten a dim sharded inside)
+    from .pjit_utils import gather_dim
+    out = linear(p["wo"], gather_dim(out, -1).reshape(b, sq, -1))
     return out, {"k": k_cache, "v": v_cache, "len": pos + 1}
+
+
+def _write_slots(cache: torch.Tensor, slot: torch.Tensor,
+                 new: torch.Tensor) -> torch.Tensor:
+    """``cache[:, slot] = new`` in place → ``cache``.  A DTensor cache is
+    written through each rank's local shard, ``new`` placed as the cache
+    (DTensor has no sharding rule for ``index_copy_``)."""
+    if is_dtensor(cache):
+        mesh = cache.device_mesh
+        loc = new.to(cache.dtype)
+        if is_dtensor(loc):
+            loc = loc.redistribute(mesh, cache.placements).to_local()
+        if is_dtensor(slot):
+            slot = slot.full_tensor()
+        cache.to_local().index_copy_(1, slot, loc)
+        return cache
+    return cache.index_copy_(1, slot, new.to(cache.dtype))
 
 
 def _ring(t: torch.Tensor, window: int) -> torch.Tensor:
@@ -408,6 +530,11 @@ def mla_attention(p: Params, cfg, x: torch.Tensor, *, mode: str,
     sc = ckv_cache.shape[1]
     wuk = p["wuk"]["w"].reshape(dc, h, dn).float()
     q_abs = torch.einsum("bqhn,chn->bqhc", q_nope.float(), wuk)  # [B,Sq,H,dc]
+    # under a mesh: q̃ and q_rope follow the cache's latent sharding, so
+    # the 32k-token latent cache is never gathered (pjit_utils)
+    from .pjit_utils import constrain_last_model
+    q_abs = constrain_last_model(q_abs)
+    q_rope = constrain_last_model(q_rope)
     ckv_f = ckv_cache.float()
     s_nope = torch.einsum("bqhc,bsc->bhqs", q_abs, ckv_f)
     s_rope = torch.einsum("bqhr,bsr->bhqs", q_rope.float(),

@@ -46,9 +46,12 @@ int ``cursor``.  A config with ``mla`` attends with MLA
 hold DeepSeek-V3's multi-token-prediction block (``params["mtp"]``: the
 norms ``norm_h`` and ``norm_e``, ``proj`` [2·d, d] and one dense
 ``layer``), which only the training loss runs, so serving never reads it.
-The JAX package's sharding constraints (``models/pjit_utils.py``) are
-hints to XLA's partitioner with no meaning on one card, so they are left
-out.  Sinusoidal decoder positions (``pos_emb="sinusoidal"``, in no
+The JAX package's sharding constraints stand at the same places
+(``models/pjit_utils.py``): the embedding output, each layer's input and
+output (the residual stream batch-sharded, or sequence-sharded with
+``cfg.seq_parallel``) and each loss chunk's hidden states.  They act on
+DTensors under an active mesh (``launch.steps.build_sharded``) and return
+anything else as it is.  Sinusoidal decoder positions (``pos_emb="sinusoidal"``, in no
 shipped config) raise.
 
 Training: ``lm_loss`` is the sequence-chunked cross-entropy of the hidden
@@ -74,8 +77,10 @@ from repro_torch.core.assoc_tensor import resolve_device
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
+from .pjit_utils import (constrain_batch, constrain_seq, fsdp_gather,
+                         gather_dim, is_dtensor)
 from .layers import (Params, _normal, apply_mlp, apply_norm, embed,
-                     init_embedding, init_mlp, init_norm,
+                     init_embedding, init_mlp, init_norm, sharded_matmul,
                      sinusoidal_positions)
 
 # the loss's sequence chunks and every layer's recompute checkpoint with
@@ -302,6 +307,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, mode: str = "train",
         raise ValueError("chunked_prefill needs a cache and the cursor as a "
                          f"Python int; got cursor {cursor!r}")
     x = embed(params["embed"], tokens, scale=cfg.scale_emb).to(cfg.compute_dtype)
+    x = constrain_batch(x)
     sq = tokens.shape[1]
     if positions is None:
         positions = torch.arange(sq, dtype=torch.int32, device=tokens.device)
@@ -337,9 +343,15 @@ def _remat(cfg, mode: str) -> bool:
         and torch.is_grad_enabled()
 
 
-def _run(layer, x, remat: bool):
-    """``layer(x)``, checkpointed when ``remat``."""
-    return _checkpoint(layer, x) if remat else layer(x)
+def _run(layer, x, remat: bool, cfg=None):
+    """``layer(x)``, checkpointed when ``remat``; with ``cfg`` the residual
+    stream is pinned batch- (or sequence-) sharded before and after the
+    layer, as the JAX package's scan body pins it."""
+    if cfg is None:
+        return _checkpoint(layer, x) if remat else layer(x)
+    pin = constrain_seq if cfg.seq_parallel else constrain_batch
+    out = _checkpoint(layer, pin(x)) if remat else layer(pin(x))
+    return (pin(out[0]),) + tuple(out[1:])
 
 
 def _dense_forward(params, cfg, x, *, mode, cache, positions, cursor):
@@ -358,7 +370,7 @@ def _dense_forward(params, cfg, x, *, mode, cache, positions, cursor):
             layer = functools.partial(
                 apply_decoder_layer, lp, cfg, mode=mode, cache=st.slot(i),
                 positions=positions, use_moe=use_moe, cursor=cursor)
-            x, nc, a, _ = _run(layer, x, remat)
+            x, nc, a, _ = _run(layer, x, remat, cfg)
             if use_moe:
                 aux = aux + a
             if mode != "train":
@@ -399,7 +411,7 @@ def _mamba_forward(params, cfg, x, *, mode, cache, positions, cursor):
             x, nc = apply_mamba_layer(lp, cfg, x, mode=mode,
                                       cache=ms.slot(i))
             return x, nac, nc
-        x, nac, nc = _run(layer, x, remat)
+        x, nac, nc = _run(layer, x, remat, cfg)
         if mode != "train":
             if nac is not None:
                 shared_st.put(i // every, nac)
@@ -425,7 +437,7 @@ def _encode(params: Params, cfg, enc_inputs: torch.Tensor,
     for lp in params["enc_stack"]:
         e, _, _, _ = _run(functools.partial(
             apply_decoder_layer, lp, cfg, mode="train", cache=None,
-            positions=pos, causal=False), e, remat)
+            positions=pos, causal=False), e, remat, cfg)
     e = apply_norm(params["enc_norm"], e, kind=cfg.norm)
     kvs = [attn.encode_cross_kv(lp["cross"], cfg, e)
            for lp in params["dec_stack"]]
@@ -457,7 +469,8 @@ def _encdec_forward(params, cfg, x, *, mode, cache, positions, enc_inputs):
         x, nc, _, _ = _run(functools.partial(
             apply_decoder_layer, lp, cfg, mode=mode, cache=st.slot(i),
             positions=positions,
-            enc_kv={key: t[i] for key, t in cross_kv.items()}), x, remat)
+            enc_kv={key: t[i] for key, t in cross_kv.items()}), x, remat,
+            cfg)
         if mode != "train":
             st.put(i, nc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
@@ -530,11 +543,14 @@ def chunked_lm_loss(params: Params, cfg, hidden: torch.Tensor,
     the weighed tokens.  Each chunk of ``cfg.loss_chunk`` positions makes
     its [B, chunk, V] fp32 logits, takes the gold logit by ``gather`` (the
     JAX package contracts with a one-hot, to keep a vocab-sharded chunk
-    sharded; on one card the two are the same sum) and is checkpointed
+    sharded; a DTensor chunk goes through :func:`_vocab_parallel_xent`,
+    which never gathers it) and is checkpointed
     when ``cfg.remat != "none"``, so that the backward holds one chunk's
     logits at a time."""
     head = params.get("lm_head", params["embed"])
-    w = head["table"]
+    # a DTensor head gathered over its embed dim once (FSDP), so that each
+    # chunk's logits shard over the vocab and the batch, never partial
+    w = gather_dim(fsdp_gather(head["table"]), 1)
     s = hidden.shape[1]
     c = min(cfg.loss_chunk, s)
     if s % c:
@@ -544,9 +560,14 @@ def chunked_lm_loss(params: Params, cfg, hidden: torch.Tensor,
                           device=hidden.device)
 
     def one(h_c, y_c, m_c):
-        logits = (h_c @ w.to(h_c.dtype).T).float()
+        h_c = constrain_batch(h_c)
+        wt = w.to(h_c.dtype).T
+        logits = (sharded_matmul(h_c, wt) if is_dtensor(wt)
+                  else h_c @ wt).float()
         if cfg.logit_scale is not None:
             logits = logits * cfg.logit_scale
+        if is_dtensor(logits):
+            return (_vocab_parallel_xent(logits, y_c) * m_c).sum()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
         return ((logz - gold) * m_c).sum()
@@ -557,6 +578,57 @@ def chunked_lm_loss(params: Params, cfg, hidden: torch.Tensor,
         args = (hidden[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
         tot = tot + (_checkpoint(one, *args) if remat else one(*args))
     return tot / mask.float().sum().clamp_min(1.0)
+
+
+def _vocab_parallel_xent(logits, labels):
+    """Per-token cross-entropy of a DTensor logits chunk [B, c, V] whose
+    vocab may shard over mesh dims, Megatron's way: each rank reduces its
+    own columns (``local_map``) to a row max, a sum of exponentials and
+    the gold logit where the label falls in its columns, and only those
+    [B, c] partial results cross ranks (a max and two sum all-reduces);
+    the chunk itself is never gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.sharding import shard_offset
+    mesh = logits.device_mesh
+    pl = tuple(Replicate() if p.is_partial() else p
+               for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    vocab = [m for m, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim == logits.ndim - 1]
+    rows = tuple(Replicate() if m in vocab else p for m, p in enumerate(pl))
+    labels = labels.redistribute(mesh, rows) if is_dtensor(labels) \
+        else labels
+
+    def partial(op):
+        return tuple(Partial(op) if m in vocab else p
+                     for m, p in enumerate(rows))
+
+    def reduced(x):
+        return x.redistribute(mesh, rows)
+
+    mx = reduced(local_map(lambda t: t.amax(-1), out_placements=(
+        partial("max"),), in_placements=(pl,), device_mesh=mesh)(
+        logits.detach()))
+    se = local_map(lambda t, m: torch.exp(t - m[..., None]).sum(-1),
+                   out_placements=(partial("sum"),),
+                   in_placements=(pl, rows), in_grad_placements=(pl, rows),
+                   device_mesh=mesh)(logits, mx)
+    logz = reduced(se).log() + mx
+    start = shard_offset(mesh, vocab, logits.shape[-1], logits.device)
+
+    def gold_local(t, y):
+        rel = y.long() - start
+        hit = (rel >= 0) & (rel < t.shape[-1])
+        g = torch.gather(t, -1, torch.where(hit, rel, 0)[..., None])[..., 0]
+        return g * hit.to(g.dtype)
+
+    gold = reduced(local_map(gold_local, out_placements=(partial("sum"),),
+                             in_placements=(pl, rows),
+                             in_grad_placements=(pl, rows),
+                             device_mesh=mesh)(logits, labels))
+    return logz - gold
 
 
 def lm_loss(params: Params, cfg, batch: dict):

@@ -185,13 +185,19 @@ def apply_moe(p: Params, cfg, x: torch.Tensor):
                     "routed": meta[3].numel()})
     # one product per projection over all experts: [E, B·C, d] @ [E, d, f];
     # in place when serving, out of place where autograd saves the operands
-    # (the same values)
+    # (the same values).  Under a mesh the buffers stay batch-sharded (the
+    # B·C rows are batch-major), as the JAX package pins them, except under
+    # 2-D expert parallelism, where they follow the expert axis
+    from .pjit_utils import constrain_batch
+    pin = ((lambda t: t) if cfg.moe_sharding == "ep2d"
+           else (lambda t: constrain_batch(t, dim=1)))
+    buf = pin(buf)
     g = torch.bmm(buf, p["gate"])
     if torch.is_grad_enabled() and g.requires_grad:
         h = F.silu(g) * torch.bmm(buf, p["up"])
     else:
         h = F.silu(g, inplace=True).mul_(torch.bmm(buf, p["up"]))
-    y = _combine(torch.bmm(h, p["down"]), meta, b, s)
+    y = _combine(pin(torch.bmm(pin(h), p["down"])), meta, b, s)
     if "shared_gate" in p:  # DeepSeek shared expert — always on
         y = y + linear(p["shared_down"],
                        F.silu(linear(p["shared_gate"], x)) *

@@ -1,6 +1,8 @@
 """Shared helpers of the ``test_torch_*`` files: seeded numpy inputs fed to
 both the JAX package (``repro``) and its PyTorch port (``repro_torch``)."""
+import contextlib
 import functools
+import gc
 import os
 import subprocess
 import sys
@@ -9,6 +11,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+# The port's tests run torch on one intra-op thread, as its spawned ranks
+# do.  Their tensors are small, so more threads shorten nothing, and
+# OpenMP's idle threads spin between parallel regions: on a busy machine
+# they take the cores that the JAX side's compiles (``warm_jax``) need.
+torch.set_num_threads(1)
 
 SEMIRINGS = ("plus_times", "max_plus", "min_plus", "max_min", "max_times",
              "and_or")
@@ -57,12 +65,16 @@ def assert_same_assoc(t, j):
         np.testing.assert_array_equal(x, y)
 
 
-def warm_jax(calls, workers=4):
-    """Make ``calls`` (into the JAX package) on ``workers`` threads and
-    drop what they return or raise.  XLA compiles with the GIL released, so
-    the programs that a module's tests are about to call compile side by
-    side, and each test then finds its programs compiled."""
+def warm_jax(calls, workers=None):
+    """Make ``calls`` (into the JAX package) on ``workers`` threads (by
+    default one a core, at most 8) and drop what they return or raise.  XLA
+    compiles with the GIL released, so the programs that a module's tests
+    are about to call compile side by side, and each test then finds its
+    programs compiled."""
     from concurrent.futures import ThreadPoolExecutor
+
+    if workers is None:
+        workers = min(8, os.cpu_count() or 1)
 
     def quiet(call):
         try:
@@ -74,6 +86,9 @@ def warm_jax(calls, workers=4):
         list(ex.map(quiet, calls))
 
 
+_FROZE: list = []
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _quick_jax_compiles():
     """The JAX package's programs compile with XLA's backend optimisations
@@ -81,9 +96,24 @@ def _quick_jax_compiles():
     reference results come from small programs that mostly run once, so
     compiling them is most of their time; switching the optimisations off
     changes no result and shortens that time.  (``jax_optimization_level``
-    stays as it is: it is part of JAX's cache keys, and the programs that
-    the JAX package's own tests compiled earlier would compile again.)"""
+    stays as it is: it is part of JAX's cache keys.)  A module fixture that
+    compiles JAX programs takes this one as its first argument, so that it
+    runs after it.
+
+    Each module also starts with JAX's caches emptied: a compile takes
+    longer the more compiled programs the process holds (the JAX
+    package's own tests leave thousands), and one module seldom reuses
+    another's programs.
+
+    The first port module also freezes what the process holds then
+    (``gc.freeze`` after a collection): the JAX package's tests leave a
+    large heap that every later full collection would walk again."""
     import jax
+    jax.clear_caches()
+    if not _FROZE:
+        gc.collect()
+        gc.freeze()
+        _FROZE.append(True)
     name = "jax_disable_most_optimizations"
     old = jax.config.values[name]
     jax.config.update(name, True)
@@ -187,3 +217,57 @@ class SpmdRun:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+
+
+# -- the mesh (module step 10) ----------------------------------------------------
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A ``"fake"`` default process group of ``world`` ranks (this process
+    is rank 0; every collective is a no-op), destroyed on exit so that no
+    later test sees a default group."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def local_ranks(world: int):
+    """``world`` simulated ranks in this process: ``LocalTensorMode`` over
+    a fake group of that size (collectives run on the ranks' real
+    values)."""
+    from torch.distributed._local_tensor import LocalTensorMode
+    with fake_group(world), LocalTensorMode(world) as mode:
+        yield mode
+
+
+# -- the JAX package's SMOKE inits, shared by the port's test modules -------------
+
+_JAX_INITS: dict = {}
+
+
+def jax_init_f32(jc):
+    """The JAX package's ``init(PRNGKey(0), jc)`` parameters at f32, made
+    once per pytest process for every config that differs from ``jc`` only
+    in fields the init does not read (the compute dtype, remat, the
+    attention route and chunks, the MoE capacity and top-k), so that the
+    port's model test modules share one compiled init per config."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import model as JM
+    key = jc.replace(param_dtype=jnp.float32, compute_dtype=jnp.float32,
+                     remat="none", attn_impl="reference", attn_chunk=512,
+                     loss_chunk=512)
+    if key.moe:
+        key = key.replace(moe={k: v for k, v in key.moe.items()
+                               if k not in ("capacity_factor", "top_k")})
+    name = repr(key)
+    if name not in _JAX_INITS:
+        _JAX_INITS[name] = jax.jit(lambda k: JM.init(k, jc.replace(
+            param_dtype=jnp.float32))[0])(jax.random.PRNGKey(0))
+    return _JAX_INITS[name]

@@ -47,6 +47,7 @@ from repro_torch.models import ssm as TSSM
 
 from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
+from _torch_helpers import jax_init_f32
 
 ARCHS = ("qwen3_1_7b", "deepseek_v3_671b", "mamba2_130m", "zamba2_7b")
 F32_TOL = 1e-4
@@ -95,8 +96,7 @@ def models():
         if (arch, dtype) not in made:
             jc, tc = configs(arch, dtype)
             jc32, _ = configs(arch, "f32")
-            jp = jax.jit(lambda k: JM.init(k, jc32)[0])(
-                jax.random.PRNGKey(0))
+            jp = jax_init_f32(jc32)
             if "shared_lora" in jp:
                 b = jp["shared_lora"]["b"]
                 draw = np.random.default_rng(7).normal(size=b.shape) * 0.1

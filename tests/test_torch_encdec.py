@@ -51,6 +51,7 @@ from repro_torch.models import model as TM
 
 from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
+from _torch_helpers import jax_init_f32
 
 ARCH = "whisper-medium"
 DTYPES = ["f32", "bf16"]
@@ -94,7 +95,7 @@ def _jax_params(dtype):
         return jax.tree.map(lambda a: a.astype(jnp.bfloat16),
                             _jax_params("f32"))
     jc, _ = configs("f32")
-    return jax.jit(lambda key: JM.init(key, jc)[0])(jax.random.PRNGKey(0))
+    return jax_init_f32(jc)
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,7 +203,7 @@ def _jax_decode(dtype, toks, frames):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _jax_programs_compiled():
+def _jax_programs_compiled(_quick_jax_compiles):
     """The parameters, then the JAX side of the comparisons below, made
     first on threads so that their programs compile side by side."""
     warm_jax([functools.partial(_port_params, d) for d in DTYPES])

@@ -44,6 +44,7 @@ from repro_torch.models import model as TM
 
 from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
+from _torch_helpers import jax_init_f32
 
 DENSE = ["chatglm3-6b", "starcoder2-7b", "minicpm-2b", "chameleon-34b"]
 SSM_FAMILIES = ["mamba2-130m", "zamba2-7b"]
@@ -122,8 +123,7 @@ def models():
                     lambda path, a: a if path[-1].key in TL.FP32_LEAVES
                     else a.astype(jnp.bfloat16), get(arch, "f32")[2])
             else:
-                jp = jax.jit(lambda key: JM.init(key, jc)[0])(
-                    jax.random.PRNGKey(0))
+                jp = jax_init_f32(jc)
                 if "shared_lora" in jp:
                     jp = _lora_b(jp, jc)
             pnp = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
@@ -178,7 +178,7 @@ def _pad_jax_cache(jcache, extra):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _jax_programs_compiled(models):
+def _jax_programs_compiled(_quick_jax_compiles, models):
     """The parameters, then the JAX side of the parametrised forward,
     prefill and decode comparisons, made first on threads so that their
     programs compile side by side; each test then makes the same calls

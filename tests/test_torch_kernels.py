@@ -50,7 +50,7 @@ def _values(rng, shape, sr, floats):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _jax_programs_compiled():
+def _jax_programs_compiled(_quick_jax_compiles):
     """The JAX side of the parametrised kernel comparisons (each oracle and
     each Pallas body in interpret mode), run first on threads so that
     their programs compile side by side; each test then makes the same

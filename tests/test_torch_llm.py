@@ -42,6 +42,7 @@ from repro_torch.models import model as TM
 
 from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, np_of  # noqa: F401
+from _torch_helpers import jax_init_f32
 
 ARCH = "qwen3-1.7b"
 F32_TOL = 1e-4
@@ -78,8 +79,7 @@ def smoke_models():
     cast (one init serves both)."""
     out = {}
     jc32, _ = configs("f32")
-    params32 = jax.jit(lambda key: JM.init(key, jc32)[0])(
-        jax.random.PRNGKey(0))
+    params32 = jax_init_f32(jc32)
     for dtype in ("f32", "bf16"):
         jc, tc = configs(dtype)
         params = jax.tree.map(lambda a: a.astype(jc.param_dtype), params32)

@@ -44,6 +44,7 @@ from repro_torch.models import model as TM
 
 from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
+from _torch_helpers import jax_init_f32
 
 ARCH = "deepseek-v3-671b"
 F32_TOL = 1e-4
@@ -98,7 +99,7 @@ def models():
     routes every token to every expert."""
     out = {}
     jc32, _ = configs("f32")
-    jp32 = jax.jit(lambda k: JM.init(k, jc32)[0])(jax.random.PRNGKey(0))
+    jp32 = jax_init_f32(jc32)
     for dtype, jp in (("f32", jp32), ("bf16", _bf16(jp32))):
         jc, tc = configs(dtype, all_experts=dtype == "bf16")
         pnp = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)

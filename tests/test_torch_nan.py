@@ -60,7 +60,7 @@ def tiles_of(a, b):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _jax_programs_compiled():
+def _jax_programs_compiled(_quick_jax_compiles):
     """The Pallas bodies (interpret mode) of the tests below, run first on
     threads so that their programs compile side by side; each test then
     makes the same calls."""

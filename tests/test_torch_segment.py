@@ -165,7 +165,7 @@ def exact_scan(keys, vals):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _jax_programs_compiled():
+def _jax_programs_compiled(_quick_jax_compiles):
     """The JAX side of the parametrised scans (the oracle and the Pallas
     kernel in interpret mode), run first on threads so that their programs
     compile side by side; each test then makes the same calls."""

@@ -22,15 +22,27 @@ N_UNIFORM = 8      # 2k triples over 256 keys: the planner picks dense
 
 
 def _jax_clustered(raw, sel_keys):
+    """The JAX package's results on the clustered arrays.  Its eager ops
+    compile one program each and XLA compiles with the GIL released, so
+    the two arrays are built, and then the five results computed, side by
+    side on threads."""
+    from concurrent.futures import ThreadPoolExecutor
     rows, cols, rows2, cols2 = raw
     ones = np.ones(len(rows))
     cap = int(np.ceil(len(rows) / 8) * 8)
-    a = J.AssocTensor.from_triples(rows, cols, ones, capacity=cap)
-    b = J.AssocTensor.from_triples(rows2, cols2, ones, capacity=cap)
     sel = J.Range(*sel_keys)
-    return {"select": a[sel, :], "add": a + b, "matmul": a @ b,
-            "sqout_reduce": a.sqout(reduce=1),
-            "pipeline": (a.lazy()[sel, :] @ b.lazy()).sum(axis=1).collect()}
+    with ThreadPoolExecutor(5) as ex:
+        fa, fb = (ex.submit(J.AssocTensor.from_triples, r, c, ones,
+                            capacity=cap)
+                  for r, c in ((rows, cols), (rows2, cols2)))
+        a, b = fa.result(), fb.result()
+        jobs = {"select": lambda: a[sel, :], "add": lambda: a + b,
+                "matmul": lambda: a @ b,
+                "sqout_reduce": lambda: a.sqout(reduce=1),
+                "pipeline": lambda: (a.lazy()[sel, :] @ b.lazy()).sum(
+                    axis=1).collect()}
+        futures = {k: ex.submit(f) for k, f in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
 
 
 def test_generators_match_the_reference_benchmarks():
@@ -69,21 +81,28 @@ def test_clustered_main_path_matches_jax_and_host():
 
 
 def test_uniform_main_path_matches_jax_and_host():
+    from concurrent.futures import ThreadPoolExecutor
     u = main_path.build_uniform(N_UNIFORM, "cpu")
     res = main_path.drive_uniform(u["A"], u["B"])
     rows, cols, rows2, cols2, vals = u["raw"]
-    ja = J.AssocTensor.from_triples(rows, cols, vals)
-    jb = J.AssocTensor.from_triples(rows2, cols2, vals)
-    assert_same_tensor(res["plus_times"], ja.matmul(jb, J.PLUS_TIMES),
-                       floats=False)
-    assert_same_tensor(res["min_plus"], ja.matmul(jb, J.MIN_PLUS),
-                       floats=False)
     sel = J.Range(res["selector"].lo, res["selector"].hi)
-    assert_same(res["sqout_reduce"], ja.sqout(reduce=1), floats=False)
-    assert_same(res["matmul_reduce0"], ja.matmul_reduce(jb, axis=0),
-                floats=False)
-    assert_same(res["pipeline"], (ja.lazy()[sel, :] @ jb.lazy()).sum(
-        axis=1).collect(), floats=False)
+    # the JAX side's programs compile side by side (GIL released)
+    with ThreadPoolExecutor(5) as ex:
+        fa, fb = (ex.submit(J.AssocTensor.from_triples, r, c, vals)
+                  for r, c in ((rows, cols), (rows2, cols2)))
+        ja, jb = fa.result(), fb.result()
+        want = {k: ex.submit(f) for k, f in {
+            "plus_times": lambda: ja.matmul(jb, J.PLUS_TIMES),
+            "min_plus": lambda: ja.matmul(jb, J.MIN_PLUS),
+            "sqout_reduce": lambda: ja.sqout(reduce=1),
+            "matmul_reduce0": lambda: ja.matmul_reduce(jb, axis=0),
+            "pipeline": lambda: (ja.lazy()[sel, :] @ jb.lazy()).sum(
+                axis=1).collect()}.items()}
+        want = {k: f.result() for k, f in want.items()}
+    assert_same_tensor(res["plus_times"], want["plus_times"], floats=False)
+    assert_same_tensor(res["min_plus"], want["min_plus"], floats=False)
+    for k in ("sqout_reduce", "matmul_reduce0", "pipeline"):
+        assert_same(res[k], want[k], floats=False)
     assert T.PLAN_STATS == {k: J.PLAN_STATS[k] for k in T.PLAN_STATS}
     for name, ok, detail in main_path.check_uniform(u["raw"], res):
         assert ok, (name, detail)

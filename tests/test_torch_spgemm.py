@@ -47,7 +47,7 @@ def _keeps(ta, tb, seed=5):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _jax_programs_compiled():
+def _jax_programs_compiled(_quick_jax_compiles):
     """The JAX package's side of the module's parametrised comparisons,
     run first on threads so that its programs compile side by side; each
     test then makes the same calls and compares as before."""

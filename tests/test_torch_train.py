@@ -52,6 +52,7 @@ from repro_torch.optim import dequantize_q8, tree_leaves
 
 from _torch_helpers import _quick_jax_compiles  # noqa: F401
 from _torch_helpers import _reset_port_stats, warm_jax  # noqa: F401
+from _torch_helpers import jax_init_f32
 
 B = 2
 SEQ = {"mixtral-8x22b": 96}    # past its SMOKE window of 64; the rest 64
@@ -70,7 +71,7 @@ def _configs(arch, remat="none"):
 @functools.lru_cache(maxsize=None)
 def _jax_params(arch):
     jc, _ = _configs(arch)
-    return jax.jit(lambda key: JM.init(key, jc)[0])(jax.random.PRNGKey(0))
+    return jax_init_f32(jc)
 
 
 def _port_params(arch):
